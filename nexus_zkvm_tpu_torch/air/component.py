@@ -31,15 +31,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops import field as F
+from ..utils.profile import scope
 from .expr import Felt, TorchBackend, NP
 from .lookups import LookupElements
 
 __all__ = [
     "Component", "ComponentInfo", "component_info", "InfoContext",
     "GenContext", "DomainEvalContext", "PointEvalContext",
-    "generate_interaction", "run_constraints", "run_constraints_domain",
-    "preprocessed_is_first", "MAX_CONSTRAINT_DEG",
+    "generate_interaction", "logup_operands", "logup_columns",
+    "logup_columns_plain",
+    "run_constraints", "run_constraints_domain", "preprocessed_is_first",
+    "MAX_CONSTRAINT_DEG",
 ]
 
 # constraints / v_n must fit the 4x eval domain
@@ -292,20 +296,75 @@ class GenContext(_BaseCtx):
 
 def generate_interaction(component, main_matrix, pre_matrix, relations,
                          log_size: int, device):
-    """Run evaluate() to collect fractions and build the LogUp columns.
+    """Run evaluate() to collect fractions and build the LogUp columns
+    (kernel K6 on a CUDA device).
 
     Returns ((B, M, 4) int32 natural-order columns, (4,) claimed sum
     tensor), or (None, None) for a component without lookups."""
-    ctx = GenContext(main_matrix, pre_matrix, relations, log_size, device,
-                     params=component.params())
-    component.evaluate(ctx)
-    if not ctx.entries:
-        return None, None
-    full = (1 << log_size, 4)
+    M = 1 << log_size
+    with scope("i:eval"):
+        ctx = GenContext(main_matrix, pre_matrix, relations, log_size,
+                         device, params=component.params())
+        component.evaluate(ctx)
+        if not ctx.entries:
+            return None, None
+        src, meta = logup_operands(_pair_entries(ctx.entries, ctx.be), M)
+    with scope("i:logup"):
+        out = logup_columns(src, meta, M)
+    return out, out[-1, -1]
+
+
+# operand modes of the LogUp kernel's packed input
+_M31_CONST, _M31_COL, _QM31_CONST, _QM31_COL = range(4)
+
+
+def logup_operands(pairs, M: int):
+    """Pack the (n1, d1, n2, d2) operands of every pair into one int32
+    buffer (on the operands' device) and a host (4, B, 2) int64 table of
+    (word offset, mode): constants and M31 columns are packed as they
+    are, not widened to (M, 4)."""
+    pieces, meta, off = [], [], 0
+    for k in range(4):
+        for pair in pairs:
+            f = pair[k // 2][k % 2]
+            v = f.v
+            if f.kind == "m31" and v.dim() == 0:
+                v, mode = v.reshape(1), _M31_CONST
+            elif f.kind == "m31" and tuple(v.shape) == (M,):
+                mode = _M31_COL
+            elif f.kind == "qm31" and tuple(v.shape) == (4,):
+                mode = _QM31_CONST
+            else:
+                v, mode = f.as_qm31().v.expand(M, 4).reshape(-1), _QM31_COL
+            pieces.append(v.reshape(-1).to(torch.int32))
+            meta.append((off, mode))
+            off += pieces[-1].numel()
+    meta = torch.tensor(meta, dtype=torch.int64).reshape(4, len(pairs), 2)
+    return torch.cat(pieces), meta
+
+
+def _operand(src, off: int, mode: int, M: int):
+    if mode == _M31_CONST:
+        return F.qm31_from_m31(src[off:off + 1].to(torch.int64))
+    if mode == _M31_COL:
+        return F.qm31_from_m31(src[off:off + M].to(torch.int64))
+    if mode == _QM31_CONST:
+        return src[off:off + 4].to(torch.int64)[None, :]
+    return src[off:off + 4 * M].to(torch.int64).reshape(M, 4)
+
+
+def logup_columns_plain(src, meta, M: int) -> torch.Tensor:
+    """(B, M, 4) int32: S_b = f_0 + .. + f_b for b < B - 1, then the
+    prefix sum over rows of the row totals; f_b = (n1·d2 + n2·d1) /
+    (d1·d2) for pair b of the packed operands."""
+    table = meta.tolist()
+    B = len(table[0])
     cols, running = [], None
-    for e1, e2 in _pair_entries(ctx.entries, ctx.be):
-        numer, dd = _pair_fraction(e1, e2, full)
-        frac = F.qm31_mul(numer, F.qm31_inv(dd))
+    for b in range(B):
+        n1, d1, n2, d2 = (_operand(src, *table[k][b], M) for k in range(4))
+        numer = F.qm31_add(F.qm31_mul(n1, d2), F.qm31_mul(n2, d1))
+        frac = F.qm31_mul(numer, F.qm31_inv(F.qm31_mul(d1, d2)))
+        frac = frac.expand(M, 4)
         if running is not None:
             cols.append(running.to(torch.int32))
             frac = F.qm31_add(running, frac)
@@ -314,18 +373,53 @@ def generate_interaction(component, main_matrix, pre_matrix, relations,
     # at most 2^31 rows keep the int64 sum exact
     cols.append(torch.remainder(torch.cumsum(running, dim=0), F.P)
                 .to(torch.int32))
-    out = torch.stack(cols)
-    return out, out[-1, -1]
+    return torch.stack(cols)
+
+
+def _check_meta(meta, n_words: int, M: int) -> None:
+    if meta.device.type != "cpu" or meta.dtype != torch.int64 or \
+            meta.dim() != 3 or meta.shape[0] != 4 or meta.shape[2] != 2 or \
+            meta.shape[1] == 0:
+        raise ValueError("meta must be a host (4, B, 2) int64 tensor, B > 0")
+    off, mode = meta[..., 0], meta[..., 1]
+    if not bool(((mode >= 0) & (mode <= 3) & (off >= 0)).all()):
+        raise ValueError("meta holds a bad mode or offset")
+    words = torch.tensor([1, M, 4, 4 * M])[mode]
+    if int((off + words).max()) > n_words:
+        raise ValueError("meta points outside the operand buffer")
+
+
+def logup_columns(src, meta, M: int) -> torch.Tensor:
+    """The LogUp columns of the packed pairs (see `logup_operands`; meta
+    stays on the host): launches ``csrc/logup.cu`` on a CUDA ``src``,
+    runs `logup_columns_plain` on a CPU one."""
+    _check_meta(meta, src.numel(), M)
+    if src.is_cuda:
+        kernels.check_cuda_tensor(src, "operands", ndim=1)
+        B = int(meta.shape[1])
+        meta_dev = meta.contiguous().to(src.device)
+        out = torch.empty((B, M, 4), dtype=torch.int32, device=src.device)
+        scratch = torch.empty(((M + 255) // 256, 4), dtype=torch.int32,
+                              device=src.device)
+        kernels.launch("logup_columns", src.data_ptr(), meta_dev.data_ptr(),
+                       B, M, out.data_ptr(), scratch.data_ptr())
+        return out
+    if src.device.type == "cpu":
+        return logup_columns_plain(src, meta, M)
+    raise ValueError(f"unsupported device {src.device}")
 
 
 class DomainEvalContext(_BaseCtx):
     """Composition evaluation on the 4x domain (natural order).
 
-    Constraints are collected and combined at the end as
-    sum_j alpha^(K-1-j)·c_j — the verifier's Horner order — into one
-    int64 accumulator, one constraint at a time."""
+    Constraints combine as sum_j alpha^(K-1-j)·c_j — the verifier's
+    Horner order — in chunks of CHUNK: each full chunk is summed with
+    its own alpha powers and folded into the accumulator as
+    acc·alpha^k + chunk, so at most CHUNK constraint tensors are held
+    at once."""
     accumulates = True
     EXTRA = 4   # eval-domain rows per trace row
+    CHUNK = 64
 
     def __init__(self, main_evals, pre_evals, inter_evals, is_first_evals,
                  relations, claimed, alpha, device, params=None):
@@ -336,36 +430,49 @@ class DomainEvalContext(_BaseCtx):
         self._inter = inter_evals    # (B, M, 4)
         self._is_first = is_first_evals
         self._alpha = np.asarray(alpha, np.uint64)
-        self._collected = []         # Felt per constraint
+        self._collected = []         # Felt per constraint of this chunk
+        self._total = None           # (M, 4) canonical, earlier chunks
+        pows = np.empty((self.CHUNK + 1, 4), np.uint64)
+        pows[0] = F.np_qm31(np.uint64(1))
+        for e in range(1, self.CHUNK + 1):
+            pows[e] = F.np_qm31_mul(pows[e - 1], self._alpha)
+        self._pows = pows            # alpha^0 .. alpha^CHUNK
 
     def _accumulate(self, f: Felt):
         self._collected.append(f)
+        if len(self._collected) == self.CHUNK:
+            self._fold_chunk()
 
     def _accumulate_vec(self, arr, count: int):
         for b in range(count):
-            self._collected.append(Felt(arr[b], "qm31", self.be))
+            self._accumulate(Felt(arr[b], "qm31", self.be))
 
-    def finalize_acc(self):
-        if not self._collected:
-            self.acc = None
-            return None
-        K = len(self._collected)
-        pows = np.empty((K, 4), np.uint64)
-        pows[0] = F.np_qm31(np.uint64(1))
-        for e in range(1, K):
-            pows[e] = F.np_qm31_mul(pows[e - 1], self._alpha)
-        w = self.be.qconst(pows)
-        total = None
+    def _fold_chunk(self):
+        k = len(self._collected)
+        w = self.be.qconst(self._pows[:k])
+        chunk = None
         for j, f in enumerate(self._collected):
-            wj = w[K - 1 - j]
+            wj = w[k - 1 - j]
             if f.kind == "m31":
                 term = F.m31_mul(wj, F._i64(f.v)[..., None])
             else:
                 term = F.qm31_mul(wj, f.v)
-            total = term if total is None else total + term
+            chunk = term if chunk is None else chunk + term
         self._collected = []
-        self.acc = Felt(torch.remainder(total, F.P), "qm31", self.be)
-        return self.acc.v
+        chunk = torch.remainder(chunk, F.P)
+        if self._total is None:
+            self._total = chunk
+        else:
+            self._total = F.qm31_add(
+                F.qm31_mul(self._total, self.be.qconst(self._pows[k])),
+                chunk)
+
+    def finalize_acc(self):
+        if self._collected:
+            self._fold_chunk()
+        total, self._total = self._total, None
+        self.acc = None if total is None else Felt(total, "qm31", self.be)
+        return None if total is None else total
 
     def _roll(self, c, off):
         return torch.roll(c, -off * self.EXTRA, 0) if off else c

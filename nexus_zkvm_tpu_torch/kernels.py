@@ -4,13 +4,15 @@ Each source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface and loaded with
 ``ctypes``.  The build happens at first use, into ``build/kernels/`` at
 the repository root, one ``nvcc`` per source, all started together.  A
-library's file name carries a digest of its sources, so an edited
-source is rebuilt and an unchanged one is loaded as is.
+library's file name carries a digest of its source and the local
+headers it includes, so an edited source is rebuilt and an unchanged one
+is loaded as is.
 
-Every C entry point launches exactly one kernel on the caller's current
-stream and returns ``cudaGetLastError()``; :func:`launch` raises if that
-is not 0 and adds one to the kernel's launch count.  Nothing here runs
-at import time: the CPU tests import every module.
+Every C entry point launches one kernel (in one or more passes) on the
+caller's current stream and returns ``cudaGetLastError()``;
+:func:`launch` raises if that is not 0 and adds one to the kernel's
+launch count.  Nothing here runs at import time: the CPU tests import
+every module.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,6 +52,9 @@ KERNELS = {
                         _I, _I, _L, _P]),
     "fri_fold": ("fri", "nzt_fri_fold",
                  [_P, _P, _L, _P, _U, _U, _U, _U, _P, _P, _U, _U, _U, _U]),
+    "cpu_fill": ("fill", "nzt_cpu_fill", [_P, _L] + [_U] * 7 + [_P, _P]),
+    "logup_columns": ("logup", "nzt_logup_columns",
+                      [_P, _P, _I, _L, _P, _P]),
 }
 
 _LAUNCHES = {name: 0 for name in KERNELS}
@@ -64,11 +70,23 @@ def _nvcc() -> str:
     return cand
 
 
+def _inputs(source: str) -> list:
+    """``source``.cu and the local headers it includes, recursively."""
+    seen, todo = set(), [f"{source}.cu"]
+    while todo:
+        name = todo.pop()
+        if name not in seen:
+            seen.add(name)
+            todo += re.findall(r'#include "([^"]+)"',
+                               (CSRC / name).read_text())
+    return sorted(seen)
+
+
 def _lib_path(source: str) -> Path:
     h = hashlib.blake2s()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{source}.cu"]:
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
+    for name in _inputs(source):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"lib{source}-{h.hexdigest()[:16]}.so"
 
 

@@ -338,8 +338,10 @@ def _composition(components, infos, plan, log_sizes, relations,
 
 def prove(components, log_sizes, main_traces, channel,
           config: PcsConfig = PcsConfig(), device="cuda") -> Proof:
-    """components: list of Component; main_traces: per component a list
-    of natural-order uint32 numpy columns of size 2^log_sizes[c].  The
+    """components: list of Component; main_traces: per component either
+    a list of natural-order uint32 numpy columns of size 2^log_sizes[c]
+    or one (n_main, 2^log_sizes[c]) int32 tensor (committed as it is,
+    without a host round trip when it already lies on ``device``).  The
     traces are read, never modified."""
     dev = resolve_device(device)
     infos = [component_info(c) for c in components]
@@ -357,11 +359,16 @@ def prove(components, log_sizes, main_traces, channel,
         blocks, block_logs = [], []
         for c in range(len(components)):
             tr = main_traces[c]
-            assert len(tr) == infos[c].n_main
-            for col in tr:
-                assert col.shape == (1 << log_sizes[c],)
+            shape = (infos[c].n_main, 1 << log_sizes[c])
+            if isinstance(tr, torch.Tensor):
+                assert tuple(tr.shape) == shape and tr.dtype == torch.int32
+            else:
+                assert len(tr) == infos[c].n_main
+                for col in tr:
+                    assert col.shape == shape[1:]
             if infos[c].n_main:
-                blocks.append(np.stack([np.asarray(col, np.uint32)
+                blocks.append(tr if isinstance(tr, torch.Tensor) else
+                              np.stack([np.asarray(col, np.uint32)
                                         for col in tr]))
                 block_logs.append(log_sizes[c])
         rc_main = pcs.commit_blocks("main", blocks, block_logs, blowup, dev)

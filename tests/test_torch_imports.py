@@ -19,15 +19,22 @@ ROOT = Path(__file__).resolve().parent.parent
 _PROBE = textwrap.dedent("""
     import importlib, pkgutil, re, sys
     import nexus_zkvm_tpu_torch as pkg
+    # Python modules only: the native emulator's shared library is
+    # built next to its loader
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
-                                                   pkg.__name__ + ".")]
+                                                   pkg.__name__ + ".")
+             if m.ispkg or m.module_finder.find_spec(
+                 m.name.rsplit(".", 1)[-1]).origin.endswith(".py")]
     for name in names:
         importlib.import_module(name)
     bad = [m for m in sys.modules
            if re.fullmatch(r"jax(\\..*)?|jaxlib(\\..*)?", m)
            or re.fullmatch(r"nexus_zkvm_tpu(\\..*)?", m)]
-    print(len(names), "modules;", "leaked:", bad)
-    sys.exit(1 if bad or len(names) < 15 else 0)
+    subpackages = {n.split(".")[1] for n in names}
+    missing = {"air", "machine", "ops", "precompiles", "prover", "sdk",
+               "utils", "vm"} - subpackages
+    print(len(names), "modules;", "leaked:", bad, "missing:", missing)
+    sys.exit(1 if bad or missing or len(names) < 45 else 0)
 """)
 
 
