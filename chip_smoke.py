@@ -6,16 +6,23 @@
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. build   — compile every CUDA source of ``nexus_zkvm_tpu_torch/csrc``
-             with nvcc for sm_90a; print the card's name and power limit.
+             (nine kernels, K1-K9) with nvcc for sm_90a; print the
+             card's name and power limit.
 2. kernel  — every kernel against its plain PyTorch version on the same
              CUDA tensors (uint32 equality), first at the shapes of the
-             synthetic slice (phase 4), then, timed, at the largest
-             shapes the machine proof (phase 5) gives it: its time, the
-             plain version's time and the bound the card sets for the
-             work.  The CPU trace fill (K5) runs on a mixed-opcode
-             program and on the step record of the fib guest at 2^20
-             rows; the LogUp columns (K6) on the fractions of that
-             trace's CPU component; K1-K4 at that proof's shapes (see
+             synthetic slice (phase 4), then, timed, at the shapes the
+             machine proof (phase 5) gives it: its time, the plain
+             version's time and the bound the card sets for the work.
+             The CPU trace fill (K5) runs on a mixed-opcode program and
+             on the step record of the fib guest at 2^20 rows.  A fib
+             proof at that size is then recorded on the card: every
+             call of the constraint tapes (K7: the composition of every
+             component over its 4x domain, the CPU component's 2^22
+             rows and keccak included, and every component's LogUp
+             operands), of the LogUp columns (K6), of the OODS dots (K8,
+             every (role, size, offset) group) and of the opening gather
+             (K9) is run again through the kernel and the plain version
+             on its own inputs.  K1-K4 at that proof's shapes (see
              `check_prover_kernels`).
 3. parity  — a proof at 2^10 rows on the CPU (plain path) and on the
              card (kernels) must be equal field by field.
@@ -48,6 +55,8 @@ follow a simple model: an M31 product (widening multiply and fold) is 6
 operations, an M31 add or subtract 3, a Blake2s compression 968 (80 G
 mixes of 12: a three-input add counts once, as IADD3 does it, and so
 does a three-input xor, as LOP3 does it; plus 8 for the output xors).
+A constraint tape (K7) counts the field operations of its instructions
+(`tape_cost`), not the interpreter's decode.
 """
 
 from __future__ import annotations
@@ -219,6 +228,12 @@ REPLACES = {
     "fri_fold": ("fri.cu", "nexus_zkvm_tpu/ops/fri.py:209"),
     "cpu_fill": ("fill.cu", "nexus_zkvm_tpu/machine/fill_dev.py:143"),
     "logup_columns": ("logup.cu", "nexus_zkvm_tpu/air/component.py:346"),
+    "air_eval_composition": ("air_eval.cu",
+                             "nexus_zkvm_tpu/air/component.py:601"),
+    "air_eval_operands": ("air_eval.cu",
+                          "nexus_zkvm_tpu/air/component.py:346"),
+    "oods_dot": ("oods.cu", "nexus_zkvm_tpu/prover/stark.py:197"),
+    "gather_openings": ("gather.cu", "nexus_zkvm_tpu/ops/merkle.py:440"),
 }
 
 # integer operations of a CPU-fill row besides its three M31 inverses
@@ -375,19 +390,11 @@ def logup_ops(meta) -> int:
 
 def check_machine_kernels(full: bool = True) -> dict:
     """K5 on the mixed-opcode program and on the fib guest's step record
-    (2^20 rows when ``full``); K6 on the LogUp fractions of that trace's
-    CPU component, as the prover's interaction phase builds them; K1-K4
-    at the shapes of that trace's machine proof."""
+    (2^20 rows when ``full``); K6-K9 on the recorded calls of a proof of
+    that trace (`check_recorded`); K1-K4 at the shapes of that proof."""
     import torch
-    import nexus_zkvm_tpu_torch as T
-    from nexus_zkvm_tpu_torch.air.component import (
-        GenContext, component_info, logup_columns, logup_columns_plain,
-        logup_operands, _pair_entries)
-    from nexus_zkvm_tpu_torch.air.lookups import draw_relations
     from nexus_zkvm_tpu_torch.machine import fill_dev
-    from nexus_zkvm_tpu_torch.machine.driver import (
-        build_components, build_machine_traces, _clog2)
-    from nexus_zkvm_tpu_torch.prover.stark import _relation_widths
+    from nexus_zkvm_tpu_torch.machine.driver import build_components, _clog2
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     from nexus_zkvm_tpu_torch.utils.device import from_u32
     from nexus_zkvm_tpu_torch.vm import asm, k_trace
@@ -411,42 +418,191 @@ def check_machine_kernels(full: bool = True) -> dict:
           lambda: fill_dev.cpu_fill(rows, prm),
           lambda: fill_dev.cpu_fill_plain(rows, prm),
           *fill_cost(comps, rows), full)
-    view, trace = LocalProver(fib_guest()).trace(
-        public_input=encode_u32s(FIB_N if full else 50))
+    n = FIB_N if full else 50
+    view, trace = LocalProver(fib_guest()).trace(public_input=encode_u32s(n))
     comps, log, rows, prm = rows_of(view, trace)
     if full and log != FULL_LOG:
         raise RuntimeError(f"fib({FIB_N}) gives a 2^{log} CPU component")
-    N = 1 << log
-    rec = check("cpu_fill", [len(rows), N],
+    rec = check("cpu_fill", [len(rows), 1 << log],
                 lambda: fill_dev.cpu_fill(rows, prm),
                 lambda: fill_dev.cpu_fill_plain(rows, prm),
                 *fill_cost(comps, rows), full)
     if "ms" in rec:
         timed["cpu_fill"] = rec
-    del rows
-    comps, log_sizes, traces = build_machine_traces(view, trace, device=dev)
-    mat = traces[0]
-    del traces
-    # K6 --------------------------------------------------------------------
-    cpu = comps[0]
-    relations = draw_relations(T.Blake2sChannel(), _relation_widths(
-        [component_info(c) for c in comps]))
-    ctx = GenContext(mat, None, relations, log, dev, params=cpu.params())
-    cpu.evaluate(ctx)
-    src, meta = logup_operands(_pair_entries(ctx.entries, ctx.be), N)
-    del ctx, mat
-    B = int(meta.shape[1])
-    words = {0: 1, 1: N, 2: 4, 3: 4 * N}
-    in_bytes = 4 * sum(words[m] for m in meta[..., 1].reshape(-1).tolist())
-    rec = check("logup_columns", [B, N, 4],
-                lambda: logup_columns(src, meta, N),
-                lambda: logup_columns_plain(src, meta, N),
-                in_bytes + 16 * B * N, N * logup_ops(meta), full, reps=5)
-    if "ms" in rec:
-        timed["logup_columns"] = rec
-    del src
+    del rows, trace
+    log_sizes, recorded = record_main_path(n)
+    timed.update(check_recorded(recorded, full))
+    del recorded
+    torch.cuda.empty_cache()
     timed.update(check_prover_kernels(comps, log_sizes))
     return timed
+
+
+# the wrappers whose calls a recorded proof keeps: (module, function)
+RECORDED = {
+    "air_eval_composition": ("nexus_zkvm_tpu_torch.air.tape",
+                             "air_eval_composition"),
+    "air_eval_operands": ("nexus_zkvm_tpu_torch.air.tape",
+                          "air_eval_operands"),
+    "logup_columns": ("nexus_zkvm_tpu_torch.air.tape", "logup_columns"),
+    "oods_dot": ("nexus_zkvm_tpu_torch.prover.stark", "oods_dot"),
+    "decommit_many_fused": ("nexus_zkvm_tpu_torch.ops.merkle",
+                            "decommit_many_fused"),
+}
+
+
+def record_main_path(n: int, device="cuda"):
+    """Prove the fib guest at ``n`` on the card with the wrappers of
+    K6-K9 wrapped: each call's arguments are kept (the composition's
+    bucket as it was before the call) and the call goes on.  Returns
+    (log sizes, {name: [args]})."""
+    import importlib
+    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
+    calls = {name: [] for name in RECORDED}
+    saved = []
+    for name, (mod, fn) in RECORDED.items():
+        m = importlib.import_module(mod)
+        orig = getattr(m, fn)
+
+        def wrapped(*args, _orig=orig, _name=name):
+            kept = list(args)
+            if _name == "air_eval_composition":
+                kept[-1] = args[-1].clone()
+            calls[_name].append(kept)
+            return _orig(*args)
+        saved.append((m, fn, orig))
+        setattr(m, fn, wrapped)
+    try:
+        _v, proof = LocalProver(fib_guest(), device=device) \
+            .prove_with_input(public_input=encode_u32s(n))
+    finally:
+        for m, fn, orig in saved:
+            setattr(m, fn, orig)
+    return proof.stark.log_sizes, calls
+
+
+def tape_cost(tape, N: int) -> tuple:
+    """Bytes and operations of one K7 launch over N rows: every loaded
+    column read once, the outputs written once (composition: 1 / v_n
+    read, the (N, 4) bucket read and written; operands: the packed
+    buffer); per row the field operations of the tape's instructions
+    (an emit adds its constraint times a row-independent QM31 weight:
+    four M31 products for an M31 constraint, a QM31 product for a QM31
+    one, and a QM31 add) and the composition epilogue."""
+    from nexus_zkvm_tpu_torch.air import tape as tp
+    code = tape.program[:, 0]
+    per_row = (MUL * int((code == tp.K_MUL).sum())
+               + ADD * int(np.isin(code, (tp.K_ADD, tp.K_SUB, tp.K_NEG))
+                           .sum())
+               + (4 * MUL + 4 * ADD) * int((code == tp.K_EMIT1).sum())
+               + (QM31_MUL + 4 * ADD) * int((code == tp.K_EMITQ_HI).sum()))
+    cols = len({(r, c) for r, c, _o in tape.loads.tolist()})
+    nbytes = 4 * N * cols
+    if tape.kind == "domain":
+        per_row += 4 * MUL + QM31_MUL + 4 * ADD
+        nbytes += 4 * N + 32 * N
+    else:
+        nbytes += 4 * tape.n_words
+    return nbytes, N * per_row
+
+
+def check_recorded(calls, timed_run: bool) -> dict:
+    """Every recorded call of K6-K9 again through the kernel and its
+    plain version, uint32-exact; timed (``timed_run``) at the largest:
+    the CPU component's composition and operands (K7) and LogUp columns
+    (K6), the largest OODS group (K8), the whole opening gather (K9)."""
+    import torch
+    from nexus_zkvm_tpu_torch.air import component as cmp, tape as tp
+    from nexus_zkvm_tpu_torch.ops import merkle
+    from nexus_zkvm_tpu_torch.prover import stark
+    out = {}
+
+    def keep(rec):
+        if "ms" in rec:
+            out[rec["name"]] = rec
+
+    # K7, composition: every component over its 4x domain
+    comps = sorted(calls["air_eval_composition"], key=lambda a: -a[3])
+    for i, (tape, mats, uni, N, alpha, shift, invv, bucket) in \
+            enumerate(comps):
+        def kernel():
+            b = bucket.clone()
+            tp.air_eval_composition(tape, mats, uni, N, alpha, shift,
+                                    invv, b)
+            return b
+
+        def plain():
+            b = bucket.clone()
+            tp.air_eval_composition_plain(tape, mats, uni, N, alpha, shift,
+                                          invv, b)
+            return b
+        rec = check("air_eval_composition",
+                    [len(tape.program), tape.n_slots, N], kernel, plain,
+                    *tape_cost(tape, N), timed_run and i == 0, reps=5,
+                    plain_reps=1)
+        keep(rec)
+    # K7, operands: every component with lookups over its trace domain
+    ops = sorted(calls["air_eval_operands"], key=lambda a: -a[3])
+    for i, (tape, mats, uni, N) in enumerate(ops):
+        keep(check("air_eval_operands", [len(tape.program), tape.n_slots, N],
+                   lambda: tp.air_eval_operands(tape, mats, uni, N),
+                   lambda: tp.air_eval_operands_plain(tape, mats, uni, N),
+                   *tape_cost(tape, N), timed_run and i == 0, reps=5,
+                   plain_reps=1))
+    # K6 on the CPU component's operands (the largest)
+    src, meta, M = max(calls["logup_columns"], key=lambda a: a[2])
+    B = int(meta.shape[1])
+    words = {0: 1, 1: M, 2: 4, 3: 4 * M}
+    in_bytes = 4 * sum(words[m] for m in meta[..., 1].reshape(-1).tolist())
+    keep(check("logup_columns", [B, M, 4],
+               lambda: cmp.logup_columns(src, meta, M),
+               lambda: cmp.logup_columns_plain(src, meta, M),
+               in_bytes + 16 * B * M, M * logup_ops(meta), timed_run,
+               reps=5))
+    # K8: every (role, size, offset) group of the proof
+    groups = sorted(calls["oods_dot"], key=lambda a: -a[0].numel())
+    for i, (cols, factors) in enumerate(groups):
+        C, N = (int(x) for x in cols.shape)
+        k = min(stark.OODS_LO_BITS, len(factors))
+        rec = check("oods_dot", [C, N],
+                    lambda: stark.oods_dot(cols, factors),
+                    lambda: stark.oods_dot_plain(cols, factors),
+                    4 * C * N + 16 * C,
+                    C * N * 4 * (MUL + ADD)
+                    + C * (N >> k) * (QM31_MUL + 4 * ADD),
+                    timed_run and i == 0, plain_reps=1)
+        keep(rec)
+    if timed_run:
+        emit({"phase": "oods_groups", "groups": len(groups),
+              "all_groups_ms": cuda_ms(
+                  lambda: [stark.oods_dot(c, f) for c, f in groups], 3)})
+    # K9: the proof's openings, one gather; its host tables (descriptors,
+    # indices) are built once and timed apart from the launch
+    (args,) = calls["decommit_many_fused"]
+    pieces = []
+    for tree, pos in args[0]:
+        vals, sibs = merkle._pieces(tree, pos)
+        pieces += vals + sibs
+    words = sum(p.words for p in pieces)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables = merkle.gather_tables(pieces)
+    torch.cuda.synchronize()
+    tables_ms = (time.perf_counter() - t0) * 1e3
+    keep(check("gather_openings", [len(pieces), words],
+               lambda: merkle.gather_launch(*tables),
+               lambda: merkle.gather_openings_plain(pieces),
+               8 * words + 8 * (9 * len(pieces)
+                                + sum(len(p.idx) for p in pieces)),
+               0, timed_run, plain_reps=3))
+    emit({"phase": "recorded", "compositions": len(comps),
+          "operand_tapes": len(ops), "oods_groups": len(groups),
+          "opening_pieces": len(pieces), "opening_words": words,
+          "gather_tables_host_ms": tables_ms,
+          "tapes": [{"component_rows": c[3], "instructions": len(c[0].program),
+                     "slots": c[0].n_slots, "loads": len(c[0].loads),
+                     "uniforms": len(c[2])} for c in comps]})
+    return out
 
 
 def check_prover_kernels(comps, log_sizes) -> dict:
@@ -636,166 +792,6 @@ def fib_u32(n: int) -> int:
     return a
 
 
-# ---------------------------------------------------------------------------
-# Bounds of the device programs that are still plain PyTorch (rows 11-13)
-# ---------------------------------------------------------------------------
-
-class CountingBackend:
-    """The numpy Felt backend with a tally of 32-bit operations per trace
-    row, under the same operation model as the kernels' bounds: each
-    result element counts its operation once, per row of the evaluation
-    (values shared by all rows, as constants, are not counted)."""
-    name = "np"
-
-    def __init__(self, rows: int):
-        from nexus_zkvm_tpu_torch.air.expr import NP
-        self.np, self.rows, self.ops = NP, rows, 0.0
-
-    def _tally(self, out, per_element):
-        size = np.asarray(out).size
-        if size >= self.rows:
-            self.ops += per_element * size / self.rows
-        return out
-
-    def m31_add(self, a, b):
-        return self._tally(self.np.m31_add(a, b), ADD)
-
-    def m31_sub(self, a, b):
-        return self._tally(self.np.m31_sub(a, b), ADD)
-
-    def m31_neg(self, a):
-        return self._tally(self.np.m31_neg(a), ADD)
-
-    def m31_mul(self, a, b):
-        return self._tally(self.np.m31_mul(a, b), MUL)
-
-    def qm31_mul(self, a, b):
-        return self._tally(self.np.qm31_mul(a, b), QM31_MUL / 4)
-
-    def qm31_mul_m31(self, q, m):
-        return self._tally(self.np.qm31_mul_m31(q, m), MUL)
-
-    def embed(self, m):
-        return self.np.embed(m)
-
-    def const(self, x):
-        return self.np.const(x)
-
-    def qconst(self, x):
-        return self.np.qconst(x)
-
-
-def constraint_ops_per_row(comp) -> float:
-    """Operations per evaluation row of one component's composition:
-    its constraints and LogUp constraints as evaluate() writes them, the
-    alpha accumulation of each, the division by v_n, the alpha shift and
-    the bucket add."""
-    from nexus_zkvm_tpu_torch.air.component import (InfoContext,
-                                                    _finalize_logup)
-    from nexus_zkvm_tpu_torch.air.expr import Felt
-
-    class Counting(InfoContext):
-        def __init__(self, params, be):
-            super().__init__(params=params)
-            self.be = be
-
-        def _felt(self, f):
-            return Felt(f.v, f.kind, self.be, f.deg)
-
-        def main(self, i, off=0):
-            return self._felt(super().main(i, off))
-
-        def pre(self, j, off=0):
-            return self._felt(super().pre(j, off))
-
-        def inter(self, b, off=0):
-            return self._felt(super().inter(b, off))
-
-        @property
-        def is_first(self):
-            return self._felt(InfoContext.is_first.fget(self))
-
-    be = CountingBackend(InfoContext.ROWS)
-    ctx = Counting(comp.params(), be)
-    comp.evaluate(ctx)
-    _finalize_logup(ctx)
-    K = ctx.n_constraints
-    return be.ops + K * (QM31_MUL + 4 * ADD) + 4 * MUL + QM31_MUL + 4 * ADD
-
-
-def interaction_eval_cost(comps, log_sizes):
-    """Bytes and operations of the evaluate part of the interaction phase
-    (table row 10b), which builds the operands K6 takes: every main and
-    preprocessed column read once; per fraction and row, its denominator
-    sum_i alpha^i v_i - z (QM31 x M31 products and QM31 adds) written as
-    a QM31, and its numerator written as an M31 where it is a column.
-    The tuple values' own expressions are not counted."""
-    from nexus_zkvm_tpu_torch.air.component import InfoContext
-    from nexus_zkvm_tpu_torch.air.expr import Felt
-
-    class Fractions(InfoContext):
-        def __init__(self, params):
-            super().__init__(params=params)
-            self.fractions = []        # (numerator is a column, width)
-
-        def add_fraction(self, mult, rel, values):
-            column = isinstance(mult, Felt) and np.asarray(mult.v).size > 1
-            self.fractions.append((column, len(values)))
-            super().add_fraction(mult, rel, values)
-
-    ops = nbytes = 0.0
-    for comp, n in zip(comps, log_sizes):
-        ctx = Fractions(comp.params())
-        comp.evaluate(ctx)
-        rows = 1 << n
-        nbytes += 4 * rows * (comp.n_main + len(comp.preprocessed(4)))
-        for column, w in ctx.fractions:
-            nbytes += rows * (16 + 4 * column)
-            ops += rows * ((w - 1) * (4 * MUL + 4 * ADD) + 4 * ADD)
-    return nbytes, ops
-
-
-def plain_phase_bounds(comps, log_sizes, proof, config) -> dict:
-    """Least times of the plain-PyTorch programs of a proof (table rows
-    10b-13) from its shapes: the interaction phase's evaluate part,
-    composition over the 4x domains, the OODS Kron-basis dots, and the
-    opening gather."""
-    from nexus_zkvm_tpu_torch.air.component import component_info
-    from nexus_zkvm_tpu_torch.prover.stark import build_plan
-    infos = [component_info(c) for c in comps]
-    nbytes, ops = interaction_eval_cost(comps, log_sizes)
-    out = {"interaction_eval": dict(zip(("bound_ms", "bound_by"),
-                                        bound(nbytes, ops)),
-                                    ops=ops, bytes=nbytes)}
-    ops = nbytes = 0.0
-    for comp, info, n in zip(comps, infos, log_sizes):
-        rows = 1 << (n + 2)
-        ops += constraint_ops_per_row(comp) * rows
-        nbytes += rows * (4 * (info.n_main + info.n_pre + 1)
-                          + 16 * info.n_logup_cols + 16)
-    out["composition"] = dict(zip(("bound_ms", "bound_by"),
-                                  bound(nbytes, ops)), ops=ops, bytes=nbytes)
-    plan = build_plan(log_sizes, infos, config)
-    ops = nbytes = 0.0
-    groups = {}
-    for m in plan.metas:
-        nbytes += 4 * (1 << m.trace_log)
-        for o in m.offsets:
-            groups[(m.role, m.trace_log, o)] = \
-                groups.get((m.role, m.trace_log, o), 0) + 1
-    for (_role, tlog, _o), C in groups.items():
-        ops += (1 << tlog) * (C * 4 * (MUL + ADD) + QM31_MUL)
-    out["oods"] = dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)),
-                       ops=ops, bytes=nbytes)
-    decs = [d for v in proof.openings.values() for _s, d in v] \
-        + list(proof.fri_proof.inner_decommitments)
-    nbytes = 2 * sum(sum(len(v) * 4 for v in d.column_values)
-                     + len(d.sibling_hashes) * 32 for d in decs)
-    out["openings"] = dict(zip(("bound_ms", "bound_by"), bound(nbytes, 0)),
-                           ops=0, bytes=nbytes)
-    return out
-
-
 def phase_machine() -> dict:
     """The fib guest through LocalProver on the card at a 2^20-row CPU
     component; returns the launch counts of that run."""
@@ -855,11 +851,6 @@ def phase_machine() -> dict:
     if missing:
         raise RuntimeError(f"kernels not launched on the machine path: "
                            f"{missing}")
-    from nexus_zkvm_tpu_torch.machine.driver import build_components
-    comps = build_components(view, 1)[0]
-    emit({"phase": "plain_bounds", "log_sizes": proof.stark.log_sizes,
-          "programs": plain_phase_bounds(comps, proof.stark.log_sizes,
-                                         proof.stark, prover.config)})
     emit({"phase": "machine", "guest": "examples/guests/fib.s", "n": FIB_N,
           "steps": steps, "cpu_log_rows": cpu_log,
           "log_sizes": proof.stark.log_sizes, "verified": True,

@@ -1,8 +1,8 @@
 """AIR constraint framework: Felt algebra, components, LogUp lookups."""
 
-from .expr import Felt, TorchBackend, NP
+from .expr import Felt, NP
 from .lookups import LookupElements
 from .component import (
-    Component, ComponentInfo, component_info, GenContext,
-    DomainEvalContext, PointEvalContext, generate_interaction,
+    Component, ComponentInfo, component_info, PointEvalContext,
 )
+from .tape import generate_interaction

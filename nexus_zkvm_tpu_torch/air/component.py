@@ -1,14 +1,17 @@
 """Components and evaluation contexts — the single-source AIR runner.
 
 A ``Component`` declares its main-trace width, optional preprocessed
-columns and one ``evaluate(ctx)`` method, which runs under four
-interchangeable contexts:
+columns and one ``evaluate(ctx)`` method, which runs under these
+contexts:
 
 * ``InfoContext``       — shape collection on 4-row dummy data (numpy).
-* ``GenContext``        — LogUp interaction generation over the trace
-  domain, natural order (torch; offsets are rolls).
-* ``DomainEvalContext`` — composition evaluation over the 4x domain
-  (torch; offset o is a roll by 4·o).
+* ``TapeGenContext`` / ``TapeDomainContext`` (``air/tape.py``) — record
+  evaluate() once as an M31 program (a tape) for the interaction
+  operands and the composition over the 4x domain; kernel K7
+  (``csrc/air_eval.cu``) runs it over every row, or its plain
+  interpreter on the CPU.  ``air/tape.py`` builds on this module (the
+  contexts' base, the LogUp constraints and pairing, the load roles and
+  K6's operand modes); this module does not import it.
 * ``PointEvalContext``  — the verifier's out-of-domain check (numpy).
 
 Components written against the JAX package's ``Component``/``Felt`` API
@@ -33,17 +36,16 @@ import torch
 
 from .. import kernels
 from ..ops import field as F
-from ..utils.profile import scope
-from .expr import Felt, TorchBackend, NP
+from .expr import Felt, NP
 from .lookups import LookupElements
 
 __all__ = [
-    "Component", "ComponentInfo", "component_info", "InfoContext",
-    "GenContext", "DomainEvalContext", "PointEvalContext",
-    "generate_interaction", "logup_operands", "logup_columns",
-    "logup_columns_plain",
-    "run_constraints", "run_constraints_domain", "preprocessed_is_first",
-    "MAX_CONSTRAINT_DEG",
+    "Component", "ComponentInfo", "component_info", "BaseContext",
+    "InfoContext", "PointEvalContext", "finalize_logup", "pair_entries",
+    "logup_columns", "logup_columns_plain", "run_constraints",
+    "preprocessed_is_first", "MAX_CONSTRAINT_DEG",
+    "MAIN", "PRE", "INTER", "ISF",
+    "M31_CONST", "M31_COL", "QM31_CONST", "QM31_COL",
 ]
 
 # constraints / v_n must fit the 4x eval domain
@@ -64,6 +66,11 @@ class Component:
         """Scalar parameters read through ``ctx.param(name)``."""
         return {}
 
+    def jit_key(self):
+        """Cache key of the component's tapes: everything ``evaluate``
+        bakes in besides the log size and ``params()``."""
+        return (type(self), self.name, self.n_main)
+
     def evaluate(self, ctx):
         raise NotImplementedError
 
@@ -74,7 +81,7 @@ def preprocessed_is_first(log_size: int) -> np.ndarray:
     return col
 
 
-class _BaseCtx:
+class BaseContext:
     accumulates = False
 
     def __init__(self, be, relations=None, claimed=None, params=None):
@@ -125,7 +132,7 @@ class _BaseCtx:
             self._accumulate(Felt(arr[b], "qm31", self.be))
 
 
-def _pair_entries(entries, be):
+def pair_entries(entries, be):
     entries = list(entries)
     if len(entries) % 2:
         entries.append((Felt.const(0, be),
@@ -133,23 +140,10 @@ def _pair_entries(entries, be):
     return [(entries[i], entries[i + 1]) for i in range(0, len(entries), 2)]
 
 
-def _pair_fraction(e1, e2, shape=None):
-    """(N, D) of n1/d1 + n2/d2 as QM31 payloads."""
-    (n1, d1), (n2, d2) = e1, e2
-    n1, d1, n2, d2 = (x.as_qm31().v for x in (n1, d1, n2, d2))
-    numer = F.qm31_add(F.qm31_mul(n1, d2), F.qm31_mul(n2, d1))
-    dd = F.qm31_mul(d1, d2)
-    if shape is not None:
-        numer, dd = numer.expand(shape), dd.expand(shape)
-    return numer, dd
-
-
-def _finalize_logup(ctx):
+def finalize_logup(ctx):
     """Emit the LogUp column constraints for the collected entries."""
     if not ctx.entries:
         return
-    if ctx.be.name == "torch":
-        return _finalize_logup_torch(ctx)
     batches = [ctx.entries[i:i + 2] for i in range(0, len(ctx.entries), 2)]
     nb = len(batches)
     claimed = ctx.claimed
@@ -172,26 +166,7 @@ def _finalize_logup(ctx):
         ctx.constraint(lhs * dd - numer)
 
 
-def _finalize_logup_torch(ctx):
-    """Same constraints as the loop above, one batch at a time (keeps
-    the device working set to one (M, 4) batch)."""
-    pairs = _pair_entries(ctx.entries, ctx.be)
-    nb = len(pairs)
-    cons, prev = [], None
-    for b, (e1, e2) in enumerate(pairs):
-        inter_b = ctx.inter(b, 0).v
-        numer, dd = _pair_fraction(e1, e2, inter_b.shape)
-        lhs = inter_b if prev is None else F.qm31_sub(inter_b, prev)
-        if b == nb - 1:
-            lhs = F.qm31_add(lhs, F.qm31_sub(
-                (ctx.is_first * ctx.claimed).as_qm31().v,
-                ctx.inter(b, -1).v))
-        cons.append(F.qm31_sub(F.qm31_mul(lhs, dd), numer))
-        prev = inter_b
-    ctx.constraint_vec(cons, nb)
-
-
-class InfoContext(_BaseCtx):
+class InfoContext(BaseContext):
     """Shape collection on 4-row dummy data (numpy)."""
     ROWS = 4
 
@@ -243,7 +218,7 @@ def component_info(component) -> ComponentInfo:
     ctx = InfoContext(params=component.params())
     component.evaluate(ctx)
     nb = (len(ctx.entries) + 1) // 2
-    _finalize_logup(ctx)
+    finalize_logup(ctx)
     n_pre = len(component.preprocessed(4))
     return ComponentInfo(
         n_main=component.n_main, n_pre=n_pre, n_logup_cols=nb,
@@ -257,98 +232,20 @@ def component_info(component) -> ComponentInfo:
         relation_widths=dict(ctx.relation_widths))
 
 
-class GenContext(_BaseCtx):
-    """Interaction generation over the trace domain (natural order).
-    Columns live in one (C, M) matrix per role."""
-
-    def __init__(self, main_matrix, pre_matrix, relations, log_size: int,
-                 device, params=None):
-        super().__init__(TorchBackend(device), relations=relations,
-                         params=params)
-        self.log_size = log_size
-        self._main = main_matrix
-        self._pre = pre_matrix
-
-    def _row(self, mat, i, off):
-        c = mat[i]
-        return Felt(torch.roll(c, -off, 0) if off else c, "m31", self.be)
-
-    def main(self, i: int, off: int = 0) -> Felt:
-        return self._row(self._main, i, off)
-
-    def pre(self, j: int, off: int = 0) -> Felt:
-        return self._row(self._pre, j, off)
-
-    def main_block(self, lo: int, hi: int, off: int = 0) -> Felt:
-        c = self._main[lo:hi]
-        return Felt(torch.roll(c, -off, -1) if off else c, "m31", self.be)
-
-    @property
-    def is_first(self) -> Felt:
-        col = torch.zeros(1 << self.log_size, dtype=torch.int64,
-                          device=self.be.device)
-        col[0] = 1
-        return Felt(col, "m31", self.be)
-
-    def inter(self, b, off=0):
-        raise RuntimeError("interaction columns not available during gen")
-
-
-def generate_interaction(component, main_matrix, pre_matrix, relations,
-                         log_size: int, device):
-    """Run evaluate() to collect fractions and build the LogUp columns
-    (kernel K6 on a CUDA device).
-
-    Returns ((B, M, 4) int32 natural-order columns, (4,) claimed sum
-    tensor), or (None, None) for a component without lookups."""
-    M = 1 << log_size
-    with scope("i:eval"):
-        ctx = GenContext(main_matrix, pre_matrix, relations, log_size,
-                         device, params=component.params())
-        component.evaluate(ctx)
-        if not ctx.entries:
-            return None, None
-        src, meta = logup_operands(_pair_entries(ctx.entries, ctx.be), M)
-    with scope("i:logup"):
-        out = logup_columns(src, meta, M)
-    return out, out[-1, -1]
-
-
 # operand modes of the LogUp kernel's packed input
-_M31_CONST, _M31_COL, _QM31_CONST, _QM31_COL = range(4)
-
-
-def logup_operands(pairs, M: int):
-    """Pack the (n1, d1, n2, d2) operands of every pair into one int32
-    buffer (on the operands' device) and a host (4, B, 2) int64 table of
-    (word offset, mode): constants and M31 columns are packed as they
-    are, not widened to (M, 4)."""
-    pieces, meta, off = [], [], 0
-    for k in range(4):
-        for pair in pairs:
-            f = pair[k // 2][k % 2]
-            v = f.v
-            if f.kind == "m31" and v.dim() == 0:
-                v, mode = v.reshape(1), _M31_CONST
-            elif f.kind == "m31" and tuple(v.shape) == (M,):
-                mode = _M31_COL
-            elif f.kind == "qm31" and tuple(v.shape) == (4,):
-                mode = _QM31_CONST
-            else:
-                v, mode = f.as_qm31().v.expand(M, 4).reshape(-1), _QM31_COL
-            pieces.append(v.reshape(-1).to(torch.int32))
-            meta.append((off, mode))
-            off += pieces[-1].numel()
-    meta = torch.tensor(meta, dtype=torch.int64).reshape(4, len(pairs), 2)
-    return torch.cat(pieces), meta
+M31_CONST, M31_COL, QM31_CONST, QM31_COL = range(4)
+# the roles a constraint tape loads from: the main and preprocessed
+# matrices, the interaction matrix (row 4b + t is coordinate t of batch
+# b) and is_first
+MAIN, PRE, INTER, ISF = range(4)
 
 
 def _operand(src, off: int, mode: int, M: int):
-    if mode == _M31_CONST:
+    if mode == M31_CONST:
         return F.qm31_from_m31(src[off:off + 1].to(torch.int64))
-    if mode == _M31_COL:
+    if mode == M31_COL:
         return F.qm31_from_m31(src[off:off + M].to(torch.int64))
-    if mode == _QM31_CONST:
+    if mode == QM31_CONST:
         return src[off:off + 4].to(torch.int64)[None, :]
     return src[off:off + 4 * M].to(torch.int64).reshape(M, 4)
 
@@ -409,94 +306,7 @@ def logup_columns(src, meta, M: int) -> torch.Tensor:
     raise ValueError(f"unsupported device {src.device}")
 
 
-class DomainEvalContext(_BaseCtx):
-    """Composition evaluation on the 4x domain (natural order).
-
-    Constraints combine as sum_j alpha^(K-1-j)·c_j — the verifier's
-    Horner order — in chunks of CHUNK: each full chunk is summed with
-    its own alpha powers and folded into the accumulator as
-    acc·alpha^k + chunk, so at most CHUNK constraint tensors are held
-    at once."""
-    accumulates = True
-    EXTRA = 4   # eval-domain rows per trace row
-    CHUNK = 64
-
-    def __init__(self, main_evals, pre_evals, inter_evals, is_first_evals,
-                 relations, claimed, alpha, device, params=None):
-        super().__init__(TorchBackend(device), relations=relations,
-                         claimed=claimed, params=params)
-        self._main = main_evals      # (C, M)
-        self._pre = pre_evals        # (P, M)
-        self._inter = inter_evals    # (B, M, 4)
-        self._is_first = is_first_evals
-        self._alpha = np.asarray(alpha, np.uint64)
-        self._collected = []         # Felt per constraint of this chunk
-        self._total = None           # (M, 4) canonical, earlier chunks
-        pows = np.empty((self.CHUNK + 1, 4), np.uint64)
-        pows[0] = F.np_qm31(np.uint64(1))
-        for e in range(1, self.CHUNK + 1):
-            pows[e] = F.np_qm31_mul(pows[e - 1], self._alpha)
-        self._pows = pows            # alpha^0 .. alpha^CHUNK
-
-    def _accumulate(self, f: Felt):
-        self._collected.append(f)
-        if len(self._collected) == self.CHUNK:
-            self._fold_chunk()
-
-    def _accumulate_vec(self, arr, count: int):
-        for b in range(count):
-            self._accumulate(Felt(arr[b], "qm31", self.be))
-
-    def _fold_chunk(self):
-        k = len(self._collected)
-        w = self.be.qconst(self._pows[:k])
-        chunk = None
-        for j, f in enumerate(self._collected):
-            wj = w[k - 1 - j]
-            if f.kind == "m31":
-                term = F.m31_mul(wj, F._i64(f.v)[..., None])
-            else:
-                term = F.qm31_mul(wj, f.v)
-            chunk = term if chunk is None else chunk + term
-        self._collected = []
-        chunk = torch.remainder(chunk, F.P)
-        if self._total is None:
-            self._total = chunk
-        else:
-            self._total = F.qm31_add(
-                F.qm31_mul(self._total, self.be.qconst(self._pows[k])),
-                chunk)
-
-    def finalize_acc(self):
-        if self._collected:
-            self._fold_chunk()
-        total, self._total = self._total, None
-        self.acc = None if total is None else Felt(total, "qm31", self.be)
-        return None if total is None else total
-
-    def _roll(self, c, off):
-        return torch.roll(c, -off * self.EXTRA, 0) if off else c
-
-    def main(self, i, off=0):
-        return Felt(self._roll(self._main[i], off), "m31", self.be)
-
-    def main_block(self, lo: int, hi: int, off: int = 0) -> Felt:
-        c = self._main[lo:hi]
-        return Felt(torch.roll(c, -off * self.EXTRA, -1) if off else c,
-                    "m31", self.be)
-
-    def pre(self, j, off=0):
-        return Felt(self._roll(self._pre[j], off), "m31", self.be)
-
-    def inter(self, b, off=0):
-        return Felt(self._roll(self._inter[b], off), "qm31", self.be)
-
-    @property
-    def is_first(self):
-        return Felt(self._is_first, "m31", self.be)
-
-
-class PointEvalContext(_BaseCtx):
+class PointEvalContext(BaseContext):
     """Verifier-side constraint evaluation at the OODS point (numpy)."""
     accumulates = True
 
@@ -528,18 +338,5 @@ class PointEvalContext(_BaseCtx):
 def run_constraints(component, ctx):
     """Run evaluate + LogUp finalize; returns (acc Felt | None, count)."""
     component.evaluate(ctx)
-    _finalize_logup(ctx)
-    if hasattr(ctx, "finalize_acc"):
-        ctx.finalize_acc()
+    finalize_logup(ctx)
     return ctx.acc, ctx.n_constraints
-
-
-def run_constraints_domain(component, main_evals, pre_evals, inter_evals,
-                           isf_evals, relations, claimed, alpha, device):
-    """Composition accumulator over the 4x domain: ((M, 4) int64 | None,
-    n_constraints)."""
-    ctx = DomainEvalContext(main_evals, pre_evals, inter_evals, isf_evals,
-                            relations, claimed, alpha, device,
-                            params=component.params())
-    acc, k = run_constraints(component, ctx)
-    return (None if acc is None else acc.v), k

@@ -1,12 +1,13 @@
-"""Felt: field-element expressions over M31/QM31 with a torch or numpy payload.
+"""Felt: field-element expressions over M31/QM31 with a numpy payload.
 
 AIR constraints are written once against ``Felt`` operators and run
 in two backends:
 
-* :class:`TorchBackend` — interaction generation and composition over
-  all rows (M31 payload (M,), QM31 (M, 4), int64 working values) on
-  the backend's device;
-* ``NP`` — the verifier's out-of-domain check on numpy scalars.
+* ``tape`` (``air/tape.py``) — payloads are node ids: one run records
+  the constraints as an M31 program for the interaction operands and
+  the composition over all rows;
+* ``NP`` — shape collection and the verifier's out-of-domain check on
+  numpy values.
 
 Mixed-kind arithmetic takes the cheap path (``qm31 * m31`` is four M31
 products).  ``deg`` tracks the algebraic degree in committed columns so
@@ -18,34 +19,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from ..ops import field as F
 
-__all__ = ["Felt", "TorchBackend", "NP"]
-
-
-class TorchBackend:
-    name = "torch"
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-
-    m31_add = staticmethod(F.m31_add)
-    m31_sub = staticmethod(F.m31_sub)
-    m31_mul = staticmethod(F.m31_mul)
-    m31_neg = staticmethod(F.m31_neg)
-    qm31_mul = staticmethod(F.qm31_mul)
-    qm31_mul_m31 = staticmethod(F.qm31_mul_m31)
-    embed = staticmethod(F.qm31_from_m31)
-
-    def const(self, x):
-        return torch.tensor(int(x) % F.P, dtype=torch.int64,
-                            device=self.device)
-
-    def qconst(self, x):
-        return torch.as_tensor(np.asarray(x).astype(np.int64),
-                               device=self.device)
+__all__ = ["Felt", "NP"]
 
 
 class _NpBackend:
@@ -94,9 +71,9 @@ NP = _NpBackend()
 
 @dataclass
 class Felt:
-    v: object          # torch / numpy payload
+    v: object          # numpy payload (values or tape node ids)
     kind: str          # 'm31' | 'qm31'
-    be: object         # TorchBackend or NP
+    be: object         # NP or a TapeBackend
     deg: int = 1       # algebraic degree in committed columns
 
     @staticmethod

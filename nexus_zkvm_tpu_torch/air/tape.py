@@ -1,0 +1,1002 @@
+"""Constraint tapes: a component's ``evaluate()`` recorded once as an M31
+program and run over every row.
+
+Components write their constraints once against ``Felt`` operators.
+Under the ``tape`` backend a payload is a numpy array of node ids (dtype
+:data:`ID`), so one run of ``evaluate()`` records the component's whole
+expression DAG, one numpy call per ``Felt`` operation whatever its
+width (keccak's 1,600-wide vectors included):
+
+* QM31 operations expand into M31 operations on the host, with the
+  formulas of ``ops/field.py`` (``qm31 * m31`` is four products), so the
+  row program has only load / add / sub / mul / neg.
+* Constants fold, and x + 0, x - 0, x * 1 and x * 0 simplify.  A payload
+  that is not an ``ID`` array is a constant (keccak wraps a numpy 0/1
+  mask as a ``Felt``).
+* A node that reads no row is row-independent: the relations' z and
+  alpha powers and the claimed sum enter as inputs, and everything
+  derived from them and from constants is evaluated once per launch on
+  the host into a table of uniforms.  Loads (role, column, offset) and
+  constants are deduplicated.
+
+Two contexts record.  :class:`TapeDomainContext` (composition) reads
+the 4x evaluation domain and emits one constraint at a time in the
+order the verifier accumulates them; :class:`TapeGenContext`
+(interaction) outputs the (n1, d1, n2, d2) operands of every LogUp pair
+in the packed layout and modes kernel K6 reads.  :func:`domain_tape`
+and :func:`gen_tape` cache the compiled tape per (component, log size,
+params), so proofs and challenges reuse it.
+
+A compiled :class:`Tape` carries two schedules of the same DAG:
+
+* the kernel's (K7, ``csrc/air_eval.cu``): one instruction stream for
+  every row, ordered depth-first from each output so that values die
+  soon after they are made, with slots assigned by liveness; loads and
+  uniforms are operands, not instructions; constraint j's emit adds
+  alpha^(K-1-j) c_j to the accumulator, its weight a table entry;
+* the plain interpreter's (:func:`air_eval_plain`): the row-dependent
+  nodes grouped by DAG level and opcode, one gather and one op per
+  group, over row chunks whose value table fits a memory budget.
+
+The prover reaches the tapes through :func:`generate_interaction` (the
+operands, then K6's LogUp columns) and :func:`accumulate_composition`,
+whose wrappers launch K7 on CUDA tensors and run the plain interpreter
+on CPU ones.  This module builds on ``air/component.py``, which does not
+import it.
+
+Print every machine component's tape length and slot count with
+``python -m nexus_zkvm_tpu_torch.air.tape`` (CPU only).
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops import field as F
+from ..ops.field import np_qm31, np_qm31_mul
+from ..utils.device import dev_const
+from ..utils.profile import scope
+from .component import (MAIN, PRE, INTER, ISF, M31_CONST, M31_COL,
+                        QM31_CONST, QM31_COL, BaseContext, finalize_logup,
+                        logup_columns, pair_entries, preprocessed_is_first)
+from .expr import Felt
+from .lookups import LookupElements
+
+__all__ = ["ID", "Tape", "TapeBackend", "TapeDomainContext",
+           "TapeGenContext", "domain_tape", "gen_tape", "air_eval_plain",
+           "air_eval_composition", "air_eval_composition_plain",
+           "composition_uniforms", "constraint_weights",
+           "air_eval_operands", "air_eval_operands_plain",
+           "generate_interaction", "accumulate_composition", "tape_stats"]
+
+P = F.P
+ID = np.dtype([("n", np.int64)])          # a payload of node ids
+
+# node kinds; a leaf keeps its constant value, input index or load index
+# in ``val``, an operation its operands in ``a`` / ``b`` (b = -1 for neg)
+CONST, INPUT, LOAD, ADD, SUB, MUL, NEG = range(7)
+# kernel opcodes (csrc/air_eval.cu)
+K_ADD, K_SUB, K_MUL, K_NEG, K_EMIT1, K_EMITQ_LO, K_EMITQ_HI, K_STORE = \
+    range(8)
+# operand word: kind in bits 30-31, index below
+OPD_SLOT, OPD_UNIFORM, OPD_LOAD = 0, 1 << 30, 2 << 30
+
+
+def _wrap(ids) -> np.ndarray:
+    ids = np.asarray(ids, np.int64)
+    out = np.empty(ids.shape, ID)
+    out["n"] = ids
+    return out
+
+
+def _fold(op, a, b):
+    """Constant folding on int64 canonical values."""
+    if op == ADD:
+        return (a + b) % P
+    if op == SUB:
+        return (a - b) % P
+    if op == MUL:
+        return (a * b) % P
+    return (-a) % P
+
+
+class Recorder:
+    """The node arrays of one recording (grown in bulk)."""
+
+    _FIELDS = (("op", np.int8), ("a", np.int64), ("b", np.int64),
+               ("val", np.int64), ("lvl", np.int32), ("row", np.bool_))
+
+    def __init__(self):
+        self.n, self._cap = 0, 0
+        for name, dt in self._FIELDS:
+            setattr(self, name, np.zeros(0, dt))
+        self._consts: dict = {}        # value -> id
+        self.inputs: list = []         # input index -> key
+        self._input_ids: dict = {}     # key -> id
+        self.loads: list = []          # load index -> (role, col, off)
+        self._load_tabs: dict = {}     # (role, off) -> id per column (-1)
+
+    def _new(self, op, a, b, val, lvl, row) -> np.ndarray:
+        k = len(a)
+        if self.n + k > self._cap:
+            cap = max(self.n + k, 2 * self._cap, 4096)
+            for name, dt in self._FIELDS:
+                arr = np.zeros(cap, dt)
+                arr[:self.n] = getattr(self, name)[:self.n]
+                setattr(self, name, arr)
+            self._cap = cap
+        ids = np.arange(self.n, self.n + k)
+        self.op[ids], self.a[ids], self.b[ids] = op, a, b
+        self.val[ids], self.lvl[ids], self.row[ids] = val, lvl, row
+        self.n += k
+        return ids
+
+    def trim(self):
+        for name, _dt in self._FIELDS:
+            setattr(self, name, getattr(self, name)[:self.n])
+        self._cap = self.n
+
+    # -- leaves -------------------------------------------------------------
+    def consts(self, values) -> np.ndarray:
+        v = np.asarray(values).astype(np.int64) % P
+        uniq, inv = np.unique(v, return_inverse=True)
+        ids = np.empty(len(uniq), np.int64)
+        for k, x in enumerate(uniq.tolist()):
+            i = self._consts.get(x)
+            if i is None:
+                i = int(self._new(CONST, [-1], [-1], [x], 0, False)[0])
+                self._consts[x] = i
+            ids[k] = i
+        return ids[inv.reshape(-1)].reshape(v.shape)
+
+    def input(self, key) -> int:
+        i = self._input_ids.get(key)
+        if i is None:
+            i = int(self._new(INPUT, [-1], [-1], [len(self.inputs)], 0,
+                              False)[0])
+            self.inputs.append(key)
+            self._input_ids[key] = i
+        return i
+
+    def input_array(self, prefix, shape) -> np.ndarray:
+        k = int(np.prod(shape, dtype=np.int64))
+        return np.asarray([self.input(prefix + (j,)) for j in range(k)],
+                          np.int64).reshape(shape)
+
+    def load(self, role: int, cols, off: int) -> np.ndarray:
+        cols = np.asarray(cols, np.int64)
+        tab = self._load_tabs.get((role, off), np.zeros(0, np.int64))
+        need = int(cols.max()) + 1 if cols.size else 0
+        if len(tab) < need:
+            tab = np.concatenate([tab, np.full(need - len(tab), -1)])
+            self._load_tabs[(role, off)] = tab
+        missing = np.unique(cols[tab[cols] < 0])
+        if len(missing):
+            first = len(self.loads)
+            self.loads += [(role, int(c), int(off)) for c in missing]
+            tab[missing] = self._new(
+                LOAD, np.full(len(missing), -1), np.full(len(missing), -1),
+                np.arange(first, first + len(missing)), 0, True)
+        return tab[cols]
+
+    # -- operations ---------------------------------------------------------
+    def binary(self, op: int, a, b) -> np.ndarray:
+        a, b = np.broadcast_arrays(np.asarray(a, np.int64),
+                                   np.asarray(b, np.int64))
+        shape = a.shape
+        a, b = a.ravel(), b.ravel()
+        out = np.full(a.size, -1, np.int64)
+        ca, cb = self.op[a] == CONST, self.op[b] == CONST
+        va, vb = np.where(ca, self.val[a], -1), np.where(cb, self.val[b], -1)
+        both = ca & cb
+        if both.any():
+            out[both] = self.consts(_fold(op, va[both], vb[both]))
+        todo = ~both
+        if op in (ADD, SUB):
+            m = todo & (vb == 0)
+            out[m] = a[m]
+            todo &= ~m
+            m = todo & (va == 0)
+            if m.any():
+                out[m] = b[m] if op == ADD else self.neg(b[m])
+                todo &= ~m
+        elif op == MUL:
+            m = todo & ((va == 0) | (vb == 0))
+            if m.any():
+                out[m] = self.consts(0)
+                todo &= ~m
+            m = todo & (vb == 1)
+            out[m] = a[m]
+            todo &= ~m
+            m = todo & (va == 1)
+            out[m] = b[m]
+            todo &= ~m
+        if todo.any():
+            x, y = a[todo], b[todo]
+            out[todo] = self._new(op, x, y, -1,
+                                  np.maximum(self.lvl[x], self.lvl[y]) + 1,
+                                  self.row[x] | self.row[y])
+        return out.reshape(shape)
+
+    def neg(self, a) -> np.ndarray:
+        a = np.asarray(a, np.int64)
+        shape, a = a.shape, a.ravel()
+        out = np.full(a.size, -1, np.int64)
+        c = self.op[a] == CONST
+        if c.any():
+            out[c] = self.consts(_fold(NEG, self.val[a[c]], None))
+        if (~c).any():
+            x = a[~c]
+            out[~c] = self._new(NEG, x, np.full(len(x), -1), -1,
+                                self.lvl[x] + 1, self.row[x])
+        return out.reshape(shape)
+
+    def add(self, a, b):
+        return self.binary(ADD, a, b)
+
+    def sub(self, a, b):
+        return self.binary(SUB, a, b)
+
+    def mul(self, a, b):
+        return self.binary(MUL, a, b)
+
+
+def _cm31_mul(r, ar, ai, br, bi):
+    return (r.sub(r.mul(ar, br), r.mul(ai, bi)),
+            r.add(r.mul(ar, bi), r.mul(ai, br)))
+
+
+def _qm31_mul(r, x, y):
+    """(A + B u)(C + D u) = AC + R BD + (AD + BC) u, R = 2 + i, on id
+    arrays (..., 4): the formula of ``ops/field.py``."""
+    x, y = np.broadcast_arrays(x, y)
+    ac = _cm31_mul(r, x[..., 0], x[..., 1], y[..., 0], y[..., 1])
+    bd = _cm31_mul(r, x[..., 2], x[..., 3], y[..., 2], y[..., 3])
+    ad = _cm31_mul(r, x[..., 0], x[..., 1], y[..., 2], y[..., 3])
+    bc = _cm31_mul(r, x[..., 2], x[..., 3], y[..., 0], y[..., 1])
+    rb0 = r.sub(r.add(bd[0], bd[0]), bd[1])
+    rb1 = r.add(r.add(bd[1], bd[1]), bd[0])
+    return np.stack([r.add(ac[0], rb0), r.add(ac[1], rb1),
+                     r.add(ad[0], bc[0]), r.add(ad[1], bc[1])], axis=-1)
+
+
+class TapeBackend:
+    """``Felt`` backend whose payloads are node-id arrays (``ID``)."""
+    name = "tape"
+
+    def __init__(self, rec: Recorder):
+        self.rec = rec
+
+    def ids(self, x) -> np.ndarray:
+        """int64 node ids of a payload; a raw number array is a constant."""
+        a = np.asarray(x)
+        return a["n"] if a.dtype == ID else self.rec.consts(a)
+
+    def m31_add(self, a, b):
+        return _wrap(self.rec.add(self.ids(a), self.ids(b)))
+
+    def m31_sub(self, a, b):
+        return _wrap(self.rec.sub(self.ids(a), self.ids(b)))
+
+    def m31_mul(self, a, b):
+        return _wrap(self.rec.mul(self.ids(a), self.ids(b)))
+
+    def m31_neg(self, a):
+        return _wrap(self.rec.neg(self.ids(a)))
+
+    def qm31_mul(self, x, y):
+        return _wrap(_qm31_mul(self.rec, self.ids(x), self.ids(y)))
+
+    def qm31_mul_m31(self, q, m):
+        return _wrap(self.rec.mul(self.ids(q), self.ids(m)[..., None]))
+
+    def embed(self, m):
+        m = self.ids(m)
+        z = np.broadcast_to(self.rec.consts(0), m.shape)
+        return _wrap(np.stack([m, z, z, z], axis=-1))
+
+    def const(self, x):
+        return _wrap(self.rec.consts(int(x) % P))
+
+    def qconst(self, x):
+        return _wrap(self.ids(x))
+
+
+class _TapeCtx(BaseContext):
+    """Reads record loads; relations, claimed sum are inputs."""
+    STRIDE = 1                     # eval rows per trace row
+
+    def __init__(self, relations, params):
+        rec = Recorder()
+        be = TapeBackend(rec)
+        sym = {name: LookupElements(
+                   name=name, width=r.width,
+                   z=_wrap(rec.input_array(("z", name), (4,))),
+                   alpha_pows=_wrap(rec.input_array(("pow", name),
+                                                    (r.width, 4))))
+               for name, r in relations.items()}
+        super().__init__(be, relations=sym,
+                         claimed=_wrap(rec.input_array(("claimed",), (4,))),
+                         params=params)
+        self.rec = rec
+
+    def _load(self, role, cols, off, kind="m31"):
+        return Felt(_wrap(self.rec.load(role, cols, off)), kind, self.be)
+
+    def main(self, i: int, off: int = 0) -> Felt:
+        return self._load(MAIN, i, off)
+
+    def main_block(self, lo: int, hi: int, off: int = 0) -> Felt:
+        return self._load(MAIN, np.arange(lo, hi), off)
+
+    def pre(self, j: int, off: int = 0) -> Felt:
+        return self._load(PRE, j, off)
+
+    @property
+    def is_first(self) -> Felt:
+        return self._load(ISF, 0, 0)
+
+
+class TapeDomainContext(_TapeCtx):
+    """Composition: every constraint is an EMIT, in evaluate() order and
+    then the LogUp constraints of `finalize_logup`."""
+    accumulates = True
+    STRIDE = 4
+
+    def __init__(self, relations, params):
+        super().__init__(relations, params)
+        self.emits = []            # (k, 4) node-id blocks
+
+    def inter(self, b: int, off: int = 0) -> Felt:
+        return self._load(INTER, 4 * b + np.arange(4), off, "qm31")
+
+    def _accumulate(self, f: Felt):
+        self.emits.append(self.be.ids(f.as_qm31().v).reshape(1, 4))
+
+    def _accumulate_vec(self, arr, count: int):
+        ids = self.be.ids(arr if isinstance(arr, np.ndarray)
+                          else np.asarray(list(arr)))
+        self.emits.append(ids.reshape(count, 4))
+
+
+class TapeGenContext(_TapeCtx):
+    """Interaction: collects the LogUp fractions."""
+
+    def inter(self, b, off=0):
+        raise RuntimeError("interaction columns not available during gen")
+
+
+# ---------------------------------------------------------------------------
+# The compiled tape
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Tape:
+    """One component's compiled tape (see the module docstring)."""
+    kind: str                  # "domain" | "gen"
+    stride: int                # load offsets are multiplied by it
+    n_constraints: int
+    loads: np.ndarray          # (L, 3) role, column, offset
+    inputs: list               # key of every input leaf of the uniform graph
+    program: np.ndarray        # (I, 4) int32 kernel instructions
+    n_slots: int
+    n_nodes: int               # reachable nodes (all kinds)
+    # host evaluation of the uniforms: compact value space over the
+    # reachable row-independent nodes
+    u_const: tuple             # (positions, values) of constants
+    u_input: np.ndarray        # positions of inputs, in ``inputs`` order
+    u_groups: list             # (op, lo, hi, a, b) by level
+    u_table: np.ndarray        # positions of the uniform table entries
+    u_size: int
+    # plain interpreter: value space = [uniform table | loads | row ops]
+    p_groups: list             # (op, lo, hi, a, b) by level
+    p_size: int
+    emits: np.ndarray          # (K, 4) value indices (domain)
+    stores: np.ndarray         # (S, 3) value index, word base, stride (gen)
+    meta: torch.Tensor = None  # (4, B, 2) K6 operand table (gen)
+    n_words: int = 0           # words of the packed operand buffer (gen)
+    _dev: dict = field(default_factory=dict, repr=False)
+
+    def uniforms(self, relations, claimed) -> np.ndarray:
+        """(U,) int64 uniform table for these challenges."""
+        v = np.zeros(self.u_size, np.int64)
+        pos, vals = self.u_const
+        v[pos] = vals
+        for p, key in zip(self.u_input.tolist(), self.inputs):
+            if key[0] == "claimed":
+                v[p] = int(np.asarray(claimed).reshape(-1)[key[1]])
+            else:
+                r = relations[key[1]]
+                src = r.z if key[0] == "z" else r.alpha_pows
+                v[p] = int(np.asarray(src).reshape(-1)[key[2]])
+        v %= P
+        for op, lo, hi, a, b in self.u_groups:
+            v[lo:hi] = _fold(op, v[a], None if b is None else v[b])
+        return v[self.u_table]
+
+    def _on(self, name, arr, device) -> torch.Tensor:
+        key = (name, str(device))
+        if key not in self._dev:
+            self._dev[key] = torch.from_numpy(
+                np.ascontiguousarray(arr)).to(device)
+        return self._dev[key]
+
+    def device_program(self, device) -> torch.Tensor:
+        """The (I, 4) int32 instruction stream on ``device`` (cached)."""
+        return self._on("program", self.program, device)
+
+    def device_stores(self, device) -> torch.Tensor:
+        """(S, 2) int64 word base and row stride of every STORE."""
+        return self._on("stores", self.stores[:, 1:], device)
+
+
+def _reachable(rec: Recorder, roots) -> np.ndarray:
+    reach = np.zeros(rec.n, bool)
+    front = np.unique(np.asarray(roots, np.int64))
+    while front.size:
+        reach[front] = True
+        a, b = rec.a[front], rec.b[front]
+        nxt = np.concatenate([a[a >= 0], b[b >= 0]])
+        nxt = np.unique(nxt)
+        front = nxt[~reach[nxt]]
+    return reach
+
+
+def _level_order(rec, nodes) -> np.ndarray:
+    """Op nodes sorted by (DAG level, opcode)."""
+    return nodes[np.lexsort((rec.op[nodes], rec.lvl[nodes]))]
+
+
+def _group_list(order, rec, index, base):
+    """[(op, lo, hi, a, b)] for runs of one (level, opcode) in ``order``,
+    which occupies value positions base.. ; operands through ``index``
+    (node -> value position)."""
+    out = []
+    if not len(order):
+        return out
+    key = rec.lvl[order].astype(np.int64) * 8 + rec.op[order]
+    cuts = np.flatnonzero(np.diff(key)) + 1
+    for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(order)]):
+        nodes = order[lo:hi]
+        op = int(rec.op[nodes[0]])
+        a = index[rec.a[nodes]]
+        b = None if op == NEG else index[rec.b[nodes]]
+        out.append((op, base + int(lo), base + int(hi), a, b))
+    return out
+
+
+def _schedule(rec: Recorder, reach, outputs):
+    """The kernel's instruction stream: depth-first post-order from each
+    output (a list of (opcode, dst, operand nodes)); returns the order of
+    row-op nodes and the output positions interleaved."""
+    is_op = reach & rec.row & (rec.op >= ADD)
+    a_l, b_l, op_ok = rec.a.tolist(), rec.b.tolist(), is_op.tolist()
+    done = bytearray(rec.n)
+    seq = []                              # node id, or ~output index
+    for k, (_code, _dst, opnds) in enumerate(outputs):
+        for r in opnds:
+            if not op_ok[r] or done[r]:
+                continue
+            stack = [r]
+            while stack:
+                x = stack[-1]
+                if done[x]:
+                    stack.pop()
+                    continue
+                pushed = False
+                for y in (a_l[x], b_l[x]):
+                    if y >= 0 and op_ok[y] and not done[y]:
+                        stack.append(y)
+                        pushed = True
+                if not pushed:
+                    done[x] = 1
+                    seq.append(x)
+                    stack.pop()
+        seq.append(~k)
+    return seq
+
+
+def _kernel_program(rec: Recorder, seq, rowop, word, outputs,
+                    n_uniforms: int):
+    """The (I, 4) int32 instructions of the stream ``seq`` and its slot
+    count: a row-op value takes a free slot when it is made and frees it
+    after its last use (an instruction reads its operands before it
+    writes, so its destination may reuse an operand's slot).  Constraint
+    j's emit carries the table index of its weight alpha^(K-1-j), four
+    words at n_uniforms + 4j (the composition wrapper appends the
+    weights to the uniforms)."""
+    a_l, b_l, row_op = rec.a.tolist(), rec.b.tolist(), rowop.tolist()
+
+    def operands(x):
+        return (a_l[x], b_l[x]) if x >= 0 else tuple(outputs[~x][2])
+
+    last = {}
+    for i, x in enumerate(seq):
+        for y in operands(x):
+            if y >= 0 and row_op[y]:
+                last[y] = i
+    slot, free, n_slots, prog = {}, [], 0, []
+
+    def w(y):
+        return slot[y] if row_op[y] else int(word[y])
+
+    for i, x in enumerate(seq):
+        for y in set(operands(x)):
+            if y >= 0 and row_op[y] and last[y] == i:
+                free.append(slot[y])
+        if x >= 0:
+            if free:
+                s = free.pop()
+            else:
+                s, n_slots = n_slots, n_slots + 1
+            slot[x] = s
+            op = int(rec.op[x])
+            code = {ADD: K_ADD, SUB: K_SUB, MUL: K_MUL, NEG: K_NEG}[op]
+            prog.append((code, s, w(a_l[x]),
+                         0 if op == NEG else w(b_l[x])))
+        else:
+            code, dst, opnds = outputs[~x]
+            ws = [w(y) for y in opnds]
+            if code == K_EMITQ_LO:
+                prog.append((K_EMITQ_LO, 0, ws[0], ws[1]))
+                prog.append((K_EMITQ_HI, n_uniforms + 4 * dst, ws[2],
+                             ws[3]))
+            elif code == K_EMIT1:
+                prog.append((K_EMIT1, n_uniforms + 4 * dst, ws[0], 0))
+            else:
+                prog.append((code, dst, ws[0], 0))
+    program = np.asarray(prog, np.int64).reshape(-1, 4) \
+        .astype(np.uint32).view(np.int32)
+    return np.ascontiguousarray(program), n_slots
+
+
+def _compile(rec: Recorder, kind: str, stride: int, outputs,
+             n_constraints: int, emits=None, stores=None, meta=None,
+             n_words: int = 0) -> Tape:
+    """outputs: [(kernel opcode, constraint or store index, operand node
+    ids)] in order."""
+    rec.trim()
+    roots = [x for _c, _d, opnds in outputs for x in opnds]
+    reach = _reachable(rec, roots) if roots else np.zeros(rec.n, bool)
+    ops = rec.op
+    rowop = reach & rec.row & (ops >= ADD)
+    uni = reach & ~rec.row
+    load_nodes = np.flatnonzero(reach & (ops == LOAD))
+
+    # the uniform table: row-independent operands of row ops and outputs
+    rn = np.flatnonzero(rowop)
+    used = np.concatenate([rec.a[rn], rec.b[rn], np.asarray(roots,
+                                                             np.int64)])
+    used = used[used >= 0]
+    table = np.unique(used[uni[used]])
+
+    # host evaluation of every reachable row-independent node
+    un = np.flatnonzero(uni)
+    leaves = un[ops[un] < ADD]
+    u_order = _level_order(rec, un[ops[un] >= ADD])
+    upos = np.full(rec.n, -1, np.int64)
+    upos[leaves] = np.arange(len(leaves))
+    upos[u_order] = len(leaves) + np.arange(len(u_order))
+    consts = leaves[ops[leaves] == CONST]
+    inputs = leaves[ops[leaves] == INPUT]
+    u_groups = _group_list(u_order, rec, upos, len(leaves))
+
+    # kernel: operand words of uniforms and loads, then the stream
+    word = np.zeros(rec.n, np.int64)
+    word[table] = OPD_UNIFORM | np.arange(len(table))
+    word[load_nodes] = OPD_LOAD | np.arange(len(load_nodes))
+    program, n_slots = _kernel_program(rec, _schedule(rec, reach, outputs),
+                                       rowop, word, outputs, len(table))
+
+    # plain: value space [uniform table | loads | row ops by level]
+    vpos = np.full(rec.n, -1, np.int64)
+    vpos[table] = np.arange(len(table))
+    base = len(table) + len(load_nodes)
+    vpos[load_nodes] = len(table) + np.arange(len(load_nodes))
+    p_order = _level_order(rec, rn)
+    vpos[p_order] = base + np.arange(len(p_order))
+    p_groups = _group_list(p_order, rec, vpos, base)
+
+    loads = np.asarray([rec.loads[int(v)] for v in rec.val[load_nodes]],
+                       np.int64).reshape(-1, 3)
+    return Tape(
+        kind=kind, stride=stride, n_constraints=n_constraints, loads=loads,
+        inputs=[rec.inputs[int(v)] for v in rec.val[inputs]],
+        program=program, n_slots=n_slots,
+        n_nodes=int(reach.sum()),
+        u_const=(upos[consts], rec.val[consts].copy()),
+        u_input=upos[inputs], u_groups=u_groups, u_table=upos[table],
+        u_size=len(un), p_groups=p_groups, p_size=base + len(p_order),
+        emits=(vpos[emits] if emits is not None
+               else np.zeros((0, 4), np.int64)),
+        stores=(np.concatenate([vpos[stores[:, :1]], stores[:, 1:]], axis=1)
+                if stores is not None else np.zeros((0, 3), np.int64)),
+        meta=meta, n_words=n_words)
+
+
+def _record_domain(component, relations) -> Tape:
+    ctx = TapeDomainContext(relations, component.params())
+    component.evaluate(ctx)
+    finalize_logup(ctx)
+    if not ctx.emits:
+        return None
+    emits = np.concatenate(ctx.emits)
+    zero = ctx.rec.consts(0)
+    outputs = []
+    for j, e in enumerate(emits.tolist()):
+        if e[1] == e[2] == e[3] == int(zero):
+            outputs.append((K_EMIT1, j, tuple(e)))
+        else:
+            outputs.append((K_EMITQ_LO, j, tuple(e)))
+    return _compile(ctx.rec, "domain", ctx.STRIDE, outputs,
+                    ctx.n_constraints, emits=emits)
+
+
+def _record_gen(component, relations, log_size: int) -> Tape:
+    """The operand packing of `logup_operands` in the eager port: for k
+    in (n1, d1, n2, d2), for every pair, its piece of the buffer."""
+    ctx = TapeGenContext(relations, component.params())
+    component.evaluate(ctx)
+    if not ctx.entries:
+        return None
+    rec, be = ctx.rec, ctx.be
+    M = 1 << log_size
+    pairs = pair_entries(ctx.entries, be)
+    meta, stores, outputs, off = [], [], [], 0
+    for k in range(4):
+        for pair in pairs:
+            f = pair[k // 2][k % 2]
+            ids = be.ids(f.v).reshape(-1)
+            row = bool(rec.row[ids].any())
+            if f.kind == "m31":
+                mode, words, coords = ((M31_COL, M, [(ids[0], 0, 1)]) if row
+                                       else (M31_CONST, 1, [(ids[0], 0, 0)]))
+            else:
+                mode, words = (QM31_COL, 4 * M) if row else (QM31_CONST, 4)
+                coords = [(ids[t], t, 4 if row else 0) for t in range(4)]
+            for node, t, step in coords:
+                outputs.append((K_STORE, len(stores), (int(node),)))
+                stores.append((int(node), off + t, step))
+            meta.append((off, mode))
+            off += words
+    meta = torch.tensor(meta, dtype=torch.int64).reshape(4, len(pairs), 2)
+    return _compile(rec, "gen", ctx.STRIDE, outputs, 0,
+                    stores=np.asarray(stores, np.int64), meta=meta,
+                    n_words=off)
+
+
+_CACHE: dict = {}
+_LOCK = threading.Lock()
+
+
+def _cached(kind, component, log_size, relations, build):
+    key = (kind, component.jit_key(), int(log_size),
+           tuple(sorted(component.params().items())))
+    with _LOCK:
+        if key in _CACHE:
+            return _CACHE[key]
+    tape = build()
+    with _LOCK:
+        _CACHE[key] = tape
+    return tape
+
+
+def domain_tape(component, log_size: int, relations) -> Tape | None:
+    """The composition tape of a component (None without constraints),
+    cached per (component, log size, params)."""
+    return _cached("domain", component, log_size, relations,
+                   lambda: _record_domain(component, relations))
+
+
+def gen_tape(component, log_size: int, relations) -> Tape | None:
+    """The interaction tape (None for a component without lookups)."""
+    return _cached("gen", component, log_size, relations,
+                   lambda: _record_gen(component, relations, log_size))
+
+
+# ---------------------------------------------------------------------------
+# The plain interpreter
+# ---------------------------------------------------------------------------
+
+_OPS = {ADD: F.m31_add, SUB: F.m31_sub, MUL: F.m31_mul}
+# value-table elements per row chunk: (values) x (rows) int64
+_BUDGET = {"cpu": 1 << 25, "cuda": 1 << 29}
+
+
+def constraint_weights(alpha, K: int) -> np.ndarray:
+    """(K, 4) uint64 alpha^(K-1-j) for j < K: constraint j's weight in
+    the verifier's Horner sum (powers by doubling, one numpy product
+    per doubling)."""
+    pows = np_qm31(np.ones(1, np.uint64))          # alpha^0
+    a = np.asarray(alpha, np.uint64)
+    while len(pows) < K:
+        pows = np.concatenate([pows, np_qm31_mul(pows, a)])
+        a = np_qm31_mul(a, a)
+    return np.ascontiguousarray(pows[:K][::-1])
+
+
+def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
+                   alpha=None, out: torch.Tensor = None) -> torch.Tensor:
+    """Interpret ``tape`` over N rows with torch int64.
+
+    mats: role -> (cols, N) int32 matrix (is_first as a (1, N) one);
+    uniforms: the table of :meth:`Tape.uniforms`.  A domain tape returns
+    the (N, 4) int64 canonical accumulator sum_j alpha^(K-1-j) c_j; a
+    gen tape writes the packed operand buffer ``out`` (int32) and
+    returns it."""
+    dev = next(iter(mats.values())).device
+    mask = N - 1
+    U = len(uniforms)
+    uni = torch.as_tensor(np.asarray(uniforms, np.int64), device=dev)
+    L = len(tape.loads)
+    budget = _BUDGET.get(dev.type, 1 << 25)
+    chunk = max(1, min(N, 1 << max(0, (budget // max(1, tape.p_size))
+                                   .bit_length() - 1)))
+    loads = torch.as_tensor(tape.loads, device=dev)
+    if tape.kind == "domain":
+        K = len(tape.emits)
+        w = torch.as_tensor(constraint_weights(alpha, K).astype(np.int64),
+                            device=dev)
+        emits = torch.as_tensor(tape.emits, device=dev)
+        acc = torch.empty((N, 4), dtype=torch.int64, device=dev)
+    else:
+        st = torch.as_tensor(tape.stores, device=dev)
+        col = st[:, 2] != 0
+        st_col, st_one = st[col], st[~col]
+    for r0 in range(0, N, chunk):
+        rows = torch.arange(r0, min(N, r0 + chunk), device=dev)
+        V = torch.empty((tape.p_size, len(rows)), dtype=torch.int64,
+                        device=dev)
+        V[:U] = uni[:, None]
+        for role in range(4):
+            sel = torch.nonzero(loads[:, 0] == role).reshape(-1)
+            if sel.numel():
+                idx = (rows[None, :] + tape.stride * loads[sel, 2:3]) & mask
+                V[U + sel] = mats[role][loads[sel, 1:2], idx].to(torch.int64)
+        for op, lo, hi, a, b in tape.p_groups:
+            a = torch.as_tensor(a, device=dev)
+            if op == NEG:
+                V[lo:hi] = F.m31_neg(V[a])
+            else:
+                V[lo:hi] = _OPS[op](V[a], V[torch.as_tensor(b, device=dev)])
+        if tape.kind == "domain":
+            part = torch.zeros((len(rows), 4), dtype=torch.int64, device=dev)
+            for j0 in range(0, K, 256):
+                c = V[emits[j0:j0 + 256]].permute(0, 2, 1)   # (k, R, 4)
+                part += F.qm31_mul(w[j0:j0 + 256, None, :], c).sum(dim=0)
+            acc[r0:r0 + len(rows)] = torch.remainder(part, P)
+        else:
+            vals = V[st_col[:, 0]]
+            pos = st_col[:, 1:2] + st_col[:, 2:3] * rows[None, :]
+            out[pos.reshape(-1)] = vals.reshape(-1).to(torch.int32)
+            if r0 == 0 and st_one.numel():
+                out[st_one[:, 1]] = V[st_one[:, 0], 0].to(torch.int32)
+    return acc if tape.kind == "domain" else out
+
+
+# ---------------------------------------------------------------------------
+# Kernel K7 (csrc/air_eval.cu), its plain versions, and the prover's calls
+# ---------------------------------------------------------------------------
+
+# K7 keeps a thread's slots in dynamic shared memory; a block's take at
+# most this many bytes (two blocks or more per SM)
+_SMEM_BLOCK_BYTES = 96 * 1024
+
+
+def _launch_geometry(n_slots: int):
+    """(threads per block, shared bytes) for a tape of ``n_slots``."""
+    for threads in (128, 64, 32):
+        if n_slots * threads * 4 <= _SMEM_BLOCK_BYTES:
+            return threads, n_slots * threads * 4
+    raise ValueError(f"a tape of {n_slots} slots does not fit K7's "
+                     f"{_SMEM_BLOCK_BYTES} shared bytes at 32 threads")
+
+
+def _tape_table(tape, mats, uniforms, N: int) -> torch.Tensor:
+    """The per-launch int64 table of K7: each load's column address and
+    row shift, then the uniforms (and, for the composition, the
+    constraint weights)."""
+    base, rows = np.zeros(4, np.int64), np.zeros(4, np.int64)
+    for role, m in mats.items():
+        if m is not None:
+            base[role], rows[role] = m.data_ptr(), m.shape[0]
+    role, col = tape.loads[:, 0], tape.loads[:, 1]
+    if (col >= rows[role]).any():
+        raise ValueError("a tape load lies outside its matrix")
+    ptrs = base[role] + 4 * N * col
+    shifts = tape.loads[:, 2] * tape.stride
+    return torch.from_numpy(np.concatenate(
+        [ptrs, shifts, np.asarray(uniforms, np.int64)]))
+
+
+def _check_mats(mats, N: int, device) -> None:
+    for role, m in mats.items():
+        if m is None:
+            continue
+        if m.device != device:
+            raise ValueError(f"matrix of role {role} on {m.device}, "
+                             f"expected {device}")
+        if m.is_cuda:
+            kernels.check_cuda_tensor(m, f"role {role} matrix", ndim=2)
+        if m.shape[1] != N:
+            raise ValueError(f"matrix of role {role} has {m.shape[1]} "
+                             f"rows, expected {N}")
+
+
+def _first(mats) -> torch.Tensor:
+    return next(m for m in mats.values() if m is not None)
+
+
+def _launch_tape(name: str, tape, mats, table, N: int, *tail) -> None:
+    dev = _first(mats).device
+    threads, smem = _launch_geometry(tape.n_slots)
+    table = table.to(dev)
+    kernels.launch(name, tape.device_program(dev).data_ptr(),
+                   len(tape.program), table.data_ptr(), len(tape.loads), N,
+                   threads, smem, *tail)
+
+
+def air_eval_operands_plain(tape, mats, uniforms, N: int) -> torch.Tensor:
+    """K7's operands epilogue in plain torch (the tape interpreter)."""
+    out = torch.empty(tape.n_words, dtype=torch.int32,
+                      device=_first(mats).device)
+    return air_eval_plain(tape, mats, uniforms, N, out=out)
+
+
+def air_eval_operands(tape, mats, uniforms, N: int) -> torch.Tensor:
+    """The packed LogUp operands (``tape.n_words`` int32) of a gen tape
+    over N rows: launches K7 on CUDA matrices, runs
+    `air_eval_operands_plain` on CPU ones.  mats: load role -> (cols, N)
+    int32 (or None)."""
+    dev = _first(mats).device
+    _check_mats(mats, N, dev)
+    if _first(mats).is_cuda:
+        out = torch.empty(tape.n_words, dtype=torch.int32, device=dev)
+        _launch_tape("air_eval_operands", tape, mats,
+                     _tape_table(tape, mats, uniforms, N), N,
+                     tape.device_stores(dev).data_ptr(), out.data_ptr())
+        return out
+    if dev.type == "cpu":
+        return air_eval_operands_plain(tape, mats, uniforms, N)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def air_eval_composition_plain(tape, mats, uniforms, N: int, alpha, shift,
+                               invv, bucket) -> None:
+    """K7's composition epilogue in plain torch: bucket += acc * invv *
+    shift, acc from the tape interpreter."""
+    acc = air_eval_plain(tape, mats, uniforms, N, alpha=alpha)
+    sh = torch.as_tensor(np.asarray(shift, np.int64), device=acc.device)
+    contrib = F.qm31_mul(sh, F.qm31_mul_m31(acc, invv))
+    bucket.copy_(F.m31_add(bucket, contrib).to(torch.int32))
+
+
+def composition_uniforms(tape, uniforms, alpha) -> np.ndarray:
+    """K7's composition table after the loads: the uniforms, then every
+    constraint's weight alpha^(K-1-j) (four words each, where the emits
+    of the program point)."""
+    return np.concatenate([
+        np.asarray(uniforms, np.int64),
+        constraint_weights(alpha, len(tape.emits)).astype(np.int64)
+        .reshape(-1)])
+
+
+def air_eval_composition(tape, mats, uniforms, N: int, alpha, shift,
+                         invv: torch.Tensor, bucket: torch.Tensor) -> None:
+    """bucket += (sum_j alpha^(K-1-j) c_j) * invv * shift over N rows,
+    in place: c_j the tape's constraints, invv the (N,) 1 / v_n, bucket
+    (N, 4) int32.  Launches K7 on CUDA matrices, runs
+    `air_eval_composition_plain` on CPU ones."""
+    dev = _first(mats).device
+    _check_mats(mats, N, dev)
+    if tuple(bucket.shape) != (N, 4) or tuple(invv.shape) != (N,):
+        raise ValueError("bucket must be (N, 4) and invv (N,)")
+    if _first(mats).is_cuda:
+        kernels.check_cuda_tensor(invv, "invv", ndim=1)
+        kernels.check_cuda_tensor(bucket, "bucket", ndim=2)
+        table = _tape_table(tape, mats, composition_uniforms(
+            tape, uniforms, alpha), N)
+        _launch_tape("air_eval_composition", tape, mats, table, N,
+                     *(int(x) for x in np.asarray(shift, np.uint64)),
+                     invv.data_ptr(), bucket.data_ptr())
+        return
+    if dev.type == "cpu":
+        air_eval_composition_plain(tape, mats, uniforms, N, alpha, shift,
+                                   invv, bucket)
+        return
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _is_first_matrix(log_size: int, device) -> torch.Tensor:
+    return dev_const("component.is_first", log_size, device,
+                     lambda: preprocessed_is_first(log_size)[None, :])
+
+
+def generate_interaction(component, main_matrix, pre_matrix, relations,
+                         log_size: int, device):
+    """The LogUp columns of a component from its natural-order (C, M)
+    main and preprocessed matrices: its gen tape gives the packed pair
+    operands (kernel K7 on a CUDA device), kernel K6 the columns.
+
+    Returns ((B, M, 4) int32 natural-order columns, (4,) claimed sum
+    tensor), or (None, None) for a component without lookups."""
+    M = 1 << log_size
+    with scope("i:eval"):
+        tape = gen_tape(component, log_size, relations)
+        if tape is None:
+            return None, None
+        mats = {MAIN: main_matrix, PRE: pre_matrix,
+                ISF: _is_first_matrix(log_size, device)}
+        src = air_eval_operands(tape, mats, tape.uniforms(relations, None),
+                                M)
+    with scope("i:logup"):
+        out = logup_columns(src, tape.meta, M)
+    return out, out[-1, -1]
+
+
+def accumulate_composition(component, log_size: int, mats, relations,
+                           claimed, alpha, shift, invv, bucket) -> int:
+    """Add a component's composition block, acc / v_n * shift, into its
+    eval size's bucket; mats: role -> its (cols, 4·2^log_size) natural
+    evaluations (interaction as the (4B, N) coordinate-major matrix,
+    is_first as (1, N)).  Returns the constraint count."""
+    tape = domain_tape(component, log_size, relations)
+    if tape is None:
+        return 0
+    N = 1 << (log_size + 2)
+    air_eval_composition(tape, mats, tape.uniforms(relations, claimed), N,
+                         alpha, shift, invv, bucket)
+    return tape.n_constraints
+
+
+# ---------------------------------------------------------------------------
+# Statistics
+# ---------------------------------------------------------------------------
+
+def tape_stats(component, log_size: int, relations) -> dict:
+    """Instruction count, slot count, loads, uniforms and outputs of a
+    component's two tapes."""
+    out = {"name": component.name, "log_size": log_size}
+    for kind, tape in (("domain", domain_tape(component, log_size,
+                                              relations)),
+                       ("gen", gen_tape(component, log_size, relations))):
+        if tape is None:
+            continue
+        out[kind] = {"instructions": len(tape.program),
+                     "slots": tape.n_slots, "loads": len(tape.loads),
+                     "uniforms": len(tape.u_table), "nodes": tape.n_nodes,
+                     "outputs": (len(tape.emits) if kind == "domain"
+                                 else len(tape.stores))}
+    return out
+
+
+def _main():
+    """Tape statistics of every component of the fib guest's machine
+    proof at n = 10 (the tapes depend on the component and its params,
+    not on the trace size)."""
+    import json
+    from pathlib import Path
+    from .component import component_info
+    from .lookups import draw_relations
+    from ..channel import Blake2sChannel
+    from ..machine.driver import build_components
+    from ..prover.stark import _relation_widths
+    from ..sdk import Guest, LocalProver, encode_u32s
+    src = (Path(__file__).resolve().parents[2] / "examples" / "guests"
+           / "fib.s").read_text()
+    view, trace = LocalProver(Guest.from_asm(src), device="cpu").trace(
+        public_input=encode_u32s(10))
+    comps = build_components(view, 1)[0]
+    relations = draw_relations(Blake2sChannel(), _relation_widths(
+        [component_info(c) for c in comps]))
+    for c in comps:
+        print(json.dumps(tape_stats(c, 5, relations)))
+
+
+if __name__ == "__main__":
+    _main()

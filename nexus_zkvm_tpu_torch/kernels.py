@@ -55,6 +55,13 @@ KERNELS = {
     "cpu_fill": ("fill", "nzt_cpu_fill", [_P, _L] + [_U] * 7 + [_P, _P]),
     "logup_columns": ("logup", "nzt_logup_columns",
                       [_P, _P, _I, _L, _P, _P]),
+    "air_eval_composition": ("air_eval", "nzt_air_eval_composition",
+                             [_P, _I, _P, _I, _L, _I, _I] + [_U] * 4
+                             + [_P, _P]),
+    "air_eval_operands": ("air_eval", "nzt_air_eval_operands",
+                          [_P, _I, _P, _I, _L, _I, _I, _P, _P]),
+    "oods_dot": ("oods", "nzt_oods_dot", [_P, _I, _I, _I, _P, _I, _P, _P]),
+    "gather_openings": ("gather", "nzt_gather_openings", [_P, _I, _P, _P]),
 }
 
 _LAUNCHES = {name: 0 for name in KERNELS}
@@ -157,12 +164,14 @@ def reset_launches() -> None:
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, ndim: int | None = None,
-                      contiguous: bool = True) -> None:
-    """Wrapper-side argument check: CUDA int32, rank, contiguity."""
+                      contiguous: bool = True,
+                      dtype: torch.dtype = torch.int32) -> None:
+    """Wrapper-side argument check: CUDA, dtype (int32 unless given),
+    rank, contiguity."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name}: expected rank {ndim}, got {t.dim()}")
     if contiguous and not t.is_contiguous():

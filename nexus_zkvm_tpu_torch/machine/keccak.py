@@ -30,10 +30,8 @@ All fills vectorized over (permutation, round) with numpy.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..air import Component
-from ..utils.device import dev_const
 from ..vm.keccak import _RC, _ROT
 from .schema import Schema, Cols
 
@@ -143,13 +141,11 @@ class KeccakComponent(Component):
         ctx.constraint(p_cont * (c("act", 0, 1) - act))
 
         be = ctx.be
-        on_torch = be.name == "torch"
-        idx = _index_arrays(be.device) if on_torch else _INDEX
+        idx = _INDEX
 
         def stack(fs):
-            vs = [f.v for f in fs]
-            return Felt(torch.stack(vs) if on_torch else np.stack(vs),
-                        fs[0].kind, be, fs[0].deg)
+            return Felt(np.stack([f.v for f in fs]), fs[0].kind, be,
+                        fs[0].deg)
 
         def gather(f, name):
             return Felt(f.v[idx[name]], f.kind, be, f.deg)
@@ -272,13 +268,6 @@ def _build_index() -> dict:
 
 
 _INDEX = _build_index()
-
-
-def _index_arrays(device) -> dict:
-    """The index arrays as int64 tensors on ``device``, built once per
-    device."""
-    return {name: dev_const(f"keccak.{name}", 0, device, lambda a=a: a)
-            for name, a in _INDEX.items()}
 
 
 def _rol64(x: np.ndarray, n: int) -> np.ndarray:

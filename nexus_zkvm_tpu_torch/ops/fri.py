@@ -286,9 +286,8 @@ def fri_proof_from_decs(state: FriProverState, decs) -> FriProof:
 
 
 def fri_decommit(state: FriProverState, queries) -> FriProof:
-    pend = [merkle.decommit_async(t, p)
-            for t, p in fri_decommit_items(state, queries)]
-    return fri_proof_from_decs(state, merkle.finalize_decommitments(pend))
+    return fri_proof_from_decs(state, merkle.finalize_decommitments(
+        merkle.decommit_many_fused(fri_decommit_items(state, queries))))
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,10 @@ deepest layer hashes the column values alone.  Uniform trees
 hashing reads its transpose in place and every parent layer is one
 launch of the parent kernel (both kernel K2).
 
-Openings gather on the device (plain indexing) and reach the host in
-one transfer for all trees (:func:`finalize_decommitments`); the
-verifier is host numpy/hashlib.
+Openings gather on the device into one buffer for all trees (kernel K9,
+``csrc/gather.cu``; plain indexing on the CPU) and reach the host in one
+transfer (:func:`finalize_decommitments`); the verifier is host
+numpy/hashlib.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import kernels
 from .blake2s import hash_rows, hash_parents
 from ..utils.device import to_u32
 
 __all__ = ["MerkleTree", "commit", "commit_matrix", "MerkleDecommitment",
-           "decommit", "decommit_async", "decommit_many_fused",
+           "decommit", "decommit_many_fused", "gather_tables",
+           "gather_launch", "gather_openings", "gather_openings_plain",
            "finalize_decommitments", "verify_decommitment"]
 
 
@@ -106,75 +109,145 @@ def open_plan(max_depth: int, positions):
     return sib_positions
 
 
-class PendingDecommitment:
-    """An opening whose gathers were issued on the device; finalize many
-    of them together with :func:`finalize_decommitments`."""
+@dataclass
+class _Gather:
+    """One piece of the opening gather: out[(r * n + i) * W + t] =
+    src[r, idx[i]] (W == 1) or src[idx[i], t] (a digest layer)."""
+    src: torch.Tensor          # (rows, 2^d) values or (2^d, 8) digests
+    idx: list
+    width: int                 # W: 1 for values, 8 for digests
 
-    def __init__(self, vals, col_vals, sib_rows):
-        self._vals = vals            # (C, Q) tensor or None
-        self._col_vals = col_vals    # [(Qc,) tensor] for mixed trees
-        self._sib_rows = sib_rows    # [(K_d, 8) tensor]
+    @property
+    def rows(self) -> int:
+        return int(self.src.shape[0]) if self.width == 1 else 1
 
-    def tensors(self):
-        head = [] if self._vals is None else [self._vals]
-        return head + self._col_vals + self._sib_rows
+    @property
+    def words(self) -> int:
+        return self.rows * len(self.idx) * self.width
 
-    def finalize(self, fetched) -> MerkleDecommitment:
-        fetched = list(fetched)
-        out = MerkleDecommitment()
-        if self._vals is not None:
-            vals = fetched.pop(0)
-            out.column_values.extend(vals[c] for c in range(vals.shape[0]))
-        for _ in self._col_vals:
-            out.column_values.append(fetched.pop(0))
-        for _ in self._sib_rows:
-            out.sibling_hashes.extend(fetched.pop(0))
-        return out
+    def shape(self):
+        return ((self.rows, len(self.idx)) if self.width == 1
+                else (len(self.idx), self.width))
+
+    def descriptor(self, out_off: int, idx_off: int) -> list:
+        if self.width == 1:
+            rs, is_, ts = self.src.stride(0), self.src.stride(1), 0
+        else:
+            rs, is_, ts = 0, self.src.stride(0), self.src.stride(1)
+        return [self.src.data_ptr(), out_off, idx_off, len(self.idx),
+                self.width, self.rows, rs, is_, ts]
+
+    def plain(self) -> torch.Tensor:
+        ix = torch.as_tensor(self.idx, device=self.src.device)
+        return self.src[:, ix] if self.width == 1 else self.src[ix]
 
 
-def decommit_async(tree: MerkleTree, queries) -> PendingDecommitment:
+def _pieces(tree: MerkleTree, queries):
+    """(values pieces, digest pieces) of one opening."""
     queries = sorted(set(int(q) for q in queries))
-    dev = tree.layers[0].device
-    vals, col_vals = None, []
     if tree.matrix is not None:
-        vals = tree.matrix[:, torch.as_tensor(queries, device=dev)]
+        vals = [_Gather(tree.matrix, queries, 1)]
     else:
-        for col in tree.columns:
-            pos = _positions_at(queries, tree.max_depth, _log2(col.shape[0]))
-            col_vals.append(col[torch.as_tensor(pos, device=dev)])
-    sib_rows = [tree.layers[d][torch.as_tensor(sibs, device=dev)]
-                for d, sibs in zip(range(tree.max_depth, 0, -1),
-                                   open_plan(tree.max_depth, queries))
-                if sibs]
-    return PendingDecommitment(vals, col_vals, sib_rows)
+        vals = [_Gather(col[None, :], _positions_at(
+                    queries, tree.max_depth, _log2(col.shape[0])), 1)
+                for col in tree.columns]
+    sibs = [_Gather(tree.layers[d], s, 8)
+            for d, s in zip(range(tree.max_depth, 0, -1),
+                            open_plan(tree.max_depth, queries)) if s]
+    return vals, sibs
 
 
-def decommit_many_fused(items):
-    """Issue the gathers of many openings, items being (tree, positions)
-    pairs; finalize them together with :func:`finalize_decommitments`."""
-    return [decommit_async(tree, pos) for tree, pos in items]
+class PendingOpenings:
+    """Openings gathered on the device into one int32 buffer; finalize
+    them with :func:`finalize_decommitments`."""
+
+    def __init__(self, buffer, layout):
+        self.buffer = buffer       # (words,) int32, or None
+        self.layout = layout       # per opening: (value shapes, digest shapes)
 
 
-def finalize_decommitments(pendings) -> list:
+def gather_openings_plain(pieces) -> torch.Tensor:
+    """The pieces' words, concatenated (plain indexing)."""
+    return torch.cat([p.plain().reshape(-1) for p in pieces])
+
+
+def gather_tables(pieces):
+    """K9's inputs for CUDA pieces: the (n, 9) descriptor table and the
+    index list on the pieces' device, and the buffer's word count."""
+    desc, idx, off = [], [], 0
+    for p in pieces:
+        kernels.check_cuda_tensor(p.src, "opening source", ndim=2,
+                                  contiguous=False)
+        desc.append(p.descriptor(off, len(idx)))
+        idx += p.idx
+        off += p.words
+    dev = pieces[0].src.device
+    return (torch.tensor(desc, dtype=torch.int64).to(dev),
+            torch.tensor(idx, dtype=torch.int64).to(dev), off)
+
+
+def gather_launch(desc, idx, words: int) -> torch.Tensor:
+    """Launch ``csrc/gather.cu`` (kernel K9) on the tables of
+    :func:`gather_tables`: the (words,) int32 buffer."""
+    kernels.check_cuda_tensor(desc, "descriptors", ndim=2, dtype=torch.int64)
+    kernels.check_cuda_tensor(idx, "indices", ndim=1, dtype=torch.int64)
+    if desc.shape[1] != 9:
+        raise ValueError("descriptors must be (n, 9)")
+    out = torch.empty(words, dtype=torch.int32, device=desc.device)
+    kernels.launch("gather_openings", desc.data_ptr(), int(desc.shape[0]),
+                   idx.data_ptr(), out.data_ptr())
+    return out
+
+
+def gather_openings(pieces) -> torch.Tensor:
+    """One int32 buffer of every piece's words: launches kernel K9 on
+    CUDA sources, plain indexing on CPU ones."""
+    dev = pieces[0].src.device
+    if pieces[0].src.is_cuda:
+        return gather_launch(*gather_tables(pieces))
+    if dev.type == "cpu":
+        return gather_openings_plain(pieces)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def decommit_many_fused(items) -> PendingOpenings:
+    """Gather the openings of many (tree, positions) pairs in one
+    launch; finalize them together with :func:`finalize_decommitments`."""
+    pieces, layout = [], []
+    for tree, pos in items:
+        vals, sibs = _pieces(tree, pos)
+        pieces += vals + sibs
+        layout.append(([p.shape() for p in vals], [p.shape() for p in sibs]))
+    return PendingOpenings(gather_openings(pieces) if pieces else None,
+                           layout)
+
+
+def finalize_decommitments(pending: PendingOpenings) -> list:
     """Bring every pending opening to the host in one transfer."""
-    flat = [t for p in pendings for t in p.tensors()]
-    if not flat:
-        return [p.finalize([]) for p in pendings]
-    host = to_u32(torch.cat([t.reshape(-1) for t in flat]))
-    arrays, k = [], 0
-    for t in flat:
-        arrays.append(host[k: k + t.numel()].reshape(tuple(t.shape)))
-        k += t.numel()
+    host = (to_u32(pending.buffer) if pending.buffer is not None
+            else np.zeros(0, np.uint32))
     out, k = [], 0
-    for p in pendings:
-        n = len(p.tensors())
-        out.append(p.finalize(arrays[k:k + n]))
+
+    def take(shape):
+        nonlocal k
+        n = int(np.prod(shape))
+        arr = host[k:k + n].reshape(shape)
         k += n
+        return arr
+
+    for val_shapes, sib_shapes in pending.layout:
+        dec = MerkleDecommitment()
+        for shape in val_shapes:
+            vals = take(shape)
+            dec.column_values.extend(vals[c] for c in range(shape[0]))
+        for shape in sib_shapes:
+            dec.sibling_hashes.extend(take(shape))
+        out.append(dec)
     return out
 
 
 def decommit(tree: MerkleTree, queries) -> MerkleDecommitment:
-    return finalize_decommitments([decommit_async(tree, queries)])[0]
+    return finalize_decommitments(decommit_many_fused([(tree, queries)]))[0]
 
 
 def _verify_decommitment_uniform(root, depth: int, n_cols: int, queries,

@@ -26,10 +26,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops import cfft, fri, merkle, quotients
 from ..ops.field import (
     m31_add, m31_sub, m31_mul, m31_inv, m31_fold_sum, qm31_mul,
-    qm31_mul_m31, np_qm31, np_qm31_add, np_qm31_sub, np_qm31_mul,
+    np_qm31, np_qm31_add, np_qm31_sub, np_qm31_mul,
     np_qm31_inv, np_qm31_pow,
 )
 from ..ops.circle import (
@@ -38,16 +39,17 @@ from ..ops.circle import (
     dev_committed_points, dev_layout_to_natural,
 )
 from ..air.component import (
-    component_info, generate_interaction, run_constraints,
-    run_constraints_domain, PointEvalContext, preprocessed_is_first,
+    component_info, run_constraints, PointEvalContext,
+    preprocessed_is_first, MAIN, PRE, INTER, ISF,
 )
+from ..air.tape import generate_interaction, accumulate_composition
 from ..air.lookups import draw_relations
 from ..utils.device import resolve_device, dev_const, from_u32, to_u32
 from ..utils.profile import scope
 from .config import PcsConfig
 from . import pcs
 
-__all__ = ["prove", "verify", "Proof"]
+__all__ = ["prove", "verify", "Proof", "oods_dot", "oods_dot_plain"]
 
 ROLE_ORDER = ("pre", "main", "inter", "comp")
 _QM31_BASIS = [np_qm31(*(np.uint64(1) if t == i else np.uint64(0)
@@ -172,7 +174,7 @@ def _oods_basis_factors(tlog: int, point) -> np.ndarray:
     return np.stack(list(reversed(xs)) + [y]).astype(np.uint32)
 
 
-def _oods_dot(cols: torch.Tensor, factors: np.ndarray) -> torch.Tensor:
+def oods_dot_plain(cols: torch.Tensor, factors: np.ndarray) -> torch.Tensor:
     """(C, N) bit-reversed coefficient rows at a QM31 point -> (C, 4):
     the kron basis is expanded on the device from its factors, then
     dotted with every row (exact int64 sums)."""
@@ -183,6 +185,36 @@ def _oods_dot(cols: torch.Tensor, factors: np.ndarray) -> torch.Tensor:
         basis = torch.cat([basis, qm31_mul(f[i], basis)])
     return torch.stack([m31_fold_sum(m31_mul(cols, basis[None, :, t]), dim=1)
                         for t in range(4)], dim=-1)
+
+
+# the low factors K8 keeps in registers: at most 2^11 basis entries
+OODS_LO_BITS = 11
+
+
+def oods_dot(cols: torch.Tensor, factors: np.ndarray) -> torch.Tensor:
+    """(C, 4) int64 samples of the coefficient rows at the point of
+    ``factors``: launches ``csrc/oods.cu`` (kernel K8) on a CUDA
+    ``cols``, runs `oods_dot_plain` on a CPU one."""
+    if cols.is_cuda:
+        kernels.check_cuda_tensor(cols, "cols", ndim=2)
+        C, N = (int(x) for x in cols.shape)
+        log_n = len(factors)
+        if N != 1 << log_n or C == 0:
+            raise ValueError(f"cols {tuple(cols.shape)} against "
+                             f"{log_n} factors")
+        k = min(OODS_LO_BITS, log_n)
+        dev = cols.device
+        f = from_u32(factors, dev)
+        nhi = 1 << (log_n - k)
+        G = min(nhi, max(-(-8 * 132 // C), -(-nhi // 256)))
+        partial = torch.empty((C, G, 4), dtype=torch.int32, device=dev)
+        out = torch.empty((C, 4), dtype=torch.int32, device=dev)
+        kernels.launch("oods_dot", cols.data_ptr(), C, log_n, k,
+                       f.data_ptr(), G, partial.data_ptr(), out.data_ptr())
+        return out.to(torch.int64)
+    if cols.device.type == "cpu":
+        return oods_dot_plain(cols, factors)
+    raise ValueError(f"unsupported device {cols.device}")
 
 
 def inv_vanishing_natural(n: int, eval_log: int, device) -> torch.Tensor:
@@ -299,38 +331,33 @@ def _composition(components, infos, plan, log_sizes, relations,
         n = log_sizes[c]
         ev = n + 2
         with scope("c:lde"):
-            main_ev = rcs["main"].evals_natural_matrix(
-                plan.comp_ridxs("main", c), ev)
-            pre_ev = rcs["pre"].evals_natural_matrix(
-                plan.comp_ridxs("pre", c), ev)
-            isf_ev = rcs["pre"].evals_natural_matrix(
-                [plan.metas[plan.is_first_index(n)].ridx], ev)[0]
-            inter_ev = None
+            mats = {
+                MAIN: rcs["main"].evals_natural_matrix(
+                    plan.comp_ridxs("main", c), ev),
+                PRE: rcs["pre"].evals_natural_matrix(
+                    plan.comp_ridxs("pre", c), ev),
+                ISF: rcs["pre"].evals_natural_matrix(
+                    [plan.metas[plan.is_first_index(n)].ridx], ev),
+                INTER: None}
             if infos[c].n_logup_cols:
-                B = infos[c].n_logup_cols
-                inter_ev = rcs["inter"].evals_natural_matrix(
-                    plan.inter_ridxs(c, B), ev).reshape(B, 4, -1) \
-                    .permute(0, 2, 1)
+                mats[INTER] = rcs["inter"].evals_natural_matrix(
+                    plan.inter_ridxs(c, infos[c].n_logup_cols), ev)
         with scope("c:eval"):
-            acc, k = run_constraints_domain(
-                comp, main_ev, pre_ev, inter_ev, isf_ev, relations,
-                claimed_sums[c], alpha, device)
+            if ev not in buckets:
+                buckets[ev] = torch.zeros((1 << ev, 4), dtype=torch.int32,
+                                          device=device)
+            k = accumulate_composition(
+                comp, n, mats, relations, claimed_sums[c], alpha,
+                np_qm31_pow(alpha, shifts[c]),
+                inv_vanishing_natural(n, ev, device), buckets[ev])
             assert k == infos[c].n_constraints
-            del main_ev, pre_ev, inter_ev
-            if acc is None:
-                continue
-            contrib = qm31_mul_m31(acc, inv_vanishing_natural(n, ev, device))
-            shift = torch.as_tensor(
-                np_qm31_pow(alpha, shifts[c]).astype(np.int64), device=device)
-            contrib = qm31_mul(shift, contrib)
-            buckets[ev] = (contrib if ev not in buckets
-                           else m31_add(buckets[ev], contrib))
+            del mats
     comp_log = plan.n_comp_trace_log
     out = torch.zeros((4, 1 << comp_log), dtype=torch.int32, device=device)
     with scope("c:combine"):
         for ev in sorted(buckets, reverse=True):
             layout = buckets[ev][dev_layout_to_natural(ev, device)]
-            cf = cfft.interpolate(layout.t().contiguous().to(torch.int32))
+            cf = cfft.interpolate(layout.t().contiguous())
             out = m31_add(out, cfft.extend_coeffs(cf, comp_log)) \
                 .to(torch.int32)
     return out
@@ -419,7 +446,7 @@ def prove(components, log_sizes, main_traces, channel,
         for (role, tlog, off), members in groups.items():
             cols, _n = rcs[role].coeff_rows([plan.metas[i].ridx
                                              for i, _ in members])
-            dots.append(_oods_dot(cols, _oods_basis_factors(
+            dots.append(oods_dot(cols, _oods_basis_factors(
                 tlog, _point_for(z, tlog, off))))
         fetched = to_u32(torch.cat(dots).to(torch.int32)).astype(np.uint64)
         k = 0

@@ -29,7 +29,7 @@ heap cursor.
 
 Usage::
 
-    from nexus_zkvm_tpu.vm import runtime, k_trace
+    from nexus_zkvm_tpu_torch.vm import runtime, k_trace
     words = runtime.assemble_guest('''
     main:
         addi a0, zero, 40

@@ -136,3 +136,113 @@ def test_machine_proof_cpu_equals_cuda(dev):
         got[device] = proof_to_bytes(proof)
     assert got["cpu"] == got["cuda"]
     assert prover.verify(view, proof)
+
+
+# -- K7, K8, K9 ----------------------------------------------------------------
+
+def _tape_components():
+    """chip_smoke's synthetic pair and the fib guest's machine
+    components (the CPU component, keccak, the tables), with relations."""
+    import nexus_zkvm_tpu_torch as T
+    from chip_smoke import fib_guest, make_components
+    from nexus_zkvm_tpu_torch.air.component import component_info
+    from nexus_zkvm_tpu_torch.air.lookups import draw_relations
+    from nexus_zkvm_tpu_torch.machine.driver import build_components
+    from nexus_zkvm_tpu_torch.prover.stark import _relation_widths
+    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
+    view, _t = LocalProver(fib_guest(), device="cpu").trace(
+        public_input=encode_u32s(3))
+    comps = make_components() + build_components(view, 1)[0]
+    rel = draw_relations(T.Blake2sChannel(), _relation_widths(
+        [component_info(c) for c in comps]))
+    return comps, rel
+
+
+def _random_mats(dev, comp, rel, N, seed, domain):
+    from nexus_zkvm_tpu_torch.air.component import component_info
+    from nexus_zkvm_tpu_torch.air.tape import MAIN, PRE, INTER, ISF
+    info = component_info(comp)
+    rng = np.random.default_rng(seed)
+
+    def mat(rows):
+        return (from_u32(rng.integers(0, P, (rows, N), dtype=np.uint32), dev)
+                if rows else None)
+    return {MAIN: mat(info.n_main), PRE: mat(info.n_pre),
+            INTER: mat(4 * info.n_logup_cols) if domain else None,
+            ISF: mat(1)}
+
+
+@pytest.mark.parametrize("log_size", [3, 6])
+def test_air_eval_composition(dev, log_size):
+    from nexus_zkvm_tpu_torch.air.tape import (
+        air_eval_composition, air_eval_composition_plain, domain_tape)
+    comps, rel = _tape_components()
+    rng = np.random.default_rng(log_size)
+    N = 1 << (log_size + 2)
+    for i, comp in enumerate(comps):
+        tape = domain_tape(comp, log_size, rel)
+        if tape is None:
+            continue
+        mats = _random_mats(dev, comp, rel, N, i, True)
+        claimed, alpha, shift = (rng.integers(0, P, 4).astype(np.uint64)
+                                 for _ in range(3))
+        uni = tape.uniforms(rel, claimed)
+        invv = rand(dev, (N,), seed=i)
+        start = rand(dev, (N, 4), seed=i + 1)
+        got, want = start.clone(), start.clone()
+        air_eval_composition(tape, mats, uni, N, alpha, shift, invv, got)
+        air_eval_composition_plain(tape, mats, uni, N, alpha, shift, invv,
+                                   want)
+        assert torch.equal(got, want), comp.name
+
+
+@pytest.mark.parametrize("log_size", [3, 6])
+def test_air_eval_operands(dev, log_size):
+    from nexus_zkvm_tpu_torch.air.tape import (
+        air_eval_operands, air_eval_operands_plain, gen_tape)
+    comps, rel = _tape_components()
+    N = 1 << log_size
+    for i, comp in enumerate(comps):
+        tape = gen_tape(comp, log_size, rel)
+        if tape is None:
+            continue
+        mats = _random_mats(dev, comp, rel, N, i, False)
+        uni = tape.uniforms(rel, None)
+        assert torch.equal(air_eval_operands(tape, mats, uni, N),
+                           air_eval_operands_plain(tape, mats, uni, N)), \
+            comp.name
+
+
+@pytest.mark.parametrize("C,log_n", [(1, 4), (3, 11), (5, 13), (40, 16)])
+def test_oods_dot(dev, C, log_n):
+    from nexus_zkvm_tpu_torch.prover.stark import oods_dot, oods_dot_plain
+    cols = rand(dev, (C, 1 << log_n), seed=C)
+    factors = np.random.default_rng(log_n).integers(
+        0, P, (log_n, 4), dtype=np.uint32)
+    assert torch.equal(oods_dot(cols, factors), oods_dot_plain(cols, factors))
+
+
+def test_gather_openings(dev):
+    """Uniform trees (one of them on a transposed view, as FRI commits
+    its layers), a mixed-depth tree, many openings in one launch."""
+    from nexus_zkvm_tpu_torch.ops import merkle
+    t1 = merkle.commit_matrix(rand(dev, (5, 256), seed=1))
+    t2 = merkle.commit_matrix(rand(dev, (64, 4), seed=2).t())
+    t3 = merkle.commit([rand(dev, (1 << d,), seed=d).reshape(-1)
+                        for d in (8, 6, 8, 3)])
+    rng = np.random.default_rng(9)
+    items = [(t, sorted(rng.integers(0, 1 << t.max_depth, 7).tolist()))
+             for t in (t1, t2, t3, t1)]
+    pieces = []
+    for t, q in items:
+        vals, sibs = merkle._pieces(t, q)
+        pieces += vals + sibs
+    assert torch.equal(merkle.gather_openings(pieces),
+                       merkle.gather_openings_plain(pieces))
+    decs = merkle.finalize_decommitments(merkle.decommit_many_fused(items))
+    for (t, q), d in zip(items, decs):
+        lengths = ([t.matrix.shape[1]] * t.matrix.shape[0]
+                   if t.matrix is not None
+                   else [c.shape[0] for c in t.columns])
+        assert merkle.verify_decommitment(t.root(), lengths, q, d)
+

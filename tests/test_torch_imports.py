@@ -89,3 +89,82 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         cfft.interpolate(x)
     assert calls == []
+
+
+def _fake_cuda_env(monkeypatch, module, *plain_names):
+    """kernels.launch refuses, the argument checks pass, and every named
+    plain version of ``module`` records a call."""
+    from nexus_zkvm_tpu_torch import kernels
+    calls = []
+    for name in plain_names:
+        monkeypatch.setattr(module, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+
+    def refuse(*a, **k):
+        raise RuntimeError("kernel unavailable")
+    monkeypatch.setattr(kernels, "launch", refuse)
+    monkeypatch.setattr(kernels, "check_cuda_tensor", lambda *a, **k: None)
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    return calls, (lambda t: t.as_subclass(FakeCuda))
+
+
+def test_composition_and_oods_never_take_the_plain_path(monkeypatch):
+    """The composition (K7), interaction operand (K7), OODS (K8) and
+    opening-gather (K9) wrappers launch their kernels on CUDA tensors
+    and never call their plain versions."""
+    import chip_smoke
+    from nexus_zkvm_tpu_torch.air import component, tape as tape_mod
+    from nexus_zkvm_tpu_torch.air.lookups import draw_relations
+    from nexus_zkvm_tpu_torch.ops import merkle
+    from nexus_zkvm_tpu_torch.prover import stark
+    from nexus_zkvm_tpu_torch.utils.device import from_u32
+    import nexus_zkvm_tpu_torch as T
+
+    comp = chip_smoke.make_components()[0]
+    rel = draw_relations(T.Blake2sChannel(), stark._relation_widths(
+        [component.component_info(comp)]))
+    dom = tape_mod.domain_tape(comp, 2, rel)
+    gen = tape_mod.gen_tape(comp, 2, rel)
+    calls, fake = _fake_cuda_env(monkeypatch, tape_mod,
+                                 "air_eval_composition_plain",
+                                 "air_eval_operands_plain")
+    plain = []
+    monkeypatch.setattr(tape_mod, "air_eval_plain",
+                        lambda *a, **k: plain.append(1))
+    monkeypatch.setattr(stark, "oods_dot_plain",
+                        lambda *a, **k: plain.append(2))
+    monkeypatch.setattr(merkle, "gather_openings_plain",
+                        lambda *a, **k: plain.append(3))
+    rng = np.random.default_rng(0)
+
+    def mat(rows, n):
+        return fake(from_u32(rng.integers(0, 1 << 31, (rows, n),
+                                          dtype=np.uint32), "cpu"))
+    N = 16
+    mats = {tape_mod.MAIN: mat(comp.n_main, N), tape_mod.PRE: None,
+            tape_mod.INTER: mat(4 * 64, N), tape_mod.ISF: mat(1, N)}
+    alpha = np.arange(4, dtype=np.uint64)
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        tape_mod.air_eval_composition(
+            dom, mats, dom.uniforms(rel, alpha), N, alpha, alpha,
+            fake(torch.zeros(N, dtype=torch.int32)),
+            fake(torch.zeros((N, 4), dtype=torch.int32)))
+    mats = {tape_mod.MAIN: mat(comp.n_main, 4), tape_mod.PRE: None,
+            tape_mod.ISF: mat(1, 4)}
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        tape_mod.air_eval_operands(gen, mats, gen.uniforms(rel, None), 4)
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        stark.oods_dot(mat(3, 16), rng.integers(0, 1 << 31, (4, 4),
+                                                dtype=np.uint32))
+    tree = merkle.commit_matrix(from_u32(rng.integers(
+        0, 1 << 31, (2, 8), dtype=np.uint32), "cpu"))
+    tree.matrix = fake(tree.matrix)
+    tree.layers = [fake(x) for x in tree.layers]
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        merkle.decommit_many_fused([(tree, [1, 6])])
+    assert calls == [] and plain == []

@@ -37,8 +37,8 @@ from nexus_zkvm_tpu.prover import PcsConfig as RPcsConfig
 from nexus_zkvm_tpu.sdk.serialize import proof_to_bytes as rproof_to_bytes
 from nexus_zkvm_tpu.vm import asm as rasm, k_trace as rk_trace
 import nexus_zkvm_tpu_torch as T
-from nexus_zkvm_tpu_torch.air.component import (generate_interaction,
-                                                component_info)
+from nexus_zkvm_tpu_torch.air.component import component_info
+from nexus_zkvm_tpu_torch.air.tape import generate_interaction
 from nexus_zkvm_tpu_torch.air.lookups import draw_relations
 from nexus_zkvm_tpu_torch.machine import cpu as tcpu, driver as tdriver
 from nexus_zkvm_tpu_torch.machine import fill_dev
