@@ -2,12 +2,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-machine [CHECKOUT]
+
+The second form only times warm fib 2^20 machine proofs (phase 5's
+path) with the package of another checkout (this one by default), so
+that two checkouts can be compared on one card: run it for each in turn.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. build   — compile every CUDA source of ``nexus_zkvm_tpu_torch/csrc``
-             (nine kernels, K1-K9) with nvcc for sm_90a; print the
-             card's name and power limit.
+             (kernels K1-K12) with nvcc for sm_90a; print the card's
+             name and power limit.
 2. kernel  — every kernel against its plain PyTorch version on the same
              CUDA tensors (uint32 equality), first at the shapes of the
              synthetic slice (phase 4), then, timed, at the shapes the
@@ -33,13 +38,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              every kernel of the prover core must have been launched.
 5. machine — the zkVM's main path: the fib guest (examples/guests/fib.s)
              with n = 209,700 (a CPU component of 2^20 rows) through
-             ``sdk.LocalProver`` on the card, default PcsConfig: a cold
-             and a warm prove (phase times), verify, reject a tampered
-             opening and another program's claim; every kernel must have
-             been launched.  Then the fib guest at n = 10 proved on the
-             CPU and on the card: the proof bytes must be equal.
-6. kernels — one JSON line with every kernel's numbers: launches from
-             the machine phase, times at its shapes (phase 2).
+             ``sdk.LocalProver`` on the card, default PcsConfig and
+             MemoryConfig: a cold and a warm prove (phase times), verify,
+             reject a tampered opening and another program's claim.  It
+             stays resident (the prover notes no streamed tree and one
+             composition pass): every kernel but the memory mode's three
+             must have been launched, and those three not.  Then the fib guest at n = 10
+             proved on the CPU and on the card: the proof bytes must be
+             equal.
+6. machine_stream — the large-trace memory mode, chosen by size with
+             the defaults: the fib guest at n = 838,858 (a CPU component
+             of 2^22 rows) through ``LocalProver``, a cold and a warm,
+             profiled prove; the prover notes its main and interaction
+             trees streamed and its CPU component composed in row passes
+             (one K7 launch a pass); verify, reject a tampered opening and
+             another claim.  Every kernel must have been launched.
+7. stream_parity — the fib 2^20 proof again under a MemoryConfig that
+             streams every tree of 2^21 rows or more in 16-column chunks
+             and composes the CPU component in 4 passes: its proof bytes
+             must equal the default route's and its peak device memory
+             must be lower.  Then the memory mode's kernels (K10-K12, and
+             K7 over one pass) against their plain versions, timed, at
+             the shapes of phase 6.
+8. kernels — one JSON line with every kernel's numbers: launches from
+             the path it belongs to (phase 5, or phase 6 for the memory
+             mode's three), times at that path's shapes.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device
 the script exits with code 2 and prints no result.
@@ -73,6 +96,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 MUL, ADD = 6, 3
+P31 = (1 << 31) - 1
 COMPRESS = 80 * 12 + 8
 QM31_MUL = 16 * MUL + 14 * ADD
 QM31_INV = 57 * MUL + 20 * ADD
@@ -84,6 +108,12 @@ TABLE_LOG = 4
 PARITY_LOG = 10
 FIB_N = 209_700          # 5 steps an iteration: a 2^20-row CPU component
 FIB_PARITY_N = 10
+FIB_STREAM_N = 838_858   # 4,194,300 steps: a 2^22-row CPU component
+STREAM_LOG = 22
+
+# the kernels that run only in the large-trace memory mode
+MEMORY_MODE = ("blake2s_leaves_stream", "quotient_colsums",
+               "quotient_finalize")
 
 EXIT_ASM = """
     addi a0, zero, 0
@@ -234,6 +264,12 @@ REPLACES = {
                           "nexus_zkvm_tpu/air/component.py:346"),
     "oods_dot": ("oods.cu", "nexus_zkvm_tpu/prover/stark.py:197"),
     "gather_openings": ("gather.cu", "nexus_zkvm_tpu/ops/merkle.py:440"),
+    "blake2s_leaves_stream": ("blake2s.cu",
+                              "nexus_zkvm_tpu/prover/pcs.py:269"),
+    "quotient_colsums": ("quotients.cu",
+                         "nexus_zkvm_tpu/ops/quotients.py:196"),
+    "quotient_finalize": ("quotients.cu",
+                          "nexus_zkvm_tpu/ops/quotients.py:215"),
 }
 
 # integer operations of a CPU-fill row besides its three M31 inverses
@@ -521,24 +557,20 @@ def check_recorded(calls, timed_run: bool) -> dict:
         if "ms" in rec:
             out[rec["name"]] = rec
 
-    # K7, composition: every component over its 4x domain
-    comps = sorted(calls["air_eval_composition"], key=lambda a: -a[3])
-    for i, (tape, mats, uni, N, alpha, shift, invv, bucket) in \
+    # K7, composition: every component over its 4x domain (one window
+    # [0, N) each, from halo-extended blocks)
+    comps = sorted(calls["air_eval_composition"], key=lambda a: -a[4])
+    for i, (tape, mats, uni, lo, L, hneg, alpha, shift, invv, bucket) in \
             enumerate(comps):
-        def kernel():
+        def run(fn):
             b = bucket.clone()
-            tp.air_eval_composition(tape, mats, uni, N, alpha, shift,
-                                    invv, b)
-            return b
-
-        def plain():
-            b = bucket.clone()
-            tp.air_eval_composition_plain(tape, mats, uni, N, alpha, shift,
-                                          invv, b)
+            fn(tape, mats, uni, lo, L, hneg, alpha, shift, invv, b)
             return b
         rec = check("air_eval_composition",
-                    [len(tape.program), tape.n_slots, N], kernel, plain,
-                    *tape_cost(tape, N), timed_run and i == 0, reps=5,
+                    [len(tape.program), tape.n_slots, L],
+                    lambda: run(tp.air_eval_composition),
+                    lambda: run(tp.air_eval_composition_plain),
+                    *tape_cost(tape, L), timed_run and i == 0, reps=5,
                     plain_reps=1)
         keep(rec)
     # K7, operands: every component with lookups over its trace domain
@@ -580,8 +612,8 @@ def check_recorded(calls, timed_run: bool) -> dict:
     # indices) are built once and timed apart from the launch
     (args,) = calls["decommit_many_fused"]
     pieces = []
-    for tree, pos in args[0]:
-        vals, sibs = merkle._pieces(tree, pos)
+    for item in args[0]:
+        vals, sibs = merkle._pieces(*item)
         pieces += vals + sibs
     words = sum(p.words for p in pieces)
     torch.cuda.synchronize()
@@ -599,7 +631,7 @@ def check_recorded(calls, timed_run: bool) -> dict:
           "operand_tapes": len(ops), "oods_groups": len(groups),
           "opening_pieces": len(pieces), "opening_words": words,
           "gather_tables_host_ms": tables_ms,
-          "tapes": [{"component_rows": c[3], "instructions": len(c[0].program),
+          "tapes": [{"component_rows": c[4], "instructions": len(c[0].program),
                      "slots": c[0].n_slots, "loads": len(c[0].loads),
                      "uniforms": len(c[2])} for c in comps]})
     return out
@@ -773,9 +805,9 @@ def phase_slice(comps, log_n: int = FULL_LOG) -> dict:
     if T.verify(comps, bad, T.Blake2sChannel(), cfg):
         raise RuntimeError("a tampered proof verifies")
     # every kernel of the prover core: all but the machine's trace fill
-    missing = [k for k, v in launches.items() if v == 0 and k != "cpu_fill"]
-    if missing:
-        raise RuntimeError(f"kernels not launched on the slice: {missing}")
+    # and the memory mode's (the slice stays resident)
+    check_path("slice", launches, set(launches) - {"cpu_fill"}
+               - set(MEMORY_MODE))
     emit({"phase": "slice", "log_rows": log_n, "main_columns": 3 * K_SQUARES,
           "constraints": 2 * K_SQUARES, "lookup_fractions": K_SQUARES,
           "verified": True, "tampered_rejected": True,
@@ -792,16 +824,45 @@ def fib_u32(n: int) -> int:
     return a
 
 
+def check_path(path: str, launches: dict, expected) -> None:
+    """Raise unless the kernels launched on ``path`` are ``expected``."""
+    ran = {k for k, v in launches.items() if v}
+    if ran != set(expected):
+        raise RuntimeError(f"{path}: kernels not launched "
+                           f"{sorted(set(expected) - ran)}, launched but not "
+                           f"expected {sorted(ran - set(expected))}")
+
+
+def rejects_tampering(prover, view, proof) -> None:
+    """A tampered opening of the main trace and another program's claim
+    must both fail to verify."""
+    import copy
+    from nexus_zkvm_tpu_torch.machine.driver import verify_machine
+    from nexus_zkvm_tpu_torch.vm import asm, k_trace
+    bad = copy.deepcopy(proof)
+    dec = bad.stark.openings["main"][0][1]
+    dec.column_values[0] = np.array(dec.column_values[0])
+    dec.column_values[0][0] = (int(dec.column_values[0][0]) + 1) % P31
+    if prover.verify(view, bad):
+        raise RuntimeError("a tampered machine proof verifies")
+    view2, _t = k_trace(asm.assemble(OTHER_SRC))
+    if verify_machine(view2, proof, prover.config, device=prover.device):
+        raise RuntimeError("the proof verifies another program's claim")
+
+
+def _route_trees(proof) -> list:
+    """Every (role, eval size) tree of a machine proof."""
+    return [(role, s) for role, roots in proof.stark.roots.items()
+            for s, _r in roots]
+
+
 def phase_machine() -> dict:
     """The fib guest through LocalProver on the card at a 2^20-row CPU
     component; returns the launch counts of that run."""
-    import copy
     import torch
     from nexus_zkvm_tpu_torch import kernels
-    from nexus_zkvm_tpu_torch.machine.driver import verify_machine
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s, decode_u32s
     from nexus_zkvm_tpu_torch.utils.profile import profiled
-    from nexus_zkvm_tpu_torch.vm import asm, k_trace
     prover = LocalProver(fib_guest())          # default PcsConfig, card
     public = encode_u32s(FIB_N)
     t0 = time.perf_counter()
@@ -838,22 +899,17 @@ def phase_machine() -> dict:
         raise RuntimeError(f"CPU component at 2^{cpu_log}, not 2^{FULL_LOG}")
     if decode_u32s(view.public_output, 1)[0] != fib_u32(FIB_N):
         raise RuntimeError("wrong fib output")
-    bad = copy.deepcopy(proof)
-    dec = bad.stark.openings["main"][0][1]
-    dec.column_values[0] = np.array(dec.column_values[0])
-    dec.column_values[0][0] = (int(dec.column_values[0][0]) + 1) % ((1 << 31) - 1)
-    if prover.verify(view, bad):
-        raise RuntimeError("a tampered machine proof verifies")
-    view2, _t = k_trace(asm.assemble(OTHER_SRC))
-    if verify_machine(view2, proof, prover.config, device=prover.device):
-        raise RuntimeError("the proof verifies another program's claim")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise RuntimeError(f"kernels not launched on the machine path: "
-                           f"{missing}")
+    rejects_tampering(prover, view, proof)
+    # resident at 2^20: no streamed tree, one composition pass
+    route = prof.notes
+    if route["streamed"] or max(route["composition_passes"]) != 1:
+        raise RuntimeError(f"the 2^20 proof left the resident route: {route}")
+    check_path("machine", launches, set(launches) - set(MEMORY_MODE))
     emit({"phase": "machine", "guest": "examples/guests/fib.s", "n": FIB_N,
           "steps": steps, "cpu_log_rows": cpu_log,
-          "log_sizes": proof.stark.log_sizes, "verified": True,
+          "log_sizes": proof.stark.log_sizes, "streamed": route["streamed"],
+          "composition_passes": max(route["composition_passes"]),
+          "verified": True,
           "tampered_rejected": True, "other_claim_rejected": True,
           "emulate_s": emulate_s, "prove_s": prove_s, "prove_cold_s": cold_s,
           "prove_profiled_s": profiled_s,
@@ -861,6 +917,239 @@ def phase_machine() -> dict:
           "steps_per_s": steps / prove_s, "peak_bytes": peak,
           "phase_s": prof.times, "launches": launches})
     return launches
+
+
+def phase_machine_stream():
+    """The fib guest through LocalProver at a 2^22-row CPU component:
+    the large-trace memory mode, chosen by size with the default
+    MemoryConfig.  Returns (launch counts, components, log sizes)."""
+    import torch
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.machine.driver import build_components
+    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s, decode_u32s
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    prover = LocalProver(fib_guest())          # default configs, card
+    public = encode_u32s(FIB_STREAM_N)
+    t0 = time.perf_counter()
+    _v, trace = prover.trace(public_input=public)
+    emulate_s = time.perf_counter() - t0
+    steps = int(len(trace.steps["clk"]))
+    del trace
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    prover.prove_with_input(public_input=public)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    cold = kernels.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        view, proof = prover.prove_with_input(public_input=public)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    warm = {k: v - cold[k] for k, v in kernels.launch_counts().items()}
+    t0 = time.perf_counter()
+    ok = prover.verify(view, proof)
+    verify_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if not ok:
+        raise RuntimeError("the 2^22 machine proof does not verify")
+    cpu_log = proof.stark.log_sizes[0]
+    if cpu_log != STREAM_LOG:
+        raise RuntimeError(f"CPU component at 2^{cpu_log}, not 2^{STREAM_LOG}")
+    if decode_u32s(view.public_output, 1)[0] != fib_u32(FIB_STREAM_N):
+        raise RuntimeError("wrong fib output")
+    route = prof.notes
+    s = STREAM_LOG + prover.config.fri.log_blowup
+    passes = route["composition_passes"][0]
+    if not {("main", s), ("inter", s)} <= set(route["streamed"]) or \
+            passes < 2:
+        raise RuntimeError(f"the 2^22 proof is not in the memory mode: "
+                           f"{route}")
+    # one K7 composition launch a pass of every component
+    if warm["air_eval_composition"] != sum(route["composition_passes"]):
+        raise RuntimeError("composition passes and K7 launches differ")
+    rejects_tampering(prover, view, proof)
+    check_path("machine_stream", launches, set(launches))
+    emit({"phase": "machine_stream", "guest": "examples/guests/fib.s",
+          "n": FIB_STREAM_N, "steps": steps, "cpu_log_rows": cpu_log,
+          "log_sizes": proof.stark.log_sizes,
+          "streamed": route["streamed"], "composition_passes": passes,
+          "verified": True, "tampered_rejected": True,
+          "other_claim_rejected": True, "emulate_s": emulate_s,
+          "prove_s": prove_s, "prove_cold_s": cold_s, "verify_s": verify_s,
+          "rows_per_s": (1 << cpu_log) / prove_s,
+          "steps_per_s": steps / prove_s, "peak_bytes": peak,
+          "phase_s": prof.times, "launches_warm": warm,
+          "launches": launches})
+    return launches, build_components(view, 1)[0], proof.stark.log_sizes
+
+
+def phase_stream_parity():
+    """The fib 2^20 proof by the default route and by a MemoryConfig that
+    streams every tree of 2^21 rows or more in 16-column chunks and
+    composes in 4 passes: byte-equal proofs, a lower peak."""
+    import torch
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          proof_to_bytes)
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    forced = MemoryConfig(stream_commit_bytes=(4 << 21) - 1,
+                          stream_chunk_bytes=1 << 27,
+                          comp_nat_budget=2 << 30)
+    out = {}
+    for name, memory in (("default", MemoryConfig()), ("streamed", forced)):
+        prover = LocalProver(fib_guest(), memory=memory)
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            view, proof = prover.prove_with_input(
+                public_input=encode_u32s(FIB_N))
+            torch.cuda.synchronize()
+        out[name] = {"prove_s": time.perf_counter() - t0,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "bytes": proof_to_bytes(proof), "route": prof.notes,
+                     "launches": kernels.launch_counts()}
+    if not prover.verify(view, proof):
+        raise RuntimeError("the streamed 2^20 proof does not verify")
+    d, f = out["default"], out["streamed"]
+    # every tree of 2^21 rows or more, in 16-column chunks
+    want = {(r, s_) for r, s_ in _route_trees(proof) if s_ >= 21}
+    if d["route"]["streamed"] or \
+            not want <= set(f["route"]["streamed"]) or \
+            f["route"]["composition_passes"][0] < 4 or \
+            any(forced.chunk_cols(s_) != 16 for _r, s_ in want):
+        raise RuntimeError(f"unexpected routes: {d['route']} {f['route']}")
+    check_path("stream_parity/default", d["launches"],
+               set(d["launches"]) - set(MEMORY_MODE))
+    check_path("stream_parity/streamed", f["launches"], set(f["launches"]))
+    if d["bytes"] != f["bytes"]:
+        raise RuntimeError("the streamed and resident 2^20 proofs differ")
+    if f["peak_bytes"] >= d["peak_bytes"]:
+        raise RuntimeError("streaming did not lower the peak")
+    emit({"phase": "stream_parity", "n": FIB_N, "equal_bytes": True,
+          "proof_bytes": len(f["bytes"]), "streamed": f["route"]["streamed"],
+          "composition_passes": f["route"]["composition_passes"][0],
+          "peak_bytes_default": d["peak_bytes"],
+          "peak_bytes_streamed": f["peak_bytes"],
+          "prove_s_default": d["prove_s"], "prove_s_streamed": f["prove_s"]})
+
+
+def check_stream_kernels(comps, log_sizes) -> dict:
+    """The memory mode's kernels against their plain versions at the
+    shapes the 2^22 proof gives them, timed: K10 on a middle chunk of
+    the main tree (16 columns of 2^23 leaves) and on its last one, K11
+    on a 16-column LDE chunk with that size group's samples, K12 on its
+    column sums, K7 on one pass of the CPU component (its record is
+    printed; the kernels line times K7 on the 2^20 path).  Inputs are
+    random; returns {kernel name: timed record}."""
+    import torch
+    import nexus_zkvm_tpu_torch as T
+    from nexus_zkvm_tpu_torch.air import tape as tp
+    from nexus_zkvm_tpu_torch.air.component import (component_info,
+                                                    domain_halo)
+    from nexus_zkvm_tpu_torch.air.lookups import draw_relations
+    from nexus_zkvm_tpu_torch.ops import blake2s, circle, quotients
+    from nexus_zkvm_tpu_torch.prover.stark import (
+        _build_samples, _natural_rows, _relation_widths, build_plan)
+    from nexus_zkvm_tpu_torch.utils.device import from_u32
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2028)
+    P = (1 << 31) - 1
+    cfg, memory = T.PcsConfig(), T.MemoryConfig()
+    out = {}
+
+    def rand(shape, hi=P):
+        return from_u32(rng.integers(0, hi, shape, dtype=np.uint32), dev)
+
+    def felt():
+        return rng.integers(0, P, 4).astype(np.uint64)
+
+    def keep(rec):
+        out[rec["name"]] = rec
+
+    infos = [component_info(c) for c in comps]
+    plan = build_plan(log_sizes, infos, cfg)
+    n = log_sizes[0]
+    s = n + cfg.fri.log_blowup
+    M = 1 << s
+    c = memory.chunk_cols(s)
+    C = infos[0].n_main
+    # K10: a middle chunk (timed) and the last, ragged one
+    chunk, state = rand((c, M)), rand((M, 8), 1 << 32)
+    keep(check("blake2s_leaves_stream", [c, M],
+               lambda: blake2s.leaves_stream(state.clone(), chunk, c, C,
+                                             False),
+               lambda: blake2s.leaves_stream_plain(state, chunk, c, C, False),
+               4 * c * M + 64 * M, M * (c // 16) * COMPRESS, True, reps=5,
+               plain_reps=1))
+    tail = C % c or c
+    last = rand((tail, M))
+    check("blake2s_leaves_stream", [tail, M],
+          lambda: blake2s.leaves_stream(state.clone(), last, C - tail, C,
+                                        True),
+          lambda: blake2s.leaves_stream_plain(state, last, C - tail, C, True),
+          0, 0, False)
+    del chunk, state, last
+    # K11, K12: the CPU component's size group, its first main chunk
+    K = len(plan.groups[s])
+    sampled = [np.stack([felt() for _ in m.offsets]) for m in plan.metas]
+    samples = _build_samples(plan, circle.oods_point_from_felt(felt()),
+                             sampled)[s]
+    a = quotients.prep_args_full(samples, felt(), 0, K)
+    S = len(samples)
+    k0 = [plan.metas[i].role for i in plan.groups[s]].index("main")
+    gcs = from_u32(np.ascontiguousarray(a["gcs"][:, k0:k0 + c]), dev)
+    nnz = int((a["gcs"][:, k0:k0 + c] != 0).any(axis=2).sum())
+    acc, chunk = rand((S, M, 4)), rand((c, M))
+    keep(check("quotient_colsums", [S, c, M],
+               lambda: quotients.colsum_fold(acc.clone(), chunk, gcs, True),
+               lambda: quotients.colsum_fold_plain(acc.clone(), chunk, gcs,
+                                                   True),
+               4 * c * M + 32 * S * M,
+               M * (nnz * 4 * (MUL + 2) + S * 4 * 2 * ADD), True, reps=5,
+               plain_reps=1))
+    xs, ys = circle.dev_committed_points(s, dev)
+    consts = from_u32(a["consts"], dev)
+    keep(check("quotient_finalize", [S, M],
+               lambda: quotients.colsum_finalize(acc, xs, ys, consts),
+               lambda: quotients.colsum_finalize_plain(acc, xs, ys, consts),
+               16 * S * M + 8 * M + 16 * M,
+               M * S * (3 * QM31_MUL + QM31_INV), True, reps=5,
+               plain_reps=1))
+    del acc, chunk
+    # K7: the second pass of the CPU component
+    ev = n + 2
+    N = 1 << ev
+    L = N // memory.comp_passes(_natural_rows(infos[0]), ev)
+    hneg, hpos = domain_halo(infos[0])
+    rel = draw_relations(T.Blake2sChannel(), _relation_widths(infos))
+    tape = tp.domain_tape(comps[0], n, rel)
+    W = L + hneg + hpos
+    mats = {tp.MAIN: rand((infos[0].n_main, W)),
+            tp.PRE: rand((infos[0].n_pre, W)) if infos[0].n_pre else None,
+            tp.INTER: rand((4 * infos[0].n_logup_cols, W)),
+            tp.ISF: rand((1, W))}
+    uni = tape.uniforms(rel, felt())
+    alpha, shift = felt(), felt()
+    invv, bucket = rand((N,)), rand((N, 4))
+
+    def run(fn):
+        b = bucket.clone()
+        fn(tape, mats, uni, L, L, hneg, alpha, shift, invv, b)
+        return b
+    check("air_eval_composition", [len(tape.program), tape.n_slots, L],
+          lambda: run(tp.air_eval_composition),
+          lambda: run(tp.air_eval_composition_plain),
+          *tape_cost(tape, L), True, reps=5, plain_reps=1)
+    del mats, invv, bucket
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_machine_parity(n: int = FIB_PARITY_N):
@@ -884,6 +1173,36 @@ def phase_machine_parity(n: int = FIB_PARITY_N):
           "cuda_prove_s": secs["cuda"]})
 
 
+def time_machine(runs: int = 3) -> None:
+    """Warm fib proofs at FIB_N (a 2^20-row CPU component) through
+    LocalProver with the package on the path, after a cold one: per run,
+    an unprofiled proof's seconds and peak device memory, then a
+    profiled proof's phase times."""
+    import torch
+    import nexus_zkvm_tpu_torch as T
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    kernels.build()
+    prover = LocalProver(fib_guest())
+    public = encode_u32s(FIB_N)
+    prover.prove_with_input(public_input=public)
+    for i in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prover.prove_with_input(public_input=public)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with profiled() as prof:
+            prover.prove_with_input(public_input=public)
+        emit({"phase": "time_machine", "package": str(Path(T.__file__)
+                                                      .resolve().parent),
+              "run": i, "n": FIB_N, "prove_s": prove_s, "peak_bytes": peak,
+              "phase_s": prof.times})
+
+
 def gpu_name_and_limit() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -896,6 +1215,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    timing = sys.argv[1:2] == ["--time-machine"]
+    if timing and len(sys.argv) > 2:
+        # another checkout's package, imported in its place
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
     try:
         from nexus_zkvm_tpu_torch import kernels
     except ImportError as e:
@@ -904,6 +1227,9 @@ def main() -> int:
         return 2
     card = gpu_name_and_limit()
     print(card, flush=True)
+    if timing:
+        time_machine()
+        return 0
     t0 = time.perf_counter()
     kernels.build()
     ptxas = {}
@@ -920,12 +1246,21 @@ def main() -> int:
     phase_slice(comps)
     launches = phase_machine()
     phase_machine_parity()
+    stream_launches, stream_comps, stream_logs = phase_machine_stream()
+    phase_stream_parity()
+    timed.update(check_stream_kernels(stream_comps, stream_logs))
 
     from nexus_zkvm_tpu_torch.kernels import KERNELS
+    unused = [k for k in KERNELS if not launches[k] and not stream_launches[k]]
+    if unused:
+        raise RuntimeError(f"kernels launched on no path: {unused}")
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"nexus_zkvm_tpu_torch/csrc/{REPLACES[name][0]}",
-        "replaces": REPLACES[name][1], "launches": launches[name],
+        "replaces": REPLACES[name][1],
+        "launches": (stream_launches if name in MEMORY_MODE
+                     else launches)[name],
+        "path": "machine_stream" if name in MEMORY_MODE else "machine",
         "max_abs_err": timed[name]["max_abs_err"], "ms": timed[name]["ms"],
         "plain_ms": timed[name]["plain_ms"],
         "bound_ms": timed[name]["bound_ms"],

@@ -12,7 +12,7 @@ CUDA device is present; pass ``device="cpu"`` for the plain path.
 """
 
 from .channel import Blake2sChannel
-from .prover import PcsConfig, FriConfig, prove, verify, Proof
+from .prover import PcsConfig, FriConfig, MemoryConfig, prove, verify, Proof
 
-__all__ = ["Blake2sChannel", "PcsConfig", "FriConfig", "prove", "verify",
-           "Proof"]
+__all__ = ["Blake2sChannel", "PcsConfig", "FriConfig", "MemoryConfig",
+           "prove", "verify", "Proof"]

@@ -43,7 +43,8 @@ __all__ = [
     "Component", "ComponentInfo", "component_info", "BaseContext",
     "InfoContext", "PointEvalContext", "finalize_logup", "pair_entries",
     "logup_columns", "logup_columns_plain", "run_constraints",
-    "preprocessed_is_first", "MAX_CONSTRAINT_DEG",
+    "preprocessed_is_first", "domain_halo", "MAX_CONSTRAINT_DEG",
+    "EVAL_STRIDE",
     "MAIN", "PRE", "INTER", "ISF",
     "M31_CONST", "M31_COL", "QM31_CONST", "QM31_COL",
 ]
@@ -230,6 +231,22 @@ def component_info(component) -> ComponentInfo:
         masks_inter={b: tuple(sorted(ctx.masks_inter.get(b, set()) | {0}))
                      for b in range(nb)},
         relation_widths=dict(ctx.relation_widths))
+
+
+# evaluation rows per trace row on the composition's 4x domain: a mask
+# offset o reads 4·o rows away
+EVAL_STRIDE = 4
+
+
+def domain_halo(info: ComponentInfo) -> tuple:
+    """(hneg, hpos): the rows a composition pass reads before and after
+    its own on the 4x domain, from the component's mask offsets (and the
+    LogUp finalize's read of the previous row)."""
+    offs = {0, -1 if info.n_logup_cols else 0}
+    for masks in (info.masks_main, info.masks_pre, info.masks_inter):
+        for offsets in masks.values():
+            offs.update(offsets)
+    return (EVAL_STRIDE * max(0, -min(offs)), EVAL_STRIDE * max(0, max(offs)))
 
 
 # operand modes of the LogUp kernel's packed input

@@ -61,9 +61,10 @@ from ..ops import field as F
 from ..ops.field import np_qm31, np_qm31_mul
 from ..utils.device import dev_const
 from ..utils.profile import scope
-from .component import (MAIN, PRE, INTER, ISF, M31_CONST, M31_COL,
-                        QM31_CONST, QM31_COL, BaseContext, finalize_logup,
-                        logup_columns, pair_entries, preprocessed_is_first)
+from .component import (MAIN, PRE, INTER, ISF, EVAL_STRIDE, M31_CONST,
+                        M31_COL, QM31_CONST, QM31_COL, BaseContext,
+                        finalize_logup, logup_columns, pair_entries,
+                        preprocessed_is_first)
 from .expr import Felt
 from .lookups import LookupElements
 
@@ -346,7 +347,7 @@ class TapeDomainContext(_TapeCtx):
     """Composition: every constraint is an EMIT, in evaluate() order and
     then the LogUp constraints of `finalize_logup`."""
     accumulates = True
-    STRIDE = 4
+    STRIDE = EVAL_STRIDE
 
     def __init__(self, relations, params):
         super().__init__(relations, params)
@@ -721,16 +722,20 @@ def constraint_weights(alpha, K: int) -> np.ndarray:
 
 
 def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
-                   alpha=None, out: torch.Tensor = None) -> torch.Tensor:
+                   alpha=None, out: torch.Tensor = None,
+                   hneg: int = 0) -> torch.Tensor:
     """Interpret ``tape`` over N rows with torch int64.
 
-    mats: role -> (cols, N) int32 matrix (is_first as a (1, N) one);
+    mats: role -> (cols, W) int32 matrix (is_first as a (1, W) one), a
+    load at row r reading position (r + hneg + shift) mod W: the trace's
+    own columns (W = N, hneg 0: the wrap is the reference's roll), or a
+    composition window's halo-extended blocks (every load inside them).
     uniforms: the table of :meth:`Tape.uniforms`.  A domain tape returns
-    the (N, 4) int64 canonical accumulator sum_j alpha^(K-1-j) c_j; a
-    gen tape writes the packed operand buffer ``out`` (int32) and
-    returns it."""
-    dev = next(iter(mats.values())).device
-    mask = N - 1
+    the (N, 4) int64 canonical accumulator sum_j alpha^(K-1-j) c_j; a gen
+    tape writes the packed operand buffer ``out`` (int32) and returns
+    it."""
+    dev = _first(mats).device
+    W = int(_first(mats).shape[1])
     U = len(uniforms)
     uni = torch.as_tensor(np.asarray(uniforms, np.int64), device=dev)
     L = len(tape.loads)
@@ -756,7 +761,8 @@ def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
         for role in range(4):
             sel = torch.nonzero(loads[:, 0] == role).reshape(-1)
             if sel.numel():
-                idx = (rows[None, :] + tape.stride * loads[sel, 2:3]) & mask
+                idx = (rows[None, :] + hneg
+                       + tape.stride * loads[sel, 2:3]) % W
                 V[U + sel] = mats[role][loads[sel, 1:2], idx].to(torch.int64)
         for op, lo, hi, a, b in tape.p_groups:
             a = torch.as_tensor(a, device=dev)
@@ -798,9 +804,9 @@ def _launch_geometry(n_slots: int):
 
 
 def _tape_table(tape, mats, uniforms, N: int) -> torch.Tensor:
-    """The per-launch int64 table of K7: each load's column address and
-    row shift, then the uniforms (and, for the composition, the
-    constraint weights)."""
+    """The per-launch int64 table of K7: each load's column address
+    (columns of N words) and row shift, then the uniforms (and, for the
+    composition, the constraint weights)."""
     base, rows = np.zeros(4, np.int64), np.zeros(4, np.int64)
     for role, m in mats.items():
         if m is not None:
@@ -832,13 +838,16 @@ def _first(mats) -> torch.Tensor:
     return next(m for m in mats.values() if m is not None)
 
 
-def _launch_tape(name: str, tape, mats, table, N: int, *tail) -> None:
+def _launch_tape(name: str, tape, mats, table, rows: tuple, *tail) -> None:
+    """Launch K7 entry ``name``: the program and table, the row
+    arguments ``rows`` ((N,) for the operands, (lo, L, hneg) for the
+    composition), the launch geometry, then the entry's own arguments."""
     dev = _first(mats).device
     threads, smem = _launch_geometry(tape.n_slots)
     table = table.to(dev)
     kernels.launch(name, tape.device_program(dev).data_ptr(),
-                   len(tape.program), table.data_ptr(), len(tape.loads), N,
-                   threads, smem, *tail)
+                   len(tape.program), table.data_ptr(), len(tape.loads),
+                   *rows, threads, smem, *tail)
 
 
 def air_eval_operands_plain(tape, mats, uniforms, N: int) -> torch.Tensor:
@@ -858,7 +867,7 @@ def air_eval_operands(tape, mats, uniforms, N: int) -> torch.Tensor:
     if _first(mats).is_cuda:
         out = torch.empty(tape.n_words, dtype=torch.int32, device=dev)
         _launch_tape("air_eval_operands", tape, mats,
-                     _tape_table(tape, mats, uniforms, N), N,
+                     _tape_table(tape, mats, uniforms, N), (N,),
                      tape.device_stores(dev).data_ptr(), out.data_ptr())
         return out
     if dev.type == "cpu":
@@ -866,14 +875,17 @@ def air_eval_operands(tape, mats, uniforms, N: int) -> torch.Tensor:
     raise ValueError(f"unsupported device {dev}")
 
 
-def air_eval_composition_plain(tape, mats, uniforms, N: int, alpha, shift,
-                               invv, bucket) -> None:
-    """K7's composition epilogue in plain torch: bucket += acc * invv *
-    shift, acc from the tape interpreter."""
-    acc = air_eval_plain(tape, mats, uniforms, N, alpha=alpha)
+def air_eval_composition_plain(tape, mats, uniforms, lo: int, L: int,
+                               hneg: int, alpha, shift, invv,
+                               bucket) -> None:
+    """K7's composition in plain torch: bucket[lo:lo + L] += acc *
+    invv[lo:lo + L] * shift, acc from the tape interpreter over the
+    window's halo-extended blocks."""
+    acc = air_eval_plain(tape, mats, uniforms, L, alpha=alpha, hneg=hneg)
     sh = torch.as_tensor(np.asarray(shift, np.int64), device=acc.device)
-    contrib = F.qm31_mul(sh, F.qm31_mul_m31(acc, invv))
-    bucket.copy_(F.m31_add(bucket, contrib).to(torch.int32))
+    contrib = F.qm31_mul(sh, F.qm31_mul_m31(acc, invv[lo:lo + L]))
+    window = bucket[lo:lo + L]
+    window.copy_(F.m31_add(window, contrib).to(torch.int32))
 
 
 def composition_uniforms(tape, uniforms, alpha) -> np.ndarray:
@@ -886,28 +898,39 @@ def composition_uniforms(tape, uniforms, alpha) -> np.ndarray:
         .reshape(-1)])
 
 
-def air_eval_composition(tape, mats, uniforms, N: int, alpha, shift,
-                         invv: torch.Tensor, bucket: torch.Tensor) -> None:
-    """bucket += (sum_j alpha^(K-1-j) c_j) * invv * shift over N rows,
-    in place: c_j the tape's constraints, invv the (N,) 1 / v_n, bucket
-    (N, 4) int32.  Launches K7 on CUDA matrices, runs
-    `air_eval_composition_plain` on CPU ones."""
+def air_eval_composition(tape, mats, uniforms, lo: int, L: int, hneg: int,
+                         alpha, shift, invv: torch.Tensor,
+                         bucket: torch.Tensor) -> None:
+    """bucket[lo:lo + L] += (sum_j alpha^(K-1-j) c_j) * invv * shift over
+    rows [lo, lo + L) of the N-row domain, in place: c_j the tape's
+    constraints, invv the (N,) 1 / v_n, bucket (N, 4) int32.  mats: role
+    -> halo-extended (cols, W) blocks whose position q holds natural row
+    lo - hneg + q (mod N); every load must fall inside them (a resident
+    composition is the one window [0, N)).  Launches K7 on CUDA
+    matrices, runs `air_eval_composition_plain` on CPU ones."""
     dev = _first(mats).device
-    _check_mats(mats, N, dev)
-    if tuple(bucket.shape) != (N, 4) or tuple(invv.shape) != (N,):
-        raise ValueError("bucket must be (N, 4) and invv (N,)")
+    W = int(_first(mats).shape[1])
+    _check_mats(mats, W, dev)
+    N = int(bucket.shape[0])
+    shifts = tape.loads[:, 2] * tape.stride
+    if tuple(bucket.shape) != (N, 4) or tuple(invv.shape) != (N,) or \
+            lo < 0 or L <= 0 or lo + L > N or (len(shifts) and (
+                hneg + shifts.min() < 0 or L + hneg + shifts.max() > W)):
+        raise ValueError(f"rows [{lo}, {lo + L}) of {N}, halo {hneg}, "
+                         f"blocks of {W}: a load falls outside")
     if _first(mats).is_cuda:
         kernels.check_cuda_tensor(invv, "invv", ndim=1)
         kernels.check_cuda_tensor(bucket, "bucket", ndim=2)
         table = _tape_table(tape, mats, composition_uniforms(
-            tape, uniforms, alpha), N)
-        _launch_tape("air_eval_composition", tape, mats, table, N,
+            tape, uniforms, alpha), W)
+        _launch_tape("air_eval_composition", tape, mats, table,
+                     (lo, L, hneg),
                      *(int(x) for x in np.asarray(shift, np.uint64)),
                      invv.data_ptr(), bucket.data_ptr())
         return
     if dev.type == "cpu":
-        air_eval_composition_plain(tape, mats, uniforms, N, alpha, shift,
-                                   invv, bucket)
+        air_eval_composition_plain(tape, mats, uniforms, lo, L, hneg, alpha,
+                                   shift, invv, bucket)
         return
     raise ValueError(f"unsupported device {dev}")
 
@@ -940,17 +963,20 @@ def generate_interaction(component, main_matrix, pre_matrix, relations,
 
 
 def accumulate_composition(component, log_size: int, mats, relations,
-                           claimed, alpha, shift, invv, bucket) -> int:
-    """Add a component's composition block, acc / v_n * shift, into its
-    eval size's bucket; mats: role -> its (cols, 4·2^log_size) natural
-    evaluations (interaction as the (4B, N) coordinate-major matrix,
-    is_first as (1, N)).  Returns the constraint count."""
+                           claimed, alpha, shift, invv, bucket,
+                           window: tuple) -> int:
+    """Add a component's composition block, acc / v_n * shift, over the
+    rows ``window`` = (lo, hi, hneg) of its 4x domain into its eval
+    size's bucket; mats: role -> halo-extended blocks of its natural
+    evaluations (`air_eval_composition`; interaction as the
+    coordinate-major (4B, W) matrix, is_first as (1, W)).  Returns the
+    constraint count."""
     tape = domain_tape(component, log_size, relations)
     if tape is None:
         return 0
-    N = 1 << (log_size + 2)
-    air_eval_composition(tape, mats, tape.uniforms(relations, claimed), N,
-                         alpha, shift, invv, bucket)
+    lo, hi, hneg = window
+    air_eval_composition(tape, mats, tape.uniforms(relations, claimed), lo,
+                         hi - lo, hneg, alpha, shift, invv, bucket)
     return tape.n_constraints
 
 

@@ -14,6 +14,7 @@
 // sets the final-block flag.
 //
 // Entry points:
+//   nzt_blake2s_leaves_stream (K10): see the kernel below.
 //   nzt_blake2s_messages: message r is element (r, w) at
 //     in[r * stride_r + w * stride_w], so a (C, N) column matrix is hashed
 //     leaf-wise (stride_r = 1, stride_w = N: neighbouring threads read
@@ -134,6 +135,60 @@ __global__ void blake2s_parents(const uint32_t* __restrict__ in,
   store_digest(out + r * 8, h);
 }
 
+// K10: Merkle leaves of a column-streamed commitment.
+//
+// Replaces the JAX package's device programs nexus_zkvm_tpu/prover/pcs.py
+// `_stream_commit` (:221), run as `pcs.stream_leaf0` / `pcs.stream_leaf`
+// / `pcs.stream_leafF` (:269, :277): the leaf digests of a (C, 2^s)
+// evaluation matrix that never exists at once.  The columns arrive in
+// chunks of c (a multiple of 16 but for the last), each chunk the (c, M)
+// LDE in K1's layout order; leaf m (committed order) is row brev(m) of
+// every column, read here through __brev, so no committed-order copy of
+// the chunk is built.  One thread per leaf carries its Blake2s state
+// (M, 8) across chunks: written from the IV on the first chunk, read and
+// written back on the others.  A chunk runs its whole 16-word blocks
+// (all of them, the last zero-padded, on the last chunk); the byte
+// counter after block b is 4 (done + 16 (b + 1)), done the words of the
+// earlier chunks, and 4 C with the final flag on the very last block,
+// which is the digest of `nzt_blake2s_messages` on the whole row.
+//
+// What bounds it: the compressions, 968 operations each, ceil(c / 16) a
+// leaf, against 4 c M bytes read once; the bit-reversed reads scatter
+// across rows (neighbouring threads read rows far apart), which the
+// compressions hide.
+__global__ void blake2s_leaves_stream(uint32_t* __restrict__ state,
+                                      const uint32_t* __restrict__ chunk,
+                                      long long M, int log_m, int c,
+                                      long long done, long long C, int first,
+                                      int last) {
+  long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  uint32_t h[8];
+  uint4* st = reinterpret_cast<uint4*>(state + m * 8);
+  if (first) {
+    init_state(h);
+  } else {
+    uint4 a = st[0], b = st[1];
+    h[0] = a.x; h[1] = a.y; h[2] = a.z; h[3] = a.w;
+    h[4] = b.x; h[5] = b.y; h[6] = b.z; h[7] = b.w;
+  }
+  const long long row =
+      log_m ? (long long)(__brev((unsigned)m) >> (32 - log_m)) : 0;
+  const int nb = last ? (c + 15) / 16 : c / 16;
+  for (int blk = 0; blk < nb; ++blk) {
+    uint32_t msg[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      int w = blk * 16 + i;
+      msg[i] = w < c ? __ldg(chunk + (long long)w * M + row) : 0u;
+    }
+    bool fin = last && blk == nb - 1;
+    compress(h, msg, fin ? 4ull * (uint64_t)C
+                         : 4ull * (uint64_t)(done + 16 * (blk + 1)), fin);
+  }
+  store_digest(state + m * 8, h);
+}
+
 constexpr int kThreads = 128;
 
 }  // namespace
@@ -152,5 +207,22 @@ extern "C" int nzt_blake2s_parents(const uint32_t* in, uint32_t* out,
   long long blocks = (R + kThreads - 1) / kThreads;
   blake2s_parents<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       in, out, R);
+  return (int)cudaGetLastError();
+}
+
+// state (M, 8) leaf states, chunk (c, M) layout-order evaluations, M =
+// 2^log_m; done = columns absorbed by earlier chunks, C = all columns;
+// first: start from the IV; last: finalize.
+extern "C" int nzt_blake2s_leaves_stream(uint32_t* state, const uint32_t* chunk,
+                                         long long M, int log_m, int c,
+                                         long long done, long long C,
+                                         int first, int last, void* stream) {
+  if (c <= 0 || (!last && c % 16) || log_m < 0 || log_m > 31 ||
+      M != (1LL << log_m) || done + c > C || (last && done + c != C))
+    return (int)cudaErrorInvalidValue;
+  long long blocks = (M + kThreads - 1) / kThreads;
+  blake2s_leaves_stream<<<(unsigned)blocks, kThreads, 0,
+                          (cudaStream_t)stream>>>(state, chunk, M, log_m, c,
+                                                  done, C, first, last);
   return (int)cudaGetLastError();
 }

@@ -47,17 +47,23 @@ KERNELS = {
     "blake2s_messages": ("blake2s", "nzt_blake2s_messages",
                          [_P, _P, _L, _I, _L, _L]),
     "blake2s_parents": ("blake2s", "nzt_blake2s_parents", [_P, _P, _L]),
+    "blake2s_leaves_stream": ("blake2s", "nzt_blake2s_leaves_stream",
+                              [_P, _P, _L, _I, _I, _L, _L, _I, _I]),
     "deep_quotients": ("quotients", "nzt_deep_quotients",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                         _I, _I, _L, _P]),
+    "quotient_colsums": ("quotients", "nzt_quotient_colsums",
+                         [_P, _P, _P, _I, _I, _L, _I, _I]),
+    "quotient_finalize": ("quotients", "nzt_quotient_finalize",
+                          [_P, _P, _P, _P, _I, _L, _P]),
     "fri_fold": ("fri", "nzt_fri_fold",
                  [_P, _P, _L, _P, _U, _U, _U, _U, _P, _P, _U, _U, _U, _U]),
     "cpu_fill": ("fill", "nzt_cpu_fill", [_P, _L] + [_U] * 7 + [_P, _P]),
     "logup_columns": ("logup", "nzt_logup_columns",
                       [_P, _P, _I, _L, _P, _P]),
     "air_eval_composition": ("air_eval", "nzt_air_eval_composition",
-                             [_P, _I, _P, _I, _L, _I, _I] + [_U] * 4
-                             + [_P, _P]),
+                             [_P, _I, _P, _I, _L, _L, _L, _I, _I]
+                             + [_U] * 4 + [_P, _P]),
     "air_eval_operands": ("air_eval", "nzt_air_eval_operands",
                           [_P, _I, _P, _I, _L, _I, _I, _P, _P]),
     "oods_dot": ("oods", "nzt_oods_dot", [_P, _I, _I, _I, _P, _I, _P, _P]),

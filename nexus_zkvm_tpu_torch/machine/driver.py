@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..channel import Blake2sChannel
-from ..prover import PcsConfig, prove, verify
+from ..prover import MemoryConfig, PcsConfig, prove, verify
 from ..prover.stark import Proof
 from ..utils.device import resolve_device
 from ..utils.profile import scope
@@ -376,14 +376,18 @@ def build_machine_traces(view, trace, segment_log: int | None = None,
 
 
 def prove_machine(view, trace, config: PcsConfig = PcsConfig(),
-                  segment_log: int | None = None,
-                  device="cuda") -> MachineProof:
+                  segment_log: int | None = None, device="cuda",
+                  memory: MemoryConfig = MemoryConfig()) -> MachineProof:
+    """``memory``: where the prover keeps its data (the large-trace
+    memory mode is chosen by size); the proof is the same under any."""
     with scope("fills"):
         comps, log_sizes, traces = build_machine_traces(
             view, trace, segment_log, device=device)
     channel = Blake2sChannel()
     _mix_view(channel, view)
-    proof = prove(comps, log_sizes, traces, channel, config, device=device)
+    # the traces were made here: prove frees each once it is committed
+    proof = prove(comps, log_sizes, traces, channel, config, device=device,
+                  memory=memory, release_traces=True)
     return MachineProof(stark=proof)
 
 

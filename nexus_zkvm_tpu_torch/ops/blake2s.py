@@ -6,12 +6,16 @@ child digests.  Messages are whole little-endian uint32 words (the
 Blake2s native order); a W-word message is zero-padded to 16-word
 blocks, with the byte counter of the last block at 4·W.
 
-Two kernel entry points share one device compression (``csrc/blake2s.cu``):
+Three kernel entry points share one device compression
+(``csrc/blake2s.cu``):
 
 * :func:`hash_rows` — one message per row of an (R, W) view with any
   strides, so a (C, N) column matrix is hashed leaf-wise through its
   transpose without a copy;
-* :func:`hash_parents` — a Merkle parent layer (2R, 8) -> (R, 8).
+* :func:`hash_parents` — a Merkle parent layer (2R, 8) -> (R, 8);
+* :func:`leaves_stream` (kernel K10) — the leaves of a matrix that
+  arrives in column chunks, each chunk's words absorbed into a Blake2s
+  state carried from one chunk to the next.
 
 On a CPU tensor the plain PyTorch version runs (int64 working values,
 every rotation masked to 32 bits).  The numpy mirror is the verifier's
@@ -24,9 +28,11 @@ import numpy as np
 import torch
 
 from .. import kernels
+from .circle import dev_bit_reverse
 
-__all__ = ["hash_rows", "hash_parents", "hash_rows_plain",
-           "np_batch_compress", "np_batch_blake2s_words", "initial_state"]
+__all__ = ["hash_rows", "hash_parents", "hash_rows_plain", "leaves_stream",
+           "leaves_stream_plain", "np_batch_compress",
+           "np_batch_blake2s_words", "initial_state"]
 
 _IV = np.array([
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -105,8 +111,47 @@ def hash_rows_plain(msgs: torch.Tensor) -> torch.Tensor:
              for j in range(16)]
         last = i == nblocks - 1
         h = _compress_plain(h, m, 4 * W if last else 64 * (i + 1), last)
-    out = torch.stack(h, dim=1)
-    return ((out ^ 0x80000000) - 0x80000000).to(torch.int32)
+    return _to_int32(torch.stack(h, dim=1))
+
+
+def _to_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) -> int32 with the same bits."""
+    return ((words ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def _stream_blocks(c: int, last: bool) -> int:
+    return -(-c // 16) if last else c // 16
+
+
+def leaves_stream_plain(state, chunk: torch.Tensor, done: int, total: int,
+                        last: bool) -> torch.Tensor:
+    """Absorb one column chunk into the leaf states of a streamed
+    commitment.  chunk: (c, M) int32 evaluations in layout order (leaf m
+    reads row brev(m)); state: the (M, 8) int32 states after ``done``
+    columns, or None before the first chunk; total: the matrix's column
+    count.  Whole 16-word blocks only, but for the last chunk, whose
+    final (zero-padded) block carries the byte count 4·total and the
+    final flag.  Returns the new (M, 8) states: after the last chunk,
+    the digests of ``hash_rows`` on the whole committed-order rows."""
+    c, M = (int(x) for x in chunk.shape)
+    log_m = M.bit_length() - 1
+    words = chunk[:, dev_bit_reverse(log_m, chunk.device)].t() \
+        .to(torch.int64) & _M32
+    if state is None:
+        h = [torch.full((M,), int(w), dtype=torch.int64, device=chunk.device)
+             for w in initial_state()]
+    else:
+        st = state.to(torch.int64) & _M32
+        h = [st[:, i] for i in range(8)]
+    zero = torch.zeros(M, dtype=torch.int64, device=chunk.device)
+    nb = _stream_blocks(c, last)
+    for b in range(nb):
+        m = [words[:, 16 * b + j] if 16 * b + j < c else zero
+             for j in range(16)]
+        fin = last and b == nb - 1
+        h = _compress_plain(h, m, 4 * total if fin else
+                            4 * (done + 16 * (b + 1)), fin)
+    return _to_int32(torch.stack(h, dim=1))
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +178,37 @@ def hash_rows(msgs: torch.Tensor) -> torch.Tensor:
     if msgs.device.type == "cpu":
         return hash_rows_plain(msgs)
     raise ValueError(f"unsupported device {msgs.device}")
+
+
+def leaves_stream(state, chunk: torch.Tensor, done: int, total: int,
+                  last: bool) -> torch.Tensor:
+    """:func:`leaves_stream_plain`'s function: launches kernel K10 on a
+    CUDA ``chunk`` (updating ``state`` in place, or a new one on the
+    first chunk), runs the plain version on a CPU one."""
+    if chunk.dim() != 2:
+        raise ValueError(f"expected a (c, M) chunk, got {tuple(chunk.shape)}")
+    c, M = (int(x) for x in chunk.shape)
+    log_m = M.bit_length() - 1
+    if c == 0 or M != 1 << log_m or (not last and c % 16) or \
+            done + c > total or (last and done + c != total) or \
+            (state is None) != (done == 0):
+        raise ValueError(f"bad chunk {c} x {M} at column {done} of {total}")
+    if chunk.is_cuda:
+        kernels.check_cuda_tensor(chunk, "chunk", ndim=2)
+        first = state is None
+        if first:
+            state = torch.empty((M, 8), dtype=torch.int32,
+                                device=chunk.device)
+        kernels.check_cuda_tensor(state, "state", ndim=2)
+        if tuple(state.shape) != (M, 8):
+            raise ValueError("state must be (M, 8)")
+        kernels.launch("blake2s_leaves_stream", state.data_ptr(),
+                       chunk.data_ptr(), M, log_m, c, done, total,
+                       int(first), int(last))
+        return state
+    if chunk.device.type == "cpu":
+        return leaves_stream_plain(state, chunk, done, total, last)
+    raise ValueError(f"unsupported device {chunk.device}")
 
 
 def hash_parents(layer: torch.Tensor) -> torch.Tensor:

@@ -92,11 +92,16 @@ def evaluate_plain(coeffs: torch.Tensor) -> torch.Tensor:
 # CUDA kernel K1
 # ---------------------------------------------------------------------------
 
-def _stages_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+def _stages_cuda(x: torch.Tensor, inverse: bool, out=None) -> torch.Tensor:
     kernels.check_cuda_tensor(x, "cfft input")
     n = _log2(x.shape[-1])
     rows = x.numel() >> n
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    kernels.check_cuda_tensor(out, "cfft output")
+    if out.shape != x.shape:
+        raise ValueError(f"output {tuple(out.shape)} for input "
+                         f"{tuple(x.shape)}")
     tw = twiddle_table(n, inverse, x.device)
     src = x
     order = range(1, n + 1) if inverse else range(n, 0, -1)
@@ -117,12 +122,15 @@ def _stages_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def interpolate(evals: torch.Tensor) -> torch.Tensor:
-    """(..., N) int32 evals (layout order) -> bit-reversed coefficients."""
+def interpolate(evals: torch.Tensor, out=None) -> torch.Tensor:
+    """(..., N) int32 evals (layout order) -> bit-reversed coefficients,
+    into ``out`` (contiguous, the same shape) when given: the first stage
+    reads ``evals``, every later one runs in place in ``out``."""
     if evals.is_cuda:
-        return _stages_cuda(evals, inverse=True)
+        return _stages_cuda(evals, inverse=True, out=out)
     if evals.device.type == "cpu":
-        return interpolate_plain(evals)
+        cf = interpolate_plain(evals)
+        return cf if out is None else out.copy_(cf)
     raise ValueError(f"unsupported device {evals.device}")
 
 

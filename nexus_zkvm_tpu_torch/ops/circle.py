@@ -120,11 +120,12 @@ def domain(log_size: int) -> CircleDomain:
 
 @lru_cache(maxsize=None)
 def bit_reverse_indices(log_n: int) -> np.ndarray:
-    """perm[i] = bit-reversal of i over log_n bits (an involution)."""
-    idx = np.arange(1 << log_n, dtype=np.int64)
-    rev = np.zeros(1 << log_n, dtype=np.int64)
-    for b in range(log_n):
-        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    """perm[i] = bit-reversal of i over log_n bits (an involution).
+    Built by doubling: with r the reversal over k bits, the reversal
+    over k + 1 bits is [2r, 2r + 1]."""
+    rev = np.zeros(1, dtype=np.int64)
+    for _ in range(log_n):
+        rev = np.concatenate([2 * rev, 2 * rev + 1])
     return rev
 
 
@@ -186,6 +187,11 @@ def dev_bit_reverse(log_n: int, device):
 def dev_layout_to_natural(log_size: int, device):
     return dev_const("circle.l2n", log_size, device,
                      lambda: layout_to_natural(log_size))
+
+
+def dev_natural_to_layout(log_size: int, device):
+    return dev_const("circle.n2l", log_size, device,
+                     lambda: natural_to_layout(log_size))
 
 
 def dev_committed_points(log_size: int, device):

@@ -201,7 +201,34 @@ def np_m31_pow(x, e: int):
 
 
 def np_m31_inv(x):
-    return np_m31_pow(x, P - 2)
+    """Inverse of every element (inv(0) = 0).  Large arrays use batch
+    inversion (Montgomery's trick): the values, as the rows of an
+    (m, 4096) matrix, are multiplied into running column products, the
+    4096 totals take one power each, and a backward sweep gives every
+    inverse: about three products an element instead of ~60."""
+    x = np.asarray(x, dtype=np.uint64)
+    k = 4096
+    if x.size < 2 * k:
+        return np_m31_pow(x, P - 2)
+    flat = x.reshape(-1) % np.uint64(P)
+    zero = flat == 0
+    m = -(-flat.size // k)
+    v = np.ones(m * k, np.uint64)
+    v[:flat.size] = np.where(zero, np.uint64(1), flat)
+    v = v.reshape(m, k)
+    pre = np.empty_like(v)
+    pre[0] = v[0]
+    for j in range(1, m):
+        pre[j] = pre[j - 1] * v[j] % np.uint64(P)
+    inv = np_m31_pow(pre[-1], P - 2)
+    out = np.empty_like(v)
+    for j in range(m - 1, 0, -1):
+        out[j] = inv * pre[j - 1] % np.uint64(P)
+        inv = inv * v[j] % np.uint64(P)
+    out[0] = inv
+    out = out.reshape(-1)[:flat.size]
+    out[zero] = 0
+    return out.reshape(x.shape)
 
 
 def np_cm31_mul(a, b):

@@ -7,6 +7,10 @@ deepest layer hashes the column values alone.  Uniform trees
 hashing reads its transpose in place and every parent layer is one
 launch of the parent kernel (both kernel K2).
 
+A column-streamed tree (``prover/pcs.py``) has its leaf digests but no
+matrix: :func:`tree_from_leaves` climbs it, and its openings take the
+(C, Q) values from the caller.
+
 Openings gather on the device into one buffer for all trees (kernel K9,
 ``csrc/gather.cu``; plain indexing on the CPU) and reach the host in one
 transfer (:func:`finalize_decommitments`); the verifier is host
@@ -25,9 +29,10 @@ from .. import kernels
 from .blake2s import hash_rows, hash_parents
 from ..utils.device import to_u32
 
-__all__ = ["MerkleTree", "commit", "commit_matrix", "MerkleDecommitment",
-           "decommit", "decommit_many_fused", "gather_tables",
-           "gather_launch", "gather_openings", "gather_openings_plain",
+__all__ = ["MerkleTree", "commit", "commit_matrix", "tree_from_leaves",
+           "MerkleDecommitment", "decommit", "decommit_many_fused",
+           "gather_columns", "gather_tables", "gather_launch",
+           "gather_openings", "gather_openings_plain",
            "finalize_decommitments", "verify_decommitment"]
 
 
@@ -55,10 +60,16 @@ class MerkleTree:
 def commit_matrix(matrix: torch.Tensor) -> MerkleTree:
     """Uniform-depth commit of the rows of a (C, 2^d) matrix; equal to
     ``commit([matrix[0], ..., matrix[C - 1]])``."""
-    C, n = matrix.shape
-    d = _log2(n)
+    return tree_from_leaves(hash_rows(matrix.t()), matrix)
+
+
+def tree_from_leaves(leaves: torch.Tensor, matrix=None) -> MerkleTree:
+    """Uniform tree over (2^d, 8) leaf digests: every parent layer up
+    to the root.  ``matrix`` is None for a streamed commitment, whose
+    openings then take their values from the caller."""
+    d = _log2(leaves.shape[0])
     layers: list = [None] * (d + 1)
-    layers[d] = hash_rows(matrix.t())
+    layers[d] = leaves
     for dd in range(d - 1, -1, -1):
         layers[dd] = hash_parents(layers[dd + 1])
     return MerkleTree(layers=layers, columns=[], matrix=matrix)
@@ -142,11 +153,20 @@ class _Gather:
         return self.src[:, ix] if self.width == 1 else self.src[ix]
 
 
-def _pieces(tree: MerkleTree, queries):
-    """(values pieces, digest pieces) of one opening."""
+def _pieces(tree: MerkleTree, queries, values=None):
+    """(values pieces, digest pieces) of one opening; ``values``: the
+    (C, Q) opened values of a tree without a matrix (a streamed one), at
+    the sorted distinct queries."""
     queries = sorted(set(int(q) for q in queries))
-    if tree.matrix is not None:
+    if values is not None:
+        if values.dim() != 2 or values.shape[1] != len(queries):
+            raise ValueError(f"values {tuple(values.shape)} for "
+                             f"{len(queries)} positions")
+        vals = [_Gather(values, list(range(len(queries))), 1)]
+    elif tree.matrix is not None:
         vals = [_Gather(tree.matrix, queries, 1)]
+    elif not tree.columns:
+        raise ValueError("a tree without columns opens with given values")
     else:
         vals = [_Gather(col[None, :], _positions_at(
                     queries, tree.max_depth, _log2(col.shape[0])), 1)
@@ -210,12 +230,20 @@ def gather_openings(pieces) -> torch.Tensor:
     raise ValueError(f"unsupported device {dev}")
 
 
+def gather_columns(src: torch.Tensor, idx) -> torch.Tensor:
+    """(rows, len(idx)) = src[:, idx] of a (rows, N) matrix: one K9
+    launch on CUDA, plain indexing on the CPU."""
+    return gather_openings([_Gather(src, list(idx), 1)]).reshape(
+        int(src.shape[0]), len(idx))
+
+
 def decommit_many_fused(items) -> PendingOpenings:
     """Gather the openings of many (tree, positions) pairs in one
-    launch; finalize them together with :func:`finalize_decommitments`."""
+    launch, or (tree, positions, values) for a streamed tree; finalize
+    them together with :func:`finalize_decommitments`."""
     pieces, layout = [], []
-    for tree, pos in items:
-        vals, sibs = _pieces(tree, pos)
+    for item in items:
+        vals, sibs = _pieces(*item)
         pieces += vals + sibs
         layout.append(([p.shape() for p in vals], [p.shape() for p in sibs]))
     return PendingOpenings(gather_openings(pieces) if pieces else None,

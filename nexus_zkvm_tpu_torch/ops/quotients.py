@@ -17,6 +17,12 @@ does, per domain point p in committed order,
 
 The size group's columns arrive as whole per-role matrices (pre, main,
 inter, comp), so no (K, M) gather is ever built.
+
+A size group with a streamed commitment (``prover/pcs.py``) has no
+resident evaluations: its column sums are accumulated chunk by chunk
+(:func:`colsum_fold`, kernel K11) and the quotient formed from them once
+(:func:`colsum_finalize`, kernel K12).  The two give the words of
+:func:`accumulate_blocks` for any chunking.
 """
 
 from __future__ import annotations
@@ -33,12 +39,13 @@ from .field import (
     np_qm31_add, np_qm31_sub, np_qm31_mul, np_qm31_inv, np_qm31_conj,
     np_qm31_pow, np_m31_mul, np_qm31,
 )
-from .circle import committed_points, dev_committed_points
+from .circle import committed_points, dev_bit_reverse, dev_committed_points
 from ..utils.device import from_u32
 
 __all__ = ["PointSample", "n_terms", "prep_args_full", "accumulate_blocks",
-           "accumulate_blocks_plain", "accumulate_quotients", "QuotientsAt",
-           "MAX_SAMPLES", "MAX_ROLES"]
+           "accumulate_blocks_plain", "accumulate_quotients", "colsum_fold",
+           "colsum_fold_plain", "colsum_finalize", "colsum_finalize_plain",
+           "QuotientsAt", "MAX_SAMPLES", "MAX_ROLES"]
 
 MAX_SAMPLES = 8     # samples (OODS points) per size group the kernel takes
 MAX_ROLES = 4       # per-role column blocks (pre, main, inter, comp)
@@ -118,15 +125,22 @@ def prep_args_full(samples, gamma, gamma_offset: int, k_total: int) -> dict:
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
+def _sample_term(num, x_p, y_p, c):
+    """(num - A·y - B) / V at every point; c: the sample's (6, 4)
+    int64 constants zx, zy, dx, dy, A, B."""
+    zx, zy, dx, dy, A, B = (c[i] for i in range(6))
+    V = qm31_sub(qm31_mul(dy, qm31_sub(qm31_from_m31(x_p), zx)),
+                 qm31_mul(dx, qm31_sub(qm31_from_m31(y_p), zy)))
+    num = qm31_sub(qm31_sub(num, qm31_mul_m31(A, y_p)), B)
+    return qm31_mul(num, qm31_inv(V))
+
+
 def accumulate_blocks_plain(blocks, x_p, y_p, consts, gcs) -> torch.Tensor:
     """blocks: per-role (C_r, M) int32 matrices (committed order), x_p,
     y_p: (M,) points, consts (S, 6, 4), gcs (S, K, 4) int32 tensors."""
     c64 = consts.to(torch.int64)
     total = None
     for s in range(consts.shape[0]):
-        zx, zy, dx, dy, A, B = (c64[s, i] for i in range(6))
-        V = qm31_sub(qm31_mul(dy, qm31_sub(qm31_from_m31(x_p), zx)),
-                     qm31_mul(dx, qm31_sub(qm31_from_m31(y_p), zy)))
         coords = []
         for t in range(4):
             acc, off = None, 0
@@ -136,9 +150,31 @@ def accumulate_blocks_plain(blocks, x_p, y_p, consts, gcs) -> torch.Tensor:
                 acc = part if acc is None else m31_add(acc, part)
                 off += blk.shape[0]
             coords.append(acc)
-        num = qm31_sub(qm31_sub(torch.stack(coords, dim=-1),
-                                qm31_mul_m31(A, y_p)), B)
-        contrib = qm31_mul(num, qm31_inv(V))
+        contrib = _sample_term(torch.stack(coords, dim=-1), x_p, y_p, c64[s])
+        total = contrib if total is None else qm31_add(total, contrib)
+    return total.to(torch.int32)
+
+
+def colsum_fold_plain(acc, block, gcs, brev: bool) -> torch.Tensor:
+    """acc (S, M, 4) int32 += sum_k gcs[s, k]·block[k] in place, block
+    (c, M) in committed order or, with ``brev``, in layout order (point
+    p reads row brev(p)); gcs (S, c, 4).  Returns acc."""
+    if brev:
+        block = block[:, dev_bit_reverse(int(block.shape[1]).bit_length()
+                                         - 1, block.device)]
+    for s in range(acc.shape[0]):
+        for t in range(4):
+            part = m31_fold_sum(m31_mul(block, gcs[s, :, t, None]), dim=0)
+            acc[s, :, t] = m31_add(acc[s, :, t], part).to(torch.int32)
+    return acc
+
+
+def colsum_finalize_plain(acc, x_p, y_p, consts) -> torch.Tensor:
+    """(M, 4) int32 combined quotients from the (S, M, 4) column sums."""
+    c64 = consts.to(torch.int64)
+    total = None
+    for s in range(acc.shape[0]):
+        contrib = _sample_term(acc[s].to(torch.int64), x_p, y_p, c64[s])
         total = contrib if total is None else qm31_add(total, contrib)
     return total.to(torch.int32)
 
@@ -175,6 +211,52 @@ def accumulate_blocks(blocks, x_p, y_p, consts, gcs) -> torch.Tensor:
     if x_p.device.type == "cpu":
         return accumulate_blocks_plain(blocks, x_p, y_p, consts, gcs)
     raise ValueError(f"unsupported device {x_p.device}")
+
+
+def colsum_fold(acc, block, gcs, brev: bool) -> torch.Tensor:
+    """:func:`colsum_fold_plain`'s function: launches kernel K11 on CUDA
+    tensors, runs the plain version on CPU ones.  Returns acc."""
+    S, M = int(acc.shape[0]), int(acc.shape[1])
+    c = int(block.shape[0])
+    if tuple(acc.shape) != (S, M, 4) or tuple(block.shape) != (c, M) or \
+            tuple(gcs.shape) != (S, c, 4) or M & (M - 1):
+        raise ValueError(f"acc {tuple(acc.shape)}, block "
+                         f"{tuple(block.shape)}, gcs {tuple(gcs.shape)}")
+    if block.is_cuda:
+        if not 1 <= S <= MAX_SAMPLES or c == 0:
+            raise ValueError(f"kernel takes 1..{MAX_SAMPLES} samples and "
+                             f"a non-empty block, got {S}, {c}")
+        for name, t in (("acc", acc), ("block", block), ("gcs", gcs)):
+            kernels.check_cuda_tensor(t, name)
+        kernels.launch("quotient_colsums", acc.data_ptr(), block.data_ptr(),
+                       gcs.data_ptr(), S, c, M, M.bit_length() - 1,
+                       int(brev))
+        return acc
+    if block.device.type == "cpu":
+        return colsum_fold_plain(acc, block, gcs, brev)
+    raise ValueError(f"unsupported device {block.device}")
+
+
+def colsum_finalize(acc, x_p, y_p, consts) -> torch.Tensor:
+    """:func:`colsum_finalize_plain`'s function: launches kernel K12 on
+    CUDA tensors, runs the plain version on CPU ones."""
+    S, M = int(acc.shape[0]), int(acc.shape[1])
+    if tuple(consts.shape) != (S, 6, 4) or tuple(x_p.shape) != (M,):
+        raise ValueError("acc, points and consts shapes disagree")
+    if acc.is_cuda:
+        if not 1 <= S <= MAX_SAMPLES:
+            raise ValueError(f"kernel takes 1..{MAX_SAMPLES} samples, got {S}")
+        for name, t in (("acc", acc), ("x_p", x_p), ("y_p", y_p),
+                        ("consts", consts)):
+            kernels.check_cuda_tensor(t, name)
+        out = torch.empty((M, 4), dtype=torch.int32, device=acc.device)
+        kernels.launch("quotient_finalize", acc.data_ptr(), x_p.data_ptr(),
+                       y_p.data_ptr(), consts.data_ptr(), S, M,
+                       out.data_ptr())
+        return out
+    if acc.device.type == "cpu":
+        return colsum_finalize_plain(acc, x_p, y_p, consts)
+    raise ValueError(f"unsupported device {acc.device}")
 
 
 def accumulate_quotients(log_size: int, columns: torch.Tensor, samples,

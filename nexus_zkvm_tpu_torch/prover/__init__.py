@@ -1,4 +1,4 @@
 """STARK prover/verifier: commitment scheme, composition, prove/verify."""
 
-from .config import PcsConfig, FriConfig
+from .config import PcsConfig, FriConfig, MemoryConfig
 from .stark import prove, verify, Proof

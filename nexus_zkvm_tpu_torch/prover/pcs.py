@@ -1,11 +1,22 @@
-"""Polynomial commitment scheme: LDE + Merkle trees per role, resident.
+"""Polynomial commitment scheme: LDE + Merkle trees per role.
 
 One Merkle tree per (role, eval-domain size); committed order is the
 bit-reversed layout.  Columns enter in natural row order, move to the
 device once per size group as a (C, 2^n) int32 matrix, are interpolated
 (K1), and each size group is evaluated on its blown-up domain (K1),
-permuted to committed order and committed (K2).  Everything stays on
-the device: coefficients, committed evals and every tree layer.
+permuted to committed order and committed (K2).  Coefficients, committed
+evaluations and every tree layer stay on the device.
+
+The large-trace memory mode (:class:`MemoryConfig`, chosen by size): a
+size group whose evaluations exceed ``stream_commit_bytes`` is committed
+column-streamed (:func:`_stream_commit`): its LDE is computed a chunk of
+columns at a time and absorbed into the leaf hashes (K1, then K10), so
+the (C, 2^s) evaluations never exist at once and are not kept
+(``evals[s]`` is None).  The quotients and the openings recompute them
+from the coefficients, chunk by chunk (:func:`opened_values_streamed`).
+A natural-order group above the threshold is interpolated a chunk of
+columns at a time (:func:`_interpolate_big`), in place when the
+commitment does not keep the natural values.
 """
 
 from __future__ import annotations
@@ -15,13 +26,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops import cfft, merkle
-from ..ops.circle import (natural_to_layout, dev_bit_reverse,
-                          dev_layout_to_natural)
+from ..ops import blake2s, cfft, merkle
+from ..ops.circle import (bit_reverse_indices, dev_bit_reverse,
+                          dev_layout_to_natural, dev_natural_to_layout)
 from ..utils.device import from_u32
+from .config import MemoryConfig
 
 __all__ = ["RoleCommitment", "commit_columns", "commit_blocks",
-           "commit_from_coeffs", "open_positions"]
+           "commit_from_coeffs", "open_positions", "opened_values_streamed",
+           "lde_natural"]
 
 
 @dataclass
@@ -30,7 +43,8 @@ class RoleCommitment:
     trace_logs: list          # per column, commit order within the role
     log_blowup: int
     coeff_batches: dict       # n -> (column index list, (Cn, 2^n) tensor)
-    evals: dict               # eval_log -> (C, 2^s) tensor, committed order
+    evals: dict               # eval_log -> (C, 2^s) committed order; None
+                              # for a streamed size
     cols_by_size: dict        # eval_log -> [column indices]
     trees: dict               # eval_log -> MerkleTree
     natural: dict = None      # n -> (column index list, (Cn, 2^n) tensor)
@@ -38,6 +52,9 @@ class RoleCommitment:
 
     def sizes_desc(self):
         return sorted(self.trees, reverse=True)
+
+    def streamed(self, s: int) -> bool:
+        return self.evals.get(s) is None
 
     def roots(self):
         if self._roots is None:
@@ -67,24 +84,94 @@ class RoleCommitment:
     def natural_rows(self, col_idxs):
         return self._rows(self.natural, col_idxs)
 
-    def evals_natural_matrix(self, col_idxs, eval_log: int):
-        """(C, 2^eval_log) natural-order evaluations, or None."""
-        if not col_idxs:
-            return None
-        batch, n = self.coeff_rows(col_idxs)
-        assert eval_log >= n
-        ev = cfft.evaluate(batch, eval_log)
-        idx = torch.as_tensor(natural_to_layout(eval_log), device=ev.device)
-        return ev[:, idx]
 
 
-def _commit_groups(role, trace_logs, coeff_batches, log_blowup):
+def lde_natural(cols: torch.Tensor, ev_log: int, start: int, width: int,
+                chunk_cols: int) -> torch.Tensor:
+    """(C, width) evaluations of the (C, 2^n) coefficient rows at natural
+    rows start, start + 1, .. (mod 2^ev_log) of the 2^ev_log domain: per
+    chunk of ``chunk_cols`` columns the whole-domain LDE (K1), then a
+    gather of the rows (a window past either end of the domain wraps).
+    The output is allocated after the first chunk's LDE, so a single
+    chunk never holds its zero-extended input beside it."""
+    rows = torch.arange(start, start + width, device=cols.device) \
+        % (1 << ev_log)
+    idx = dev_natural_to_layout(ev_log, cols.device)[rows]
+    out = None
+    for lo in range(0, int(cols.shape[0]), chunk_cols):
+        ev = cfft.evaluate(cols[lo:lo + chunk_cols], ev_log)
+        if out is None:
+            out = torch.empty((int(cols.shape[0]), width), dtype=torch.int32,
+                              device=cols.device)
+        torch.index_select(ev, 1, idx, out=out[lo:lo + chunk_cols])
+        del ev
+    return out
+
+
+def _interpolate_big(dev: torch.Tensor, n: int, chunk_rows: int = 32,
+                     in_place: bool = False) -> torch.Tensor:
+    """Coefficients of a (C, 2^n) natural-order matrix, ``chunk_rows``
+    columns at a time (K1 per chunk), so the working set beside the
+    output is one chunk.  ``in_place``: each chunk's coefficients go back
+    into the rows it was read from (the chunk is gathered to layout order
+    first), so the natural matrix and the coefficients never coexist; the
+    caller must not use ``dev`` afterwards."""
+    out = dev if in_place else torch.empty_like(dev)
+    l2n = dev_layout_to_natural(n, dev.device)
+    for lo in range(0, int(dev.shape[0]), chunk_rows):
+        cfft.interpolate(dev[lo:lo + chunk_rows][:, l2n],
+                         out=out[lo:lo + chunk_rows])
+    return out
+
+
+def _stream_commit(batch: torch.Tensor, s: int,
+                   chunk_cols: int) -> merkle.MerkleTree:
+    """Column-streamed LDE + Merkle commit of a (C, 2^n) coefficient
+    batch on the 2^s domain: per chunk of ``chunk_cols`` columns (a
+    multiple of 16) the LDE (K1) is absorbed into the carried leaf states
+    (K10), then the parents are climbed (K2).  Root and layers equal
+    ``merkle.commit_matrix`` on the committed-order evaluations."""
+    assert chunk_cols % 16 == 0, chunk_cols
+    C = int(batch.shape[0])
+    state, done = None, 0
+    while done < C:
+        c = min(chunk_cols, C - done)
+        ev = cfft.evaluate(batch[done:done + c], s)
+        state = blake2s.leaves_stream(state, ev, done, C, done + c == C)
+        del ev
+        done += c
+    return merkle.tree_from_leaves(state)
+
+
+def opened_values_streamed(rc: RoleCommitment, s: int, positions,
+                           chunk_cols: int) -> torch.Tensor:
+    """(C, Q) values of a streamed tree at the sorted distinct
+    ``positions`` (committed order), recomputed from the coefficients:
+    per chunk of columns the LDE (K1) and a gather (K9) at layout
+    positions brev(p)."""
+    batch = rc.coeff_batches[s - rc.log_blowup][1]
+    pos = sorted({int(p) for p in positions})
+    idx = bit_reverse_indices(s)[pos].tolist()
+    out = []
+    for lo in range(0, int(batch.shape[0]), chunk_cols):
+        ev = cfft.evaluate(batch[lo:lo + chunk_cols], s)
+        out.append(merkle.gather_columns(ev, idx))
+        del ev
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def _commit_groups(role, trace_logs, coeff_batches, log_blowup,
+                   memory: MemoryConfig):
     cols_by_size, evals, trees = {}, {}, {}
     for i, n in enumerate(trace_logs):
         cols_by_size.setdefault(n + log_blowup, []).append(i)
     for s, idxs in sorted(cols_by_size.items(), reverse=True):
         b_idxs, batch = coeff_batches[s - log_blowup]
         assert b_idxs == idxs
+        if memory.streams(len(idxs) * (4 << s)):
+            trees[s] = _stream_commit(batch, s, memory.chunk_cols(s))
+            evals[s] = None
+            continue
         ev = cfft.evaluate(batch, s)[:, dev_bit_reverse(s, batch.device)]
         evals[s] = ev
         trees[s] = merkle.commit_matrix(ev)
@@ -94,20 +181,19 @@ def _commit_groups(role, trace_logs, coeff_batches, log_blowup):
                           trees=trees)
 
 
-def _to_device(mats, device) -> torch.Tensor:
-    """Stack host numpy / device blocks of one size into (C, 2^n) int32."""
-    if all(isinstance(m, np.ndarray) for m in mats):
-        return from_u32(np.concatenate(mats) if len(mats) > 1 else mats[0],
-                        device)
-    mats = [from_u32(m, device) if isinstance(m, np.ndarray)
-            else m.to(device=device, dtype=torch.int32) for m in mats]
-    return mats[0].contiguous() if len(mats) == 1 else torch.cat(mats)
+def _as_device(m, device) -> torch.Tensor:
+    return (from_u32(m, device) if isinstance(m, np.ndarray)
+            else m.to(device=device, dtype=torch.int32))
 
 
 def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
-                  keep_natural: bool = True) -> RoleCommitment:
+                  keep_natural: bool = True,
+                  memory: MemoryConfig = MemoryConfig()) -> RoleCommitment:
     """Commit pre-stacked column blocks: blocks[i] is a (k_i, 2^n_i)
-    numpy uint32 array or int32 tensor of consecutive columns."""
+    numpy uint32 array or int32 tensor of consecutive columns.  A list
+    of blocks is emptied (the size groups hold the only references);
+    without ``keep_natural`` a big size group of tensor blocks is
+    interpolated in place, in memory the commitment owns from then on."""
     by_n, idxs_by_n, trace_logs = {}, {}, []
     for b, n in zip(blocks, block_logs):
         k = int(b.shape[0])
@@ -115,33 +201,62 @@ def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
         idxs_by_n.setdefault(n, []).extend(
             range(len(trace_logs), len(trace_logs) + k))
         trace_logs += [n] * k
+    b = None
+    if isinstance(blocks, list):
+        blocks.clear()
     coeff_batches, natural = {}, {}
     for n, mats in by_n.items():
-        dev = _to_device(mats, device)
+        C = sum(int(m.shape[0]) for m in mats)
+        big = memory.streams(C * (4 << n))
+        host = all(isinstance(m, np.ndarray) for m in mats)
+        if host:
+            dev = from_u32(np.concatenate(mats) if len(mats) > 1
+                           else mats[0], device)
+        elif len(mats) == 1:
+            dev = _as_device(mats[0], device).contiguous()
+        else:
+            # one buffer for the group, each block freed as it lands
+            dev = torch.empty((C, 1 << n), dtype=torch.int32, device=device)
+            lo = 0
+            for i in range(len(mats)):
+                k = int(mats[i].shape[0])
+                dev[lo:lo + k] = _as_device(mats[i], device)
+                mats[i] = None
+                lo += k
+        by_n[n] = mats = None
         if keep_natural:
             natural[n] = (idxs_by_n[n], dev)
-        coeff_batches[n] = (idxs_by_n[n], cfft.interpolate(
-            dev[:, dev_layout_to_natural(n, dev.device)]))
-    rc = _commit_groups(role, trace_logs, coeff_batches, log_blowup)
+        if big:
+            cf = _interpolate_big(dev, n, in_place=not (keep_natural or host))
+        else:
+            cf = cfft.interpolate(dev[:, dev_layout_to_natural(n, dev.device)])
+        del dev
+        coeff_batches[n] = (idxs_by_n[n], cf)
+    rc = _commit_groups(role, trace_logs, coeff_batches, log_blowup, memory)
     rc.natural = natural
     return rc
 
 
 def commit_columns(role: str, columns, trace_logs, log_blowup: int, device,
-                   keep_natural: bool = True) -> RoleCommitment:
+                   keep_natural: bool = True,
+                   memory: MemoryConfig = MemoryConfig()) -> RoleCommitment:
     """columns: natural-order numpy uint32 arrays of sizes
     2^trace_logs[i], committed in this order."""
     return commit_blocks(role, [np.asarray(c, np.uint32)[None, :]
                                 for c in columns],
-                         list(trace_logs), log_blowup, device, keep_natural)
+                         list(trace_logs), log_blowup, device, keep_natural,
+                         memory)
 
 
 def commit_from_coeffs(role: str, coeffs: torch.Tensor, trace_log: int,
-                       log_blowup: int) -> RoleCommitment:
+                       log_blowup: int,
+                       memory: MemoryConfig = MemoryConfig()
+                       ) -> RoleCommitment:
     """Commit a (C, 2^trace_log) coefficient matrix (one size group)."""
     C = int(coeffs.shape[0])
     return _commit_groups(role, [trace_log] * C,
-                          {trace_log: (list(range(C)), coeffs)}, log_blowup)
+                          {trace_log: (list(range(C)), coeffs)}, log_blowup,
+                          memory)
 
 
 def open_positions(queries, s0: int, s: int):

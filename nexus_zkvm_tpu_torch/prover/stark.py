@@ -13,7 +13,14 @@ alpha^(sum of later components' constraint counts) and divided by its
 own vanishing polynomial v_n = pi^(n-1)(x).  Every component takes one
 route: LDE of its columns to the 4x domain, constraint evaluation,
 ÷ v_n, × alpha^shift, then per-size buckets interpolated and extended
-into the composition basis.
+into the composition basis.  A component whose natural 4x-domain
+columns exceed the memory budget runs that route in row passes.
+
+The large-trace memory mode (``MemoryConfig``, chosen by size; see
+``prover/pcs.py``): streamed trees keep their coefficients after OODS,
+their quotients fold column chunks recomputed from them (K11, then
+K12), and their openings recompute the opened values.  The proof is the
+same under any ``MemoryConfig``.
 
 The verifier is host numpy/hashlib apart from recomputing the
 preprocessed commitment, which runs on ``device``.
@@ -29,24 +36,24 @@ import torch
 from .. import kernels
 from ..ops import cfft, fri, merkle, quotients
 from ..ops.field import (
-    m31_add, m31_sub, m31_mul, m31_inv, m31_fold_sum, qm31_mul,
+    m31_add, m31_mul, m31_fold_sum, qm31_mul, np_m31_inv,
     np_qm31, np_qm31_add, np_qm31_sub, np_qm31_mul,
     np_qm31_inv, np_qm31_pow,
 )
 from ..ops.circle import (
-    domain, natural_to_layout, oods_point_from_felt, qm31_point_add,
+    oods_point_from_felt, qm31_point_add,
     m31_point_as_qm31, subgroup_gen, point_mul, point_neg,
     dev_committed_points, dev_layout_to_natural,
 )
 from ..air.component import (
     component_info, run_constraints, PointEvalContext,
-    preprocessed_is_first, MAIN, PRE, INTER, ISF,
+    preprocessed_is_first, domain_halo, MAIN, PRE, INTER, ISF,
 )
 from ..air.tape import generate_interaction, accumulate_composition
 from ..air.lookups import draw_relations
 from ..utils.device import resolve_device, dev_const, from_u32, to_u32
-from ..utils.profile import scope
-from .config import PcsConfig
+from ..utils.profile import note, scope
+from .config import MemoryConfig, PcsConfig
 from . import pcs
 
 __all__ = ["prove", "verify", "Proof", "oods_dot", "oods_dot_plain"]
@@ -218,15 +225,20 @@ def oods_dot(cols: torch.Tensor, factors: np.ndarray) -> torch.Tensor:
 
 
 def inv_vanishing_natural(n: int, eval_log: int, device) -> torch.Tensor:
-    """1 / v_n on the 2^eval_log domain, natural order (cached)."""
+    """1 / v_n on the 2^eval_log domain, natural order (cached).
+
+    Natural row r is the point (2r + 1)·g, g of order 2^(eval_log + 1),
+    and v_n = pi^(n-1)(x) is the x-coordinate of 2^(n-1) times it: the
+    point (2r + 1)·q, q = 2^(n-1)·g of order 2^(eval_log - n + 2).  So
+    v_n repeats with period 2^(eval_log - n + 1) in r (8 rows on the 4x
+    domain): those values are inverted once and tiled."""
     def build():
-        x_layout, _ = domain(eval_log).points()
-        t = torch.from_numpy(x_layout[natural_to_layout(eval_log)]
-                             .astype(np.int64))
-        for _ in range(n - 1):
-            sq = m31_mul(t, t)
-            t = m31_sub(m31_add(sq, sq), 1)
-        return m31_inv(t).numpy().astype(np.uint32)
+        q = point_mul(subgroup_gen(eval_log + 1), 1 << (n - 1))
+        period = 1 << min(eval_log, eval_log - n + 1)
+        xs = np.asarray([point_mul(q, 2 * r + 1)[0] for r in range(period)],
+                        np.uint64)
+        return np.tile(np_m31_inv(xs), (1 << eval_log) // period) \
+            .astype(np.uint32)
     return dev_const(f"stark.invv{n}", eval_log, device, build)
 
 
@@ -322,36 +334,68 @@ def _interactions(components, infos, plan, log_sizes, relations, rc_pre,
     return outs, to_u32(torch.stack(claimed)).astype(np.uint64)
 
 
+def _natural_rows(info) -> int:
+    """Natural columns a component's composition reads: main,
+    preprocessed, 4 per LogUp batch, is_first."""
+    return info.n_main + info.n_pre + 4 * info.n_logup_cols + 1
+
+
+def _composition_coeffs(c: int, n: int, info, plan: Plan, rcs) -> dict:
+    """Load role -> the coefficient rows component c's composition reads
+    (None for a role it lacks)."""
+    return {
+        MAIN: (rcs["main"].coeff_rows(plan.comp_ridxs("main", c))[0]
+               if info.n_main else None),
+        PRE: (rcs["pre"].coeff_rows(plan.comp_ridxs("pre", c))[0]
+              if info.n_pre else None),
+        ISF: rcs["pre"].coeff_rows(
+            [plan.metas[plan.is_first_index(n)].ridx])[0],
+        INTER: (rcs["inter"].coeff_rows(plan.inter_ridxs(
+            c, info.n_logup_cols))[0] if info.n_logup_cols else None)}
+
+
 def _composition(components, infos, plan, log_sizes, relations,
-                 claimed_sums, alpha, rcs, device) -> torch.Tensor:
-    """(4, 2^comp_log) int32 composition coefficients."""
+                 claimed_sums, alpha, rcs, device,
+                 memory: MemoryConfig) -> torch.Tensor:
+    """(4, 2^comp_log) int32 composition coefficients.  Each component's
+    columns are evaluated on its 4x domain in natural order, as blocks of
+    rows [lo - hneg, hi + hpos) with the domain's wrap
+    (`pcs.lde_natural`), and its tape adds acc / v_n · alpha^shift over
+    rows [lo, hi) into the bucket of that size (K7).  A component within
+    the memory budget is one window [0, N), its LDE one batch; a larger
+    one runs in row passes, its LDE in column chunks, so at most
+    1/passes of its natural columns exist at once.  The pass counts are
+    noted on the active profile as ``composition_passes``."""
     shifts = _alpha_shifts(infos)
-    buckets = {}
+    buckets, all_passes = {}, []
     for c, comp in enumerate(components):
-        n = log_sizes[c]
+        info, n = infos[c], log_sizes[c]
         ev = n + 2
-        with scope("c:lde"):
-            mats = {
-                MAIN: rcs["main"].evals_natural_matrix(
-                    plan.comp_ridxs("main", c), ev),
-                PRE: rcs["pre"].evals_natural_matrix(
-                    plan.comp_ridxs("pre", c), ev),
-                ISF: rcs["pre"].evals_natural_matrix(
-                    [plan.metas[plan.is_first_index(n)].ridx], ev),
-                INTER: None}
-            if infos[c].n_logup_cols:
-                mats[INTER] = rcs["inter"].evals_natural_matrix(
-                    plan.inter_ridxs(c, infos[c].n_logup_cols), ev)
-        with scope("c:eval"):
-            if ev not in buckets:
-                buckets[ev] = torch.zeros((1 << ev, 4), dtype=torch.int32,
-                                          device=device)
-            k = accumulate_composition(
-                comp, n, mats, relations, claimed_sums[c], alpha,
-                np_qm31_pow(alpha, shifts[c]),
-                inv_vanishing_natural(n, ev, device), buckets[ev])
-            assert k == infos[c].n_constraints
+        N = 1 << ev
+        if ev not in buckets:
+            buckets[ev] = torch.zeros((N, 4), dtype=torch.int32,
+                                      device=device)
+        passes = memory.comp_passes(_natural_rows(info), ev)
+        all_passes.append(passes)
+        hneg, hpos = domain_halo(info)
+        coeffs = _composition_coeffs(c, n, info, plan, rcs)
+        invv = inv_vanishing_natural(n, ev, device)
+        L = N // passes
+        for lo in range(0, N, L):
+            with scope("c:lde"):
+                mats = {role: None if cf is None else pcs.lde_natural(
+                            cf, ev, lo - hneg, L + hneg + hpos,
+                            int(cf.shape[0]) if passes == 1
+                            else memory.chunk_cols(ev))
+                        for role, cf in coeffs.items()}
+            with scope("c:eval"):
+                k = accumulate_composition(
+                    comp, n, mats, relations, claimed_sums[c], alpha,
+                    np_qm31_pow(alpha, shifts[c]), invv, buckets[ev],
+                    (lo, lo + L, hneg))
             del mats
+        assert k == info.n_constraints
+    note("composition_passes", all_passes)
     comp_log = plan.n_comp_trace_log
     out = torch.zeros((4, 1 << comp_log), dtype=torch.int32, device=device)
     with scope("c:combine"):
@@ -363,13 +407,47 @@ def _composition(components, infos, plan, log_sizes, relations,
     return out
 
 
+def _quotients_streamed(role_rcs, s: int, xs, ys, consts, gcs,
+                        chunk_cols: int) -> torch.Tensor:
+    """The combined quotients of a size group with a streamed tree: the
+    per-sample column sums (S, 2^s, 4) are folded role by role (K11), a
+    kept role from its committed evaluations, a streamed one chunk by
+    chunk from its recomputed LDE (K1, layout order), then finalized
+    (K12).  Equal to `quotients.accumulate_blocks` on the whole group."""
+    S = int(gcs.shape[0])
+    acc = torch.zeros((S, 1 << s, 4), dtype=torch.int32, device=xs.device)
+    off = 0
+    for rc in role_rcs:
+        C = len(rc.cols_by_size[s])
+        if not rc.streamed(s):
+            quotients.colsum_fold(acc, rc.evals[s],
+                                  gcs[:, off:off + C].contiguous(), False)
+        else:
+            batch = rc.coeff_batches[s - rc.log_blowup][1]
+            for lo in range(0, C, chunk_cols):
+                hi = min(C, lo + chunk_cols)
+                ev = cfft.evaluate(batch[lo:hi], s)
+                quotients.colsum_fold(
+                    acc, ev, gcs[:, off + lo:off + hi].contiguous(), True)
+                del ev
+        off += C
+    return quotients.colsum_finalize(acc, xs, ys, consts)
+
+
 def prove(components, log_sizes, main_traces, channel,
-          config: PcsConfig = PcsConfig(), device="cuda") -> Proof:
+          config: PcsConfig = PcsConfig(), device="cuda",
+          memory: MemoryConfig = MemoryConfig(),
+          release_traces: bool = False) -> Proof:
     """components: list of Component; main_traces: per component either
     a list of natural-order uint32 numpy columns of size 2^log_sizes[c]
     or one (n_main, 2^log_sizes[c]) int32 tensor (committed as it is,
     without a host round trip when it already lies on ``device``).  The
-    traces are read, never modified."""
+    traces are read, never modified; with ``release_traces`` the list's
+    entries are set to None once committed, so a device trace is freed
+    after the interaction.  ``memory`` decides where the data is kept,
+    never the proof; the route taken is noted on the active profile
+    (``streamed``: the (role, eval size) trees committed column-streamed;
+    ``composition_passes``: each component's row passes)."""
     dev = resolve_device(device)
     infos = [component_info(c) for c in components]
     plan = build_plan(log_sizes, infos, config)
@@ -379,7 +457,8 @@ def prove(components, log_sizes, main_traces, channel,
 
     with scope("commit:pre"):
         pre_cols, pre_logs = _pre_columns(components, log_sizes, plan)
-        rc_pre = pcs.commit_columns("pre", pre_cols, pre_logs, blowup, dev)
+        rc_pre = pcs.commit_columns("pre", pre_cols, pre_logs, blowup, dev,
+                                    memory=memory)
         rc_pre.mix_roots(channel)
 
     with scope("commit:main"):
@@ -398,8 +477,11 @@ def prove(components, log_sizes, main_traces, channel,
                               np.stack([np.asarray(col, np.uint32)
                                         for col in tr]))
                 block_logs.append(log_sizes[c])
-        rc_main = pcs.commit_blocks("main", blocks, block_logs, blowup, dev)
-        del blocks
+            if release_traces:
+                main_traces[c] = None
+        tr = None
+        rc_main = pcs.commit_blocks("main", blocks, block_logs, blowup, dev,
+                                    memory=memory)
         rc_main.mix_roots(channel)
 
     with scope("interaction"):
@@ -411,16 +493,18 @@ def prove(components, log_sizes, main_traces, channel,
         channel.mix_felts(claimed.astype(np.uint32))
         rc_main.natural = rc_pre.natural = None
     with scope("commit:inter"):
+        # each component's (B, M, 4) columns are freed as their (4B, M)
+        # copy is made, and the commitment takes the copies over
         blocks, block_logs = [], []
-        for c, arr in enumerate(inter_cols):
+        for c in range(len(inter_cols)):
+            arr, inter_cols[c] = inter_cols[c], None
             if arr is not None:
                 blocks.append(arr.permute(0, 2, 1).reshape(-1, arr.shape[1]))
                 block_logs.append(log_sizes[c])
-        del inter_cols
+        arr = inter_cols = None
         rc_inter = (pcs.commit_blocks("inter", blocks, block_logs, blowup,
-                                      dev, keep_natural=False)
+                                      dev, keep_natural=False, memory=memory)
                     if blocks else None)
-        del blocks
         if rc_inter is not None:
             rc_inter.mix_roots(channel)
 
@@ -428,11 +512,15 @@ def prove(components, log_sizes, main_traces, channel,
         alpha = np.asarray(channel.draw_felt(), np.uint64)
         rcs = {"pre": rc_pre, "main": rc_main, "inter": rc_inter}
         comp_coeffs = _composition(components, infos, plan, log_sizes,
-                                   relations, claimed_sums, alpha, rcs, dev)
+                                   relations, claimed_sums, alpha, rcs, dev,
+                                   memory)
         rcs["comp"] = pcs.commit_from_coeffs("comp", comp_coeffs,
-                                             plan.n_comp_trace_log, blowup)
+                                             plan.n_comp_trace_log, blowup,
+                                             memory)
         del comp_coeffs
         rcs["comp"].mix_roots(channel)
+    note("streamed", [(role, s) for role, rc in rcs.items() if rc is not None
+                      for s in rc.sizes_desc() if rc.streamed(s)])
 
     with scope("oods"):
         z = oods_point_from_felt(channel.draw_felt())
@@ -456,9 +544,11 @@ def prove(components, log_sizes, main_traces, channel,
                 k += 1
         channel.mix_felts(np.concatenate([s.reshape(-1, 4) for s in sampled])
                           .astype(np.uint32))
-        # quotients, FRI and openings read committed evals and trees only
+        # quotients, FRI and openings read committed evals and trees;
+        # a role with a streamed size recomputes its evals from its
+        # coefficients, so it keeps them
         for rc in rcs.values():
-            if rc is not None:
+            if rc is not None and not any(map(rc.streamed, rc.trees)):
                 rc.coeff_batches = None
 
     with scope("quotients"):
@@ -478,9 +568,15 @@ def prove(components, log_sizes, main_traces, channel,
             a = quotients.prep_args_full(samples_by_size[s], gamma, offset,
                                          len(plan.groups[s]))
             xs, ys = dev_committed_points(s, dev)
-            fri_inputs[s] = quotients.accumulate_blocks(
-                [rcs[role].evals[s] for role in roles], xs, ys,
-                from_u32(a["consts"], dev), from_u32(a["gcs"], dev))
+            consts, gcs = from_u32(a["consts"], dev), from_u32(a["gcs"], dev)
+            if any(rcs[role].streamed(s) for role in roles):
+                fri_inputs[s] = _quotients_streamed(
+                    [rcs[role] for role in roles], s, xs, ys, consts, gcs,
+                    memory.chunk_cols(s))
+            else:
+                fri_inputs[s] = quotients.accumulate_blocks(
+                    [rcs[role].evals[s] for role in roles], xs, ys, consts,
+                    gcs)
             offset += quotients.n_terms(samples_by_size[s])
     with scope("fri"):
         fri_state = fri.fri_commit(fri_inputs, channel, config.fri)
@@ -496,8 +592,10 @@ def prove(components, log_sizes, main_traces, channel,
             roots[role] = [] if rc is None else rc.roots()
             for s in ([] if rc is None else rc.sizes_desc()):
                 keys.append((role, s))
-                items.append((rc.trees[s], pcs.open_positions(queries, s0,
-                                                              s)))
+                pos = pcs.open_positions(queries, s0, s)
+                items.append((rc.trees[s], pos) if not rc.streamed(s) else
+                             (rc.trees[s], pos, pcs.opened_values_streamed(
+                                 rc, s, pos, memory.chunk_cols(s))))
         items += fri.fri_decommit_items(fri_state, queries)
         decs = merkle.finalize_decommitments(
             merkle.decommit_many_fused(items))

@@ -4,7 +4,9 @@ Counterpart of `Stwo<Local>` (`nexus-zkvm/sdk/src/stwo/seq.rs:
 51-167`): `prove_with_input` runs the two-pass emulator and the machine
 prover; `verify` rebuilds everything from the public View.  Proving runs
 on ``device`` (default ``"cuda"``, which raises without a card; pass
-``device="cpu"`` for the plain PyTorch path).
+``device="cpu"`` for the plain PyTorch path).  ``memory`` sets the
+large-trace memory mode's thresholds (``prover.MemoryConfig``; the
+defaults choose it by size).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..machine import prove_machine, verify_machine, MachineProof
-from ..prover import PcsConfig
+from ..prover import MemoryConfig, PcsConfig
 from ..utils.device import resolve_device
 from ..utils.profile import scope
 from ..vm import k_trace
@@ -27,10 +29,13 @@ class LocalProver:
     config: PcsConfig = None
     backend: str = "auto"        # emulator backend: python|native|auto
     device: str = "cuda"
+    memory: MemoryConfig = None
 
     def __post_init__(self):
         if self.config is None:
             self.config = PcsConfig()
+        if self.memory is None:
+            self.memory = MemoryConfig()
 
     def trace(self, public_input: bytes = b"", private_input: bytes = b"",
               associated_data: bytes = b"", max_steps=None):
@@ -51,7 +56,8 @@ class LocalProver:
         with scope("emulate"):
             view, trace = self.trace(public_input, private_input,
                                      associated_data)
-        proof = prove_machine(view, trace, self.config, device=self.device)
+        proof = prove_machine(view, trace, self.config, device=self.device,
+                              memory=self.memory)
         return view, proof
 
     def verify(self, view, proof: MachineProof) -> bool:

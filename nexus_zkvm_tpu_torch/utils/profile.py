@@ -3,7 +3,8 @@
 ``with profiled() as prof:`` activates a profiler; library code marks
 phases with ``with scope("fri"):``, a no-op when none is active.  While
 a profiler is active each scope synchronizes CUDA on entry and exit, so
-a phase's time includes the device work it issued.
+a phase's time includes the device work it issued.  ``note(key, value)``
+records what a run decided (``prof.notes``), also a no-op without one.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["Profiler", "profiled", "scope"]
+__all__ = ["Profiler", "profiled", "scope", "note"]
 
 _ACTIVE: "Profiler | None" = None
 
@@ -21,6 +22,7 @@ _ACTIVE: "Profiler | None" = None
 class Profiler:
     def __init__(self):
         self.times: dict[str, float] = {}   # "outer/inner" scope -> seconds
+        self.notes: dict[str, object] = {}
         self._stack: list[str] = []
 
 
@@ -56,3 +58,8 @@ def scope(name: str):
         key = "/".join(prof._stack)
         prof.times[key] = prof.times.get(key, 0.0) + time.perf_counter() - t0
         prof._stack.pop()
+
+
+def note(key: str, value) -> None:
+    if _ACTIVE is not None:
+        _ACTIVE.notes[key] = value

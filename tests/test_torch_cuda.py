@@ -172,27 +172,35 @@ def _random_mats(dev, comp, rel, N, seed, domain):
             ISF: mat(1)}
 
 
+@pytest.mark.parametrize("window", [(0, 1), (1, 4)], ids=["whole", "pass"])
 @pytest.mark.parametrize("log_size", [3, 6])
-def test_air_eval_composition(dev, log_size):
+def test_air_eval_composition(dev, log_size, window):
+    """Every tape over the whole domain, and over its second quarter (a
+    pass of the memory mode), from halo-extended blocks."""
+    from nexus_zkvm_tpu_torch.air.component import component_info, domain_halo
     from nexus_zkvm_tpu_torch.air.tape import (
         air_eval_composition, air_eval_composition_plain, domain_tape)
     comps, rel = _tape_components()
     rng = np.random.default_rng(log_size)
     N = 1 << (log_size + 2)
+    L = N // window[1]
+    lo = window[0] * L
     for i, comp in enumerate(comps):
         tape = domain_tape(comp, log_size, rel)
         if tape is None:
             continue
-        mats = _random_mats(dev, comp, rel, N, i, True)
+        hneg, hpos = domain_halo(component_info(comp))
+        mats = _random_mats(dev, comp, rel, L + hneg + hpos, i, True)
         claimed, alpha, shift = (rng.integers(0, P, 4).astype(np.uint64)
                                  for _ in range(3))
         uni = tape.uniforms(rel, claimed)
         invv = rand(dev, (N,), seed=i)
         start = rand(dev, (N, 4), seed=i + 1)
         got, want = start.clone(), start.clone()
-        air_eval_composition(tape, mats, uni, N, alpha, shift, invv, got)
-        air_eval_composition_plain(tape, mats, uni, N, alpha, shift, invv,
-                                   want)
+        air_eval_composition(tape, mats, uni, lo, L, hneg, alpha, shift,
+                             invv, got)
+        air_eval_composition_plain(tape, mats, uni, lo, L, hneg, alpha,
+                                   shift, invv, want)
         assert torch.equal(got, want), comp.name
 
 
@@ -246,3 +254,41 @@ def test_gather_openings(dev):
                    else [c.shape[0] for c in t.columns])
         assert merkle.verify_decommitment(t.root(), lengths, q, d)
 
+
+
+# -- K10, K11 and K12 (the large-trace memory mode) ---------------------------
+
+@pytest.mark.parametrize("C,chunk", [(70, 16), (17, 64), (64, 32)])
+def test_blake2s_leaves_stream(dev, C, chunk):
+    s = 9
+    mat = rand(dev, (C, 1 << s), seed=C)
+    got = want = None
+    done = 0
+    while done < C:
+        c = min(chunk, C - done)
+        last = done + c == C
+        want = blake2s.leaves_stream_plain(want, mat[done:done + c], done, C,
+                                           last)
+        got = blake2s.leaves_stream(got, mat[done:done + c], done, C, last)
+        assert torch.equal(got, want), done
+        done += c
+
+
+def test_quotient_colsums_and_finalize(dev):
+    s, S = 9, 3
+    M = 1 << s
+    acc0 = rand(dev, (S, M, 4), seed=11)
+    block = rand(dev, (20, M), seed=12)
+    gcs_np = np.random.default_rng(13).integers(0, P, (S, 20, 4),
+                                                dtype=np.uint32)
+    gcs_np[1, ::3] = 0
+    gcs = from_u32(gcs_np, dev)
+    for brev in (False, True):
+        got, want = acc0.clone(), acc0.clone()
+        quotients.colsum_fold(got, block, gcs, brev)
+        quotients.colsum_fold_plain(want, block, gcs, brev)
+        assert torch.equal(got, want), brev
+    consts = rand(dev, (S, 6, 4), seed=14)
+    xs, ys = circle.dev_committed_points(s, dev)
+    assert torch.equal(quotients.colsum_finalize(acc0, xs, ys, consts),
+                       quotients.colsum_finalize_plain(acc0, xs, ys, consts))

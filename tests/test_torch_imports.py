@@ -145,13 +145,14 @@ def test_composition_and_oods_never_take_the_plain_path(monkeypatch):
     def mat(rows, n):
         return fake(from_u32(rng.integers(0, 1 << 31, (rows, n),
                                           dtype=np.uint32), "cpu"))
-    N = 16
-    mats = {tape_mod.MAIN: mat(comp.n_main, N), tape_mod.PRE: None,
-            tape_mod.INTER: mat(4 * 64, N), tape_mod.ISF: mat(1, N)}
+    N, hneg, hpos = 16, 4, 4
+    W = N + hneg + hpos
+    mats = {tape_mod.MAIN: mat(comp.n_main, W), tape_mod.PRE: None,
+            tape_mod.INTER: mat(4 * 64, W), tape_mod.ISF: mat(1, W)}
     alpha = np.arange(4, dtype=np.uint64)
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         tape_mod.air_eval_composition(
-            dom, mats, dom.uniforms(rel, alpha), N, alpha, alpha,
+            dom, mats, dom.uniforms(rel, alpha), 0, N, hneg, alpha, alpha,
             fake(torch.zeros(N, dtype=torch.int32)),
             fake(torch.zeros((N, 4), dtype=torch.int32)))
     mats = {tape_mod.MAIN: mat(comp.n_main, 4), tape_mod.PRE: None,
@@ -167,4 +168,52 @@ def test_composition_and_oods_never_take_the_plain_path(monkeypatch):
     tree.layers = [fake(x) for x in tree.layers]
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         merkle.decommit_many_fused([(tree, [1, 6])])
+    assert calls == [] and plain == []
+
+
+def test_stream_wrappers_never_take_the_plain_path(monkeypatch):
+    """The memory mode's wrappers (K10 leaves, K11 column sums, K12
+    finalize, K7 over one of several row windows) launch their kernels
+    on CUDA tensors and never call their plain versions."""
+    import chip_smoke
+    from nexus_zkvm_tpu_torch.air import component, tape as tape_mod
+    from nexus_zkvm_tpu_torch.air.lookups import draw_relations
+    from nexus_zkvm_tpu_torch.ops import blake2s, quotients
+    from nexus_zkvm_tpu_torch.prover import stark
+    import nexus_zkvm_tpu_torch as T
+
+    comp = chip_smoke.make_components()[0]
+    rel = draw_relations(T.Blake2sChannel(), stark._relation_widths(
+        [component.component_info(comp)]))
+    dom = tape_mod.domain_tape(comp, 2, rel)
+    calls, fake = _fake_cuda_env(monkeypatch, tape_mod,
+                                 "air_eval_composition_plain")
+    plain = []
+    monkeypatch.setattr(tape_mod, "air_eval_plain",
+                        lambda *a, **k: plain.append(1))
+    for mod, name in ((blake2s, "leaves_stream_plain"),
+                      (quotients, "colsum_fold_plain"),
+                      (quotients, "colsum_finalize_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                            plain.append(_n))
+
+    def zeros(*shape):
+        return fake(torch.zeros(shape, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        blake2s.leaves_stream(None, zeros(16, 8), 0, 20, False)
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        quotients.colsum_fold(zeros(2, 8, 4), zeros(3, 8), zeros(2, 3, 4),
+                              True)
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        quotients.colsum_finalize(zeros(2, 8, 4), zeros(8), zeros(8),
+                                  zeros(2, 6, 4))
+    N, L, hneg, hpos = 16, 4, 4, 4
+    W = L + hneg + hpos
+    mats = {tape_mod.MAIN: zeros(comp.n_main, W), tape_mod.PRE: None,
+            tape_mod.INTER: zeros(4 * 64, W), tape_mod.ISF: zeros(1, W)}
+    alpha = np.arange(4, dtype=np.uint64)
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        tape_mod.air_eval_composition(
+            dom, mats, dom.uniforms(rel, alpha), 4, L, hneg, alpha, alpha,
+            zeros(N), zeros(N, 4))
     assert calls == [] and plain == []

@@ -36,7 +36,7 @@ from nexus_zkvm_tpu.prover import stark as RS
 from nexus_zkvm_tpu.vm import asm as rasm, k_trace as rk_trace
 import nexus_zkvm_tpu_torch as T
 from nexus_zkvm_tpu_torch.air import Component
-from nexus_zkvm_tpu_torch.air.component import component_info
+from nexus_zkvm_tpu_torch.air.component import component_info, domain_halo
 from nexus_zkvm_tpu_torch.air.lookups import draw_relations
 from nexus_zkvm_tpu_torch.air.tape import (
     ID, MAIN, PRE, INTER, ISF, TapeBackend, Recorder, air_eval_composition,
@@ -163,14 +163,17 @@ def test_composition_equals_reference(programs, prog, name):
 
     tape = domain_tape(comp, LOG, trel)
     assert tape.n_constraints == info.n_constraints
-    mats = {MAIN: from_u32(main, "cpu"),
-            PRE: from_u32(pre, "cpu") if info.n_pre else None,
-            INTER: (from_u32(inter.transpose(0, 2, 1).reshape(-1, N), "cpu")
-                    if info.n_logup_cols else None),
-            ISF: from_u32(isf, "cpu")}
+    # the one window [0, N): blocks of natural rows -hneg .. N + hpos
+    hneg, hpos = domain_halo(info)
+    rows = np.arange(-hneg, N + hpos) % N
+    mats = {MAIN: from_u32(main[:, rows], "cpu"),
+            PRE: from_u32(pre[:, rows], "cpu") if info.n_pre else None,
+            INTER: (from_u32(inter.transpose(0, 2, 1).reshape(-1, N)[:, rows],
+                             "cpu") if info.n_logup_cols else None),
+            ISF: from_u32(isf[:, rows], "cpu")}
     got = from_u32(start, "cpu")
-    air_eval_composition(tape, mats, tape.uniforms(trel, claimed), N, alpha,
-                         shift, from_u32(invv, "cpu"), got)
+    air_eval_composition(tape, mats, tape.uniforms(trel, claimed), 0, N,
+                         hneg, alpha, shift, from_u32(invv, "cpu"), got)
     assert np.array_equal(to_u32(got), want.astype(np.uint32))
 
 
