@@ -60,7 +60,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              must be lower.  Then the memory mode's kernels (K10-K12, and
              K7 over one pass) against their plain versions, timed, at
              the shapes of phase 6.
-8. kernels — one JSON line with every kernel's numbers: launches from
+8. parallel — the prover over a mesh (``nexus_zkvm_tpu_torch.parallel``),
+             each rank a process: 4 gloo ranks sharing the card commit
+             the interaction's shape of phase 5 sharded (root equal to
+             the single process's; each rank's step times and its bound);
+             the fib guest of phase 5 on 2 gloo ranks and at a 2^19-row
+             CPU component on 4: on every rank the proof bytes equal the
+             single process's and verify.  With two cards or more, the
+             2^20 proof again over NCCL, a rank a card (see
+             `phase_parallel`).
+9. kernels — one JSON line with every kernel's numbers: launches from
              the path it belongs to (phase 5, or phase 6 for the memory
              mode's three), times at that path's shapes.
 
@@ -84,6 +93,7 @@ A constraint tape (K7) counts the field operations of its instructions
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -173,6 +183,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def proof_digest(blob: bytes) -> str:
+    return hashlib.blake2s(blob).hexdigest()
+
+
 def bound(nbytes: float, ops: float):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -202,16 +216,17 @@ def max_abs_err(a, b) -> int:
 # Workload: the test fixture of tests/test_stark_e2e.py, widened
 # ---------------------------------------------------------------------------
 
-def make_components():
+def make_components(k_squares: int = K_SQUARES):
+    """With one square: the fixture of tests/test_stark_e2e.py."""
     from nexus_zkvm_tpu_torch.air import Component
 
     class WideSquares(Component):
-        """64 copies of: y = x^2, z = next-row x, y looked up in 'vals'."""
+        """k copies of: y = x^2, z = next-row x, y looked up in 'vals'."""
         name = "wide_squares"
-        n_main = 3 * K_SQUARES
+        n_main = 3 * k_squares
 
         def evaluate(self, ctx):
-            for k in range(K_SQUARES):
+            for k in range(k_squares):
                 x, y, z = (ctx.main(3 * k + i) for i in range(3))
                 ctx.constraint(y - x * x)
                 ctx.constraint(z - ctx.main(3 * k, 1))
@@ -229,13 +244,13 @@ def make_components():
     return [WideSquares(), Table()]
 
 
-def make_traces(log_n: int):
+def make_traces(log_n: int, k_squares: int = K_SQUARES):
     rows = np.arange(1 << log_n, dtype=np.int64)
-    x = ((rows[None, :] + np.arange(K_SQUARES)[:, None]) % 7).astype(np.uint32)
+    x = ((rows[None, :] + np.arange(k_squares)[:, None]) % 7).astype(np.uint32)
     y = x * x
     z = np.roll(x, -1, axis=1)
     main = []
-    for k in range(K_SQUARES):
+    for k in range(k_squares):
         main += [x[k], y[k], z[k]]
     vals = np.zeros(1 << TABLE_LOG, np.uint32)
     mult = np.zeros(1 << TABLE_LOG, np.uint32)
@@ -856,12 +871,14 @@ def _route_trees(proof) -> list:
             for s, _r in roots]
 
 
-def phase_machine() -> dict:
+def phase_machine() -> tuple:
     """The fib guest through LocalProver on the card at a 2^20-row CPU
-    component; returns the launch counts of that run."""
+    component; returns the launch counts of that run and the blake2s
+    digest of the proof's bytes."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
-    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s, decode_u32s
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          decode_u32s, proof_to_bytes)
     from nexus_zkvm_tpu_torch.utils.profile import profiled
     prover = LocalProver(fib_guest())          # default PcsConfig, card
     public = encode_u32s(FIB_N)
@@ -905,8 +922,9 @@ def phase_machine() -> dict:
     if route["streamed"] or max(route["composition_passes"]) != 1:
         raise RuntimeError(f"the 2^20 proof left the resident route: {route}")
     check_path("machine", launches, set(launches) - set(MEMORY_MODE))
+    digest = proof_digest(proof_to_bytes(proof))
     emit({"phase": "machine", "guest": "examples/guests/fib.s", "n": FIB_N,
-          "steps": steps, "cpu_log_rows": cpu_log,
+          "steps": steps, "cpu_log_rows": cpu_log, "proof_blake2s": digest,
           "log_sizes": proof.stark.log_sizes, "streamed": route["streamed"],
           "composition_passes": max(route["composition_passes"]),
           "verified": True,
@@ -916,7 +934,7 @@ def phase_machine() -> dict:
           "verify_s": verify_s, "rows_per_s": (1 << cpu_log) / prove_s,
           "steps_per_s": steps / prove_s, "peak_bytes": peak,
           "phase_s": prof.times, "launches": launches})
-    return launches
+    return launches, digest
 
 
 def phase_machine_stream():
@@ -1173,6 +1191,211 @@ def phase_machine_parity(n: int = FIB_PARITY_N):
           "cuda_prove_s": secs["cuda"]})
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the prover over a mesh; each rank is a process, started and
+# run by tests/torch_mesh.py (its `spawn` and rank programs)
+# ---------------------------------------------------------------------------
+
+MESH_COMMIT = (244, FULL_LOG)    # the interaction of fib 2^20: (C, log N)
+MESH_SEED = 2029
+MESH_RANKS = 4
+FIB_MESH4_N = 104_850            # 524,260 steps: a 2^19-row CPU component
+MESH4_LOG = 19
+
+
+def mesh_helpers():
+    """tests/torch_mesh.py, the launcher and rank programs of the mesh
+    checks (the ranks import it by name, so its folder joins the path
+    they inherit)."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_mesh
+    return torch_mesh
+
+
+def host_copy_gbps(device, nbytes: int = 1 << 28) -> dict:
+    """The copy rates of a gloo mesh's staging on a card, GB/s: device
+    to pinned host memory (its sends) and back (its gathers)."""
+    import torch
+    x = torch.empty(nbytes // 4, dtype=torch.int32, device=device)
+    pinned = torch.empty(nbytes // 4, dtype=torch.int32, pin_memory=True)
+    pinned.copy_(x)
+    rates = {}
+    for name, fn in (("d2h", lambda: pinned.copy_(x)),
+                     ("h2d", lambda: x.copy_(pinned))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates[name] = nbytes / (time.perf_counter() - t0) / 1e9
+    return rates
+
+
+def _check_mesh_machine(path: str, n: int, recs, digest: str,
+                        log_rows: int, expected) -> None:
+    """Every rank's proof: bytes equal to the single process's (its
+    digest), equal on every rank, verified; the main, interaction and
+    composition trees committed over the mesh; the kernels launched."""
+    s = log_rows + 1
+    for rec in recs:
+        where = f"{path}/rank{rec['rank']}"
+        if rec["cpu_log_rows"] != log_rows:
+            raise RuntimeError(f"{where}: CPU component at "
+                               f"2^{rec['cpu_log_rows']}, not 2^{log_rows}")
+        if rec["proof_blake2s"] != digest or not rec["ranks_agree"]:
+            raise RuntimeError(f"{where}: the proof differs from the single "
+                               f"process's")
+        if not rec["verified"]:
+            raise RuntimeError(f"{where}: the proof does not verify")
+        got = {tuple(g) for g in rec["sharded"]}
+        if not {("main", s), ("inter", s)} <= got or \
+                not any(role == "comp" for role, _s in got):
+            raise RuntimeError(f"{where}: not committed over the mesh: "
+                               f"{rec['sharded']}")
+        check_path(where, rec["launches"], expected)
+        emit({"phase": "parallel", "path": path, "n": n, **{
+            k: rec[k] for k in ("rank", "ranks", "backend", "cpu_log_rows",
+                                "proof_blake2s", "proof_bytes", "warm",
+                                "prove_s", "prove_cold_s", "verify_s",
+                                "peak_bytes", "sharded", "streamed",
+                                "phase_s", "launches")},
+              "equal_to_single_process": True, "verified": True})
+
+
+def commit_bound(C: int, log_n: int, ranks: int, gbps: dict) -> dict:
+    """The least time of the sharded commit of (C, 2^log_n) on the
+    2^(log_n + 1) domain by ``ranks`` gloo ranks sharing one card and
+    its one host link: the K1 and K2 bounds (see `bound`) on the whole
+    matrix, since the card runs every rank's share, plus every rank's
+    copies through pinned host memory at the rates ``gbps`` measured
+    with no rank running: each rank's share out (coefficients and
+    evaluations of ceil(C / ranks) columns, its subtree) and every
+    share into each rank.  gloo's exchange between the host buffers is
+    left out: it has no rate to bound it by."""
+    k = -(-C // ranks)
+    N, M = 1 << log_n, 1 << (log_n + 1)
+
+    def butterflies(c, n):
+        return c * n * (1 << (n - 1))
+    parts = {
+        "circle_ifft": bound(8 * C * N + 4 * N, butterflies(C, log_n)
+                             * (2 * ADD + MUL) + C * N * MUL),
+        "circle_fft": bound(8 * C * M + 4 * M,
+                            butterflies(C, log_n + 1) * (2 * ADD + MUL)),
+        "blake2s_messages": bound(4 * C * M + 32 * M,
+                                  M * -(-4 * C // 64) * COMPRESS),
+        "blake2s_parents": bound(96 * M, M * COMPRESS)}
+    share = 4 * k * (N + M) + 2 * 32 * (M // ranks)
+    out_bytes, in_bytes = ranks * share, ranks * ranks * share
+    copy_ms = (out_bytes / gbps["d2h"] + in_bytes / gbps["h2d"]) / 1e6
+    return {"bound_ms": sum(ms for ms, _by in parts.values()) + copy_ms,
+            "kernel_bounds_ms": {k_: ms for k_, (ms, _by) in parts.items()},
+            "host_copy_ms": copy_ms, "host_copy_bytes": out_bytes + in_bytes,
+            "copy_gbps": gbps, "transport": "gloo through host memory"}
+
+
+def phase_parallel(fib_digest: str) -> None:
+    """The prover over a mesh (``nexus_zkvm_tpu_torch.parallel``), its
+    ranks processes sharing the card over gloo (NCCL refuses two ranks on
+    one card), then, with two cards or more, over NCCL across cards:
+
+    - the sharded LDE + Merkle commit at the interaction's shape of the
+      fib 2^20 proof, (244, 2^20) -> 2^21, on 4 ranks: the root equals
+      the single process's; per rank the steps' ms against the one
+      bound of the shape (`commit_bound`, at host-copy rates the parent
+      measures before any rank starts) and the single process's ms (its
+      second, warm commit); a
+      sum and a sharded hash_rows across the ranks; the synthetic slice
+      at 2^10 proved under the mesh equal to the single process's proof;
+    - the fib guest at a 2^19-row CPU component on the same 4 ranks
+      (one proof, cold), and at a 2^20-row one on 2 ranks (a cold
+      proof, then a warm one, timed): on every rank the proof bytes
+      equal the single process's, verify, and its main, interaction and
+      composition trees were committed over the mesh; every kernel of
+      the resident path was launched on every rank."""
+    import gc
+    import torch
+    import nexus_zkvm_tpu_torch as T
+    from nexus_zkvm_tpu_torch.kernels import KERNELS
+    from nexus_zkvm_tpu_torch.prover import pcs
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          proof_to_bytes)
+    tm = mesh_helpers()
+    # the single process's results, on the card, freed before the ranks
+    device = "cuda"
+    C, log_n = MESH_COMMIT
+    spec = (C, log_n, MESH_SEED)
+    cols = tm.mesh_columns(spec, device)
+    root = pcs.commit_blocks("t", [cols], [log_n], 1,
+                             device).trees[log_n + 1].root()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pcs.commit_blocks("t", [cols], [log_n], 1, device)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    del cols
+    comps, cfg = make_components(K_SQUARES), T.PcsConfig()
+    slice_proof = T.prove(comps, [PARITY_LOG, TABLE_LOG],
+                          make_traces(PARITY_LOG, K_SQUARES),
+                          T.Blake2sChannel(), cfg, device=device)
+    _v, proof = LocalProver(fib_guest(), device=device).prove_with_input(
+        public_input=encode_u32s(FIB_MESH4_N))
+    digest19 = proof_digest(proof_to_bytes(proof))
+    del proof, _v
+    gc.collect()
+    torch.cuda.empty_cache()
+    cbound = commit_bound(C, log_n, MESH_RANKS, host_copy_gbps(device))
+    torch.cuda.empty_cache()
+    expected = set(KERNELS) - set(MEMORY_MODE)
+
+    src = (ROOT / "examples" / "guests" / "fib.s").read_text()
+    t0 = time.perf_counter()
+    recs = tm.spawn(tm.checks_rank, MESH_RANKS, [
+        (tm.mesh_commit_rank, (spec, log_n, 1)),
+        (tm.mesh_collectives_rank, ()),
+        (tm.mesh_slice_rank, (K_SQUARES, PARITY_LOG, cfg, device)),
+        (tm.mesh_machine_rank, (src, encode_u32s(FIB_MESH4_N), device, None,
+                                False))], backend="gloo", device=device,
+                    timeout=300)
+    wall = time.perf_counter() - t0
+    for commit, coll, sl, _m in recs:
+        where = f"parallel_commit/rank{commit['rank']}"
+        if not np.array_equal(commit["root"], root):
+            raise RuntimeError(f"{where}: the sharded root differs")
+        if not all(commit["launches"][k] for k in tm.K1K2):
+            raise RuntimeError(f"{where}: K1 or K2 not launched: "
+                               f"{commit['launches']}")
+        if not sl["verified"] or not sl["sharded"] or \
+                not tree_eq(sl["proof"], slice_proof):
+            raise RuntimeError(f"{where}: the 2^10 slice under the mesh "
+                               f"differs from the single process's")
+        emit({"phase": "parallel_commit", "rank": commit["rank"],
+              "ranks": commit["ranks"], "backend": commit["backend"],
+              "shape": commit["shape"], "root_equal": True,
+              "ms": commit["ms"], "single_process_ms": single_ms,
+              "step_ms": commit["step_ms"],
+              "launches": commit["launches"], **cbound,
+              "collectives": coll, "slice_equal": True,
+              "slice_sharded": sl["sharded"], "spawn_wall_s": wall})
+    _check_mesh_machine(f"parallel/gloo{MESH_RANKS}", FIB_MESH4_N,
+                        [m for *_r, m in recs], digest19, MESH4_LOG, expected)
+    del recs, commit, coll, sl
+
+    runs = [("parallel/gloo2", 2, "gloo")]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs.append((f"parallel/nccl{min(4, cards)}", min(4, cards), "nccl"))
+    for path, ranks, backend in runs:
+        recs = tm.spawn(tm.mesh_machine_rank, ranks, src, encode_u32s(FIB_N),
+                        device, backend=backend, device=device, timeout=300)
+        _check_mesh_machine(path, FIB_N, recs, fib_digest, FULL_LOG,
+                            expected)
+    if cards < 2:
+        emit({"phase": "parallel", "path": "parallel/nccl", "ran": False,
+              "reason": f"{cards} card: NCCL needs a card for each rank"})
+
+
 def time_machine(runs: int = 3) -> None:
     """Warm fib proofs at FIB_N (a 2^20-row CPU component) through
     LocalProver with the package on the path, after a cold one: per run,
@@ -1244,11 +1467,13 @@ def main() -> int:
     comps = make_components()
     phase_parity(comps)
     phase_slice(comps)
-    launches = phase_machine()
+    launches, fib_digest = phase_machine()
     phase_machine_parity()
     stream_launches, stream_comps, stream_logs = phase_machine_stream()
     phase_stream_parity()
     timed.update(check_stream_kernels(stream_comps, stream_logs))
+    del stream_comps
+    phase_parallel(fib_digest)
 
     from nexus_zkvm_tpu_torch.kernels import KERNELS
     unused = [k for k in KERNELS if not launches[k] and not stream_launches[k]]

@@ -316,7 +316,8 @@ def logup_columns(src, meta, M: int) -> torch.Tensor:
         scratch = torch.empty(((M + 255) // 256, 4), dtype=torch.int32,
                               device=src.device)
         kernels.launch("logup_columns", src.data_ptr(), meta_dev.data_ptr(),
-                       B, M, out.data_ptr(), scratch.data_ptr())
+                       B, M, out.data_ptr(), scratch.data_ptr(),
+                       device=src.device)
         return out
     if src.device.type == "cpu":
         return logup_columns_plain(src, meta, M)

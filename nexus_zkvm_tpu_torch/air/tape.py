@@ -847,7 +847,7 @@ def _launch_tape(name: str, tape, mats, table, rows: tuple, *tail) -> None:
     table = table.to(dev)
     kernels.launch(name, tape.device_program(dev).data_ptr(),
                    len(tape.program), table.data_ptr(), len(tape.loads),
-                   *rows, threads, smem, *tail)
+                   *rows, threads, smem, *tail, device=dev)
 
 
 def air_eval_operands_plain(tape, mats, uniforms, N: int) -> torch.Tensor:

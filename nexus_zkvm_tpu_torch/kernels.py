@@ -9,7 +9,8 @@ headers it includes, so an edited source is rebuilt and an unchanged one
 is loaded as is.
 
 Every C entry point launches one kernel (in one or more passes) on the
-caller's current stream and returns ``cudaGetLastError()``;
+stream it is given, the current stream of the device its tensors lie
+on, and returns ``cudaGetLastError()``;
 :func:`launch` raises if that is not 0 and adds one to the kernel's
 launch count.  Nothing here runs at import time: the CPU tests import
 every module.
@@ -147,14 +148,17 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-def launch(kernel: str, *args) -> None:
-    """Launch ``kernel`` on the current CUDA stream; raise on a refused
-    launch.  Pointer arguments are passed as Python ints."""
+def launch(kernel: str, *args, device: torch.device) -> None:
+    """Launch ``kernel`` on ``device``'s current stream, the device of
+    the tensors it reads and writes (with that device current, whatever
+    device the process had current); raise on a refused launch.  Pointer
+    arguments are passed as Python ints."""
     src, fn, _argtypes = KERNELS[kernel]
     if src not in _LIBS:
         build()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(_LIBS[src], fn)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(_LIBS[src], fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed with CUDA error {rc}")
     _LAUNCHES[kernel] += 1

@@ -505,7 +505,7 @@ def cpu_fill(rows: torch.Tensor, params):
                           device=rows.device)
         hist = torch.zeros(N_HIST, dtype=torch.int32, device=rows.device)
         kernels.launch("cpu_fill", rows.data_ptr(), N, *prm,
-                       mat.data_ptr(), hist.data_ptr())
+                       mat.data_ptr(), hist.data_ptr(), device=rows.device)
         return mat, hist
     if rows.device.type == "cpu":
         return cpu_fill_plain(rows, params)

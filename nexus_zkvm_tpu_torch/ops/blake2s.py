@@ -173,7 +173,7 @@ def hash_rows(msgs: torch.Tensor) -> torch.Tensor:
         out = torch.empty((R, 8), dtype=torch.int32, device=msgs.device)
         if R:
             kernels.launch("blake2s_messages", msgs.data_ptr(),
-                           out.data_ptr(), R, W, sr, sw)
+                           out.data_ptr(), R, W, sr, sw, device=out.device)
         return out
     if msgs.device.type == "cpu":
         return hash_rows_plain(msgs)
@@ -204,7 +204,7 @@ def leaves_stream(state, chunk: torch.Tensor, done: int, total: int,
             raise ValueError("state must be (M, 8)")
         kernels.launch("blake2s_leaves_stream", state.data_ptr(),
                        chunk.data_ptr(), M, log_m, c, done, total,
-                       int(first), int(last))
+                       int(first), int(last), device=chunk.device)
         return state
     if chunk.device.type == "cpu":
         return leaves_stream_plain(state, chunk, done, total, last)
@@ -222,7 +222,7 @@ def hash_parents(layer: torch.Tensor) -> torch.Tensor:
         R = layer.shape[0] // 2
         out = torch.empty((R, 8), dtype=torch.int32, device=layer.device)
         kernels.launch("blake2s_parents", layer.data_ptr(), out.data_ptr(),
-                       R)
+                       R, device=layer.device)
         return out
     if layer.device.type == "cpu":
         return hash_rows_plain(layer.reshape(-1, 16))

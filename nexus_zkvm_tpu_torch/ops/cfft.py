@@ -110,10 +110,11 @@ def _stages_cuda(x: torch.Tensor, inverse: bool, out=None) -> torch.Tensor:
         twp = tw.data_ptr() + 4 * _stage_off(n, j)
         if inverse:
             kernels.launch("circle_ifft", src.data_ptr(), out.data_ptr(),
-                           twp, rows, n, j, inv_n if j == n else 1)
+                           twp, rows, n, j, inv_n if j == n else 1,
+                           device=x.device)
         else:
             kernels.launch("circle_fft", src.data_ptr(), out.data_ptr(),
-                           twp, rows, n, j)
+                           twp, rows, n, j, device=x.device)
         src = out
     return out
 

@@ -175,7 +175,7 @@ def fold(v, alpha, tw, inj=None, inj_tw=None, w2=None) -> torch.Tensor:
             ip, itp, w = 0, 0, [0, 0, 0, 0]
         out = torch.empty((L, 4), dtype=torch.int32, device=v.device)
         kernels.launch("fri_fold", v.data_ptr(), out.data_ptr(), L,
-                       tw.data_ptr(), *a, ip, itp, *w)
+                       tw.data_ptr(), *a, ip, itp, *w, device=v.device)
         return out
     if v.device.type == "cpu":
         return fold_plain(v, alpha, tw, inj, inj_tw, w2)
@@ -215,8 +215,11 @@ class FriProverState:
     last_layer: np.ndarray
 
 
-def fri_commit(inputs: dict, channel, config: FriConfig) -> FriProverState:
-    """Commit phase.  inputs: {circle log size -> (2^s, 4) int32 tensor}."""
+def fri_commit(inputs: dict, channel, config: FriConfig,
+               commit_matrix=merkle.commit_matrix) -> FriProverState:
+    """Commit phase.  inputs: {circle log size -> (2^s, 4) int32 tensor}.
+    ``commit_matrix``: commits each layer's (4, 2^s) matrix to a
+    ``merkle.MerkleTree`` (the prover's mesh commit under a mesh)."""
     sizes = sorted(inputs, reverse=True)
     s0 = sizes[0]
     dev = inputs[s0].device
@@ -228,7 +231,7 @@ def fri_commit(inputs: dict, channel, config: FriConfig) -> FriProverState:
     cur = fold(inputs[s0], alpha, dev_circle_fold_twiddles(s0, dev))
     inner = []
     for blk in sched:
-        tree = merkle.commit_matrix(cur.t())
+        tree = commit_matrix(cur.t())
         root = tree.root()
         channel.mix_u32s(root)
         pows = _alpha_powers(channel.draw_felt(), blk.k)

@@ -48,6 +48,7 @@ class MerkleTree:
     layers: list
     columns: list          # committed columns (mixed-depth trees)
     matrix: object = None  # (C, 2^max_depth) tensor for uniform trees
+    sharded: bool = False  # committed over a mesh (parallel/commit.py)
 
     @property
     def max_depth(self) -> int:
@@ -215,7 +216,7 @@ def gather_launch(desc, idx, words: int) -> torch.Tensor:
         raise ValueError("descriptors must be (n, 9)")
     out = torch.empty(words, dtype=torch.int32, device=desc.device)
     kernels.launch("gather_openings", desc.data_ptr(), int(desc.shape[0]),
-                   idx.data_ptr(), out.data_ptr())
+                   idx.data_ptr(), out.data_ptr(), device=desc.device)
     return out
 
 

@@ -206,7 +206,7 @@ def accumulate_blocks(blocks, x_p, y_p, consts, gcs) -> torch.Tensor:
                                                           - len(blocks))
         kernels.launch("deep_quotients", *ptrs, *rows, x_p.data_ptr(),
                        y_p.data_ptr(), consts.data_ptr(), gcs.data_ptr(),
-                       S, K, M, out.data_ptr())
+                       S, K, M, out.data_ptr(), device=out.device)
         return out
     if x_p.device.type == "cpu":
         return accumulate_blocks_plain(blocks, x_p, y_p, consts, gcs)
@@ -230,7 +230,7 @@ def colsum_fold(acc, block, gcs, brev: bool) -> torch.Tensor:
             kernels.check_cuda_tensor(t, name)
         kernels.launch("quotient_colsums", acc.data_ptr(), block.data_ptr(),
                        gcs.data_ptr(), S, c, M, M.bit_length() - 1,
-                       int(brev))
+                       int(brev), device=acc.device)
         return acc
     if block.device.type == "cpu":
         return colsum_fold_plain(acc, block, gcs, brev)
@@ -252,7 +252,7 @@ def colsum_finalize(acc, x_p, y_p, consts) -> torch.Tensor:
         out = torch.empty((M, 4), dtype=torch.int32, device=acc.device)
         kernels.launch("quotient_finalize", acc.data_ptr(), x_p.data_ptr(),
                        y_p.data_ptr(), consts.data_ptr(), S, M,
-                       out.data_ptr())
+                       out.data_ptr(), device=acc.device)
         return out
     if acc.device.type == "cpu":
         return colsum_finalize_plain(acc, x_p, y_p, consts)

@@ -1,0 +1,65 @@
+"""The active mesh: the whole prover under a mesh.
+
+The JAX package places every committed column matrix with its row axis
+sharded and lets XLA's partitioner spread the whole prover over the
+mesh.  PyTorch has no partitioner, so the port's route is explicit:
+``prover.stark.prove`` reads the active mesh once and, under a mesh of
+two or more ranks, commits every resident size group through
+``parallel/commit.py`` (each rank transforms its share of the columns
+and hashes its share of the rows; the gathered evaluations and tree
+layers reach every rank), and the FRI layer trees likewise.  Every other
+phase runs on every rank on the gathered tensors, so each rank holds
+the same proof, byte for byte the proof of a single process.  The
+verifiers never read the mesh.
+
+Usage (every rank)::
+
+    from nexus_zkvm_tpu_torch.parallel import make_mesh, use_mesh
+    with use_mesh(make_mesh()):
+        proof = prove_machine(view, trace)
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+import torch
+
+__all__ = ["set_mesh", "active_mesh", "use_mesh", "shard_rows"]
+
+_ACTIVE = None
+
+
+def set_mesh(mesh) -> None:
+    """Set (or clear, with ``None``) the process-wide active mesh."""
+    global _ACTIVE
+    _ACTIVE = mesh
+
+
+def active_mesh():
+    return _ACTIVE
+
+
+@contextmanager
+def use_mesh(mesh):
+    """Scoped activation: the prover shards its commitments over
+    ``mesh`` inside."""
+    global _ACTIVE
+    prev = _ACTIVE
+    _ACTIVE = mesh
+    try:
+        yield mesh
+    finally:
+        _ACTIVE = prev
+
+
+def shard_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's window of the last (row) axis of ``t`` under the
+    active mesh.  ``t`` itself when no mesh is active or the axis does
+    not divide evenly (tiny tables stay whole)."""
+    mesh = _ACTIVE
+    if mesh is None or mesh.size <= 1 or t.dim() == 0 or \
+            t.shape[-1] % mesh.size:
+        return t
+    w = t.shape[-1] // mesh.size
+    return t[..., mesh.rank * w:(mesh.rank + 1) * w]

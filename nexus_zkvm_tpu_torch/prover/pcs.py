@@ -17,6 +17,14 @@ from the coefficients, chunk by chunk (:func:`opened_values_streamed`).
 A natural-order group above the threshold is interpolated a chunk of
 columns at a time (:func:`_interpolate_big`), in place when the
 commitment does not keep the natural values.
+
+Under a mesh of two or more ranks (``mesh=``, which ``prove`` takes from
+the active mesh) a resident size group is committed through
+``parallel/commit.py``: each rank interpolates and evaluates its share
+of the columns (K1), the coefficients and evaluations are gathered, and
+each rank hashes its share of the rows (K2).  A group stays unsharded
+when it has fewer columns than ranks, when its rows do not split over
+the mesh, or when it is streamed.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from ..ops import blake2s, cfft, merkle
 from ..ops.circle import (bit_reverse_indices, dev_bit_reverse,
                           dev_layout_to_natural, dev_natural_to_layout)
+from ..parallel import commit as pcommit
 from ..utils.device import from_u32
 from .config import MemoryConfig
 
@@ -160,25 +169,12 @@ def opened_values_streamed(rc: RoleCommitment, s: int, positions,
     return out[0] if len(out) == 1 else torch.cat(out)
 
 
-def _commit_groups(role, trace_logs, coeff_batches, log_blowup,
-                   memory: MemoryConfig):
-    cols_by_size, evals, trees = {}, {}, {}
-    for i, n in enumerate(trace_logs):
-        cols_by_size.setdefault(n + log_blowup, []).append(i)
-    for s, idxs in sorted(cols_by_size.items(), reverse=True):
-        b_idxs, batch = coeff_batches[s - log_blowup]
-        assert b_idxs == idxs
-        if memory.streams(len(idxs) * (4 << s)):
-            trees[s] = _stream_commit(batch, s, memory.chunk_cols(s))
-            evals[s] = None
-            continue
-        ev = cfft.evaluate(batch, s)[:, dev_bit_reverse(s, batch.device)]
-        evals[s] = ev
-        trees[s] = merkle.commit_matrix(ev)
-    return RoleCommitment(role=role, trace_logs=list(trace_logs),
-                          log_blowup=log_blowup, coeff_batches=coeff_batches,
-                          evals=evals, cols_by_size=cols_by_size,
-                          trees=trees)
+def _sharded(mesh, C: int, s: int, memory: MemoryConfig) -> bool:
+    """Whether a size group of C columns on the 2^s domain is committed
+    over ``mesh``: a column for every rank, rows that split, and no
+    streaming."""
+    return pcommit.shards_rows(mesh, 1 << s) and C >= mesh.size and \
+        not memory.streams(C * (4 << s))
 
 
 def _as_device(m, device) -> torch.Tensor:
@@ -186,14 +182,75 @@ def _as_device(m, device) -> torch.Tensor:
             else m.to(device=device, dtype=torch.int32))
 
 
+def _stack(mats: list, n: int, device) -> torch.Tensor:
+    """One (C, 2^n) device matrix of a size group's blocks; ``mats`` is
+    emptied, so the matrix holds the only references."""
+    if all(isinstance(m, np.ndarray) for m in mats):
+        dev = from_u32(np.concatenate(mats) if len(mats) > 1 else mats[0],
+                       device)
+    elif len(mats) == 1:
+        dev = _as_device(mats[0], device).contiguous()
+    else:
+        # one buffer for the group, each block freed as it lands
+        C = sum(int(m.shape[0]) for m in mats)
+        dev = torch.empty((C, 1 << n), dtype=torch.int32, device=device)
+        lo = 0
+        for i in range(len(mats)):
+            k = int(mats[i].shape[0])
+            dev[lo:lo + k] = _as_device(mats[i], device)
+            mats[i] = None
+            lo += k
+    mats.clear()
+    return dev
+
+
+def _commit_group(mats: list, n: int, s: int, device, memory: MemoryConfig,
+                  mesh, natural: bool = True, keep_natural: bool = False):
+    """Commit one size group on the 2^s domain: its blocks ``mats``
+    ((k_i, 2^n) natural-order values, or coefficients without
+    ``natural``; the list is emptied) over ``mesh`` (:func:`_sharded`),
+    streamed, or resident.  Returns (the natural matrix when
+    ``keep_natural``, coefficients, committed evaluations or None when
+    streamed, tree).  Without ``keep_natural`` a big group of tensor
+    blocks is interpolated in place."""
+    host = all(isinstance(m, np.ndarray) for m in mats)
+    mat = _stack(mats, n, device)
+    nat = mat if keep_natural else None
+    C = int(mat.shape[0])
+    if _sharded(mesh, C, s, memory):
+        return (nat,) + pcommit.commit_group(mesh, mat, n, s, natural)
+    if natural and memory.streams(C * (4 << n)):
+        mat = _interpolate_big(mat, n, in_place=not (keep_natural or host))
+    elif natural:
+        mat = cfft.interpolate(mat[:, dev_layout_to_natural(n, mat.device)])
+    if memory.streams(C * (4 << s)):
+        return nat, mat, None, _stream_commit(mat, s, memory.chunk_cols(s))
+    ev = cfft.evaluate(mat, s)[:, dev_bit_reverse(s, mat.device)]
+    return nat, mat, ev, merkle.commit_matrix(ev)
+
+
+def _role(role: str, trace_logs, log_blowup: int, groups: dict,
+          natural: dict = None) -> RoleCommitment:
+    """groups: n -> (column indices, coefficients, evaluations, tree)."""
+    by_s = {n + log_blowup: g for n, g in groups.items()}
+    return RoleCommitment(
+        role=role, trace_logs=list(trace_logs), log_blowup=log_blowup,
+        coeff_batches={n: (g[0], g[1]) for n, g in groups.items()},
+        evals={s: g[2] for s, g in by_s.items()},
+        cols_by_size={s: g[0] for s, g in by_s.items()},
+        trees={s: g[3] for s, g in by_s.items()}, natural=natural)
+
+
 def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
                   keep_natural: bool = True,
-                  memory: MemoryConfig = MemoryConfig()) -> RoleCommitment:
+                  memory: MemoryConfig = MemoryConfig(),
+                  mesh=None) -> RoleCommitment:
     """Commit pre-stacked column blocks: blocks[i] is a (k_i, 2^n_i)
     numpy uint32 array or int32 tensor of consecutive columns.  A list
     of blocks is emptied (the size groups hold the only references);
     without ``keep_natural`` a big size group of tensor blocks is
-    interpolated in place, in memory the commitment owns from then on."""
+    interpolated in place, in memory the commitment owns from then on.
+    ``mesh``: the groups it can split are committed over it."""
     by_n, idxs_by_n, trace_logs = {}, {}, []
     for b, n in zip(blocks, block_logs):
         k = int(b.shape[0])
@@ -204,59 +261,41 @@ def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
     b = None
     if isinstance(blocks, list):
         blocks.clear()
-    coeff_batches, natural = {}, {}
+    groups, natural = {}, {}
     for n, mats in by_n.items():
-        C = sum(int(m.shape[0]) for m in mats)
-        big = memory.streams(C * (4 << n))
-        host = all(isinstance(m, np.ndarray) for m in mats)
-        if host:
-            dev = from_u32(np.concatenate(mats) if len(mats) > 1
-                           else mats[0], device)
-        elif len(mats) == 1:
-            dev = _as_device(mats[0], device).contiguous()
-        else:
-            # one buffer for the group, each block freed as it lands
-            dev = torch.empty((C, 1 << n), dtype=torch.int32, device=device)
-            lo = 0
-            for i in range(len(mats)):
-                k = int(mats[i].shape[0])
-                dev[lo:lo + k] = _as_device(mats[i], device)
-                mats[i] = None
-                lo += k
-        by_n[n] = mats = None
+        nat, *committed = _commit_group(mats, n, n + log_blowup, device,
+                                        memory, mesh,
+                                        keep_natural=keep_natural)
         if keep_natural:
-            natural[n] = (idxs_by_n[n], dev)
-        if big:
-            cf = _interpolate_big(dev, n, in_place=not (keep_natural or host))
-        else:
-            cf = cfft.interpolate(dev[:, dev_layout_to_natural(n, dev.device)])
-        del dev
-        coeff_batches[n] = (idxs_by_n[n], cf)
-    rc = _commit_groups(role, trace_logs, coeff_batches, log_blowup, memory)
-    rc.natural = natural
-    return rc
+            natural[n] = (idxs_by_n[n], nat)
+        groups[n] = (idxs_by_n[n], *committed)
+        del nat, committed
+    return _role(role, trace_logs, log_blowup, groups, natural)
 
 
 def commit_columns(role: str, columns, trace_logs, log_blowup: int, device,
                    keep_natural: bool = True,
-                   memory: MemoryConfig = MemoryConfig()) -> RoleCommitment:
+                   memory: MemoryConfig = MemoryConfig(),
+                   mesh=None) -> RoleCommitment:
     """columns: natural-order numpy uint32 arrays of sizes
     2^trace_logs[i], committed in this order."""
     return commit_blocks(role, [np.asarray(c, np.uint32)[None, :]
                                 for c in columns],
                          list(trace_logs), log_blowup, device, keep_natural,
-                         memory)
+                         memory, mesh)
 
 
 def commit_from_coeffs(role: str, coeffs: torch.Tensor, trace_log: int,
                        log_blowup: int,
-                       memory: MemoryConfig = MemoryConfig()
-                       ) -> RoleCommitment:
+                       memory: MemoryConfig = MemoryConfig(),
+                       mesh=None) -> RoleCommitment:
     """Commit a (C, 2^trace_log) coefficient matrix (one size group)."""
     C = int(coeffs.shape[0])
-    return _commit_groups(role, [trace_log] * C,
-                          {trace_log: (list(range(C)), coeffs)}, log_blowup,
-                          memory)
+    _nat, *committed = _commit_group([coeffs], trace_log,
+                                     trace_log + log_blowup, coeffs.device,
+                                     memory, mesh, natural=False)
+    return _role(role, [trace_log] * C, log_blowup,
+                 {trace_log: (list(range(C)), *committed)})
 
 
 def open_positions(queries, s0: int, s: int):

@@ -29,6 +29,7 @@ preprocessed commitment, which runs on ``device``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -51,6 +52,8 @@ from ..air.component import (
 )
 from ..air.tape import generate_interaction, accumulate_composition
 from ..air.lookups import draw_relations
+from ..parallel import commit as pcommit
+from ..parallel.context import active_mesh
 from ..utils.device import resolve_device, dev_const, from_u32, to_u32
 from ..utils.profile import note, scope
 from .config import MemoryConfig, PcsConfig
@@ -217,7 +220,8 @@ def oods_dot(cols: torch.Tensor, factors: np.ndarray) -> torch.Tensor:
         partial = torch.empty((C, G, 4), dtype=torch.int32, device=dev)
         out = torch.empty((C, 4), dtype=torch.int32, device=dev)
         kernels.launch("oods_dot", cols.data_ptr(), C, log_n, k,
-                       f.data_ptr(), G, partial.data_ptr(), out.data_ptr())
+                       f.data_ptr(), G, partial.data_ptr(), out.data_ptr(),
+                       device=dev)
         return out.to(torch.int64)
     if cols.device.type == "cpu":
         return oods_dot_plain(cols, factors)
@@ -447,8 +451,13 @@ def prove(components, log_sizes, main_traces, channel,
     after the interaction.  ``memory`` decides where the data is kept,
     never the proof; the route taken is noted on the active profile
     (``streamed``: the (role, eval size) trees committed column-streamed;
-    ``composition_passes``: each component's row passes)."""
+    ``composition_passes``: each component's row passes; ``sharded``:
+    the (role, eval size) trees, and ("fri", size) layer trees, committed
+    over the active mesh).  Under an active mesh
+    (``parallel.use_mesh``) every rank calls ``prove`` with the same
+    arguments and gets the same proof."""
     dev = resolve_device(device)
+    mesh = active_mesh()
     infos = [component_info(c) for c in components]
     plan = build_plan(log_sizes, infos, config)
     blowup = config.fri.log_blowup
@@ -458,7 +467,7 @@ def prove(components, log_sizes, main_traces, channel,
     with scope("commit:pre"):
         pre_cols, pre_logs = _pre_columns(components, log_sizes, plan)
         rc_pre = pcs.commit_columns("pre", pre_cols, pre_logs, blowup, dev,
-                                    memory=memory)
+                                    memory=memory, mesh=mesh)
         rc_pre.mix_roots(channel)
 
     with scope("commit:main"):
@@ -481,7 +490,7 @@ def prove(components, log_sizes, main_traces, channel,
                 main_traces[c] = None
         tr = None
         rc_main = pcs.commit_blocks("main", blocks, block_logs, blowup, dev,
-                                    memory=memory)
+                                    memory=memory, mesh=mesh)
         rc_main.mix_roots(channel)
 
     with scope("interaction"):
@@ -503,7 +512,8 @@ def prove(components, log_sizes, main_traces, channel,
                 block_logs.append(log_sizes[c])
         arr = inter_cols = None
         rc_inter = (pcs.commit_blocks("inter", blocks, block_logs, blowup,
-                                      dev, keep_natural=False, memory=memory)
+                                      dev, keep_natural=False, memory=memory,
+                                      mesh=mesh)
                     if blocks else None)
         if rc_inter is not None:
             rc_inter.mix_roots(channel)
@@ -516,7 +526,7 @@ def prove(components, log_sizes, main_traces, channel,
                                    memory)
         rcs["comp"] = pcs.commit_from_coeffs("comp", comp_coeffs,
                                              plan.n_comp_trace_log, blowup,
-                                             memory)
+                                             memory, mesh)
         del comp_coeffs
         rcs["comp"].mix_roots(channel)
     note("streamed", [(role, s) for role, rc in rcs.items() if rc is not None
@@ -579,8 +589,13 @@ def prove(components, log_sizes, main_traces, channel,
                     gcs)
             offset += quotients.n_terms(samples_by_size[s])
     with scope("fri"):
-        fri_state = fri.fri_commit(fri_inputs, channel, config.fri)
+        fri_state = fri.fri_commit(fri_inputs, channel, config.fri,
+                                   partial(pcommit.commit_matrix, mesh))
         del fri_inputs
+    note("sharded", [(role, s) for role, rc in rcs.items() if rc is not None
+                     for s in rc.sizes_desc() if rc.trees[s].sharded]
+         + [("fri", tree.max_depth) for tree, _r, _b in fri_state.inner
+            if tree.sharded])
 
     with scope("pow"):
         pow_nonce = channel.grind_pow(config.pow_bits)

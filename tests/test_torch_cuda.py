@@ -292,3 +292,41 @@ def test_quotient_colsums_and_finalize(dev):
     xs, ys = circle.dev_committed_points(s, dev)
     assert torch.equal(quotients.colsum_finalize(acc0, xs, ys, consts),
                        quotients.colsum_finalize_plain(acc0, xs, ys, consts))
+
+
+def test_sharded_commit_on_the_card(dev):
+    """A 2-rank sharded commit with its ranks on the card (gloo through
+    the host on one card; NCCL with a card each where there are two):
+    every rank's root equals the single-process pcs root, each rank ran
+    K1 and K2 on the device it was given."""
+    import torch_mesh as tm
+    from nexus_zkvm_tpu_torch.prover import pcs
+    nccl = torch.cuda.device_count() >= 2
+    spec = (40, 12, 7)
+    recs = tm.spawn(tm.mesh_commit_rank, 2, spec, 12, 1,
+                    backend="nccl" if nccl else "gloo", device="cuda",
+                    timeout=300)
+    want = pcs.commit_blocks("t", [tm.mesh_columns(spec, dev)], [12],
+                             1, dev).trees[13].root()
+    for r, rec in enumerate(recs):
+        assert np.array_equal(rec["root"], want), r
+        assert rec["device"] == (f"cuda:{r}" if nccl else "cuda:0"), rec
+        assert all(rec["launches"][k] for k in tm.K1K2), rec
+
+
+def test_launch_on_the_tensors_device(dev):
+    """Tensors on a second card while the first is current: the kernels
+    launch on the second card's stream and equal their plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one card: no second device to launch on")
+    other = torch.device("cuda", 1)
+    x = rand(other, (3, 1 << 11), seed=5)
+    with torch.cuda.device(0):
+        got = cfft.evaluate(cfft.interpolate(x))
+        leaves = blake2s.hash_rows(got.t())
+        parents = blake2s.hash_parents(leaves)
+    assert got.device == other
+    assert torch.equal(got, cfft.evaluate_plain(cfft.interpolate_plain(x)))
+    assert torch.equal(leaves, blake2s.hash_rows_plain(got.t()))
+    assert torch.equal(parents,
+                       blake2s.hash_rows_plain(leaves.reshape(-1, 16)))

@@ -31,8 +31,8 @@ _PROBE = textwrap.dedent("""
            if re.fullmatch(r"jax(\\..*)?|jaxlib(\\..*)?", m)
            or re.fullmatch(r"nexus_zkvm_tpu(\\..*)?", m)]
     subpackages = {n.split(".")[1] for n in names}
-    missing = {"air", "machine", "ops", "precompiles", "prover", "sdk",
-               "utils", "vm"} - subpackages
+    missing = {"air", "machine", "ops", "parallel", "precompiles", "prover",
+               "sdk", "utils", "vm"} - subpackages
     print(len(names), "modules;", "leaked:", bad, "missing:", missing)
     sys.exit(1 if bad or missing or len(names) < 45 else 0)
 """)

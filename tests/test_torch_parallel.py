@@ -1,0 +1,231 @@
+"""The port's meshes (``nexus_zkvm_tpu_torch.parallel``) against the JAX
+package's ``parallel/``.
+
+Ranks are processes (``torch_mesh.spawn``, gloo on the CPU, one thread
+each), started once per mesh size; each runs all of that size's checks
+(the rank programs of tests/torch_mesh.py, which the card's
+``parallel`` phase runs too):
+
+- the sharded commit and LDE at D = 2, 4 and 8 (C = 16 columns of 2^8
+  rows, as tests/test_parallel.py; C = 13, which no D divides; C = 5 <
+  D = 8) equal the port's single-process ``pcs`` commit and the JAX
+  ``sharded_commit_columns`` / ``sharded_lde`` on its 8-device CPU mesh
+  (or, where the JAX mesh needs C divisible by D, the JAX ``pcs``
+  commit); D = 1 is the local mesh;
+- two processes joined through the NZT_* environment sum across ranks
+  and hash rows sharded by rows, as tests/test_distributed.py checks
+  the JAX runtime;
+- the e2e fixture of tests/test_stark_e2e.py proved on 4 ranks equals
+  the JAX package's proof field by field on every rank;
+- the fib n = 10 machine proof on 2 ranks has the reference's digest on
+  every rank.
+
+Every comparison is exact: uint32 equality, equal proof fields, equal
+proof bytes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nexus_zkvm_tpu.channel import Blake2sChannel as RChannel
+from nexus_zkvm_tpu.parallel import (make_mesh as rmake_mesh,
+                                     sharded_commit_columns as rsharded)
+from nexus_zkvm_tpu.parallel import commit as rcommit
+from nexus_zkvm_tpu.parallel import distributed as rdist
+from nexus_zkvm_tpu.prover import pcs as rpcs, prove as rprove
+from nexus_zkvm_tpu_torch import parallel as par
+from nexus_zkvm_tpu_torch.parallel import distributed as tdist
+from nexus_zkvm_tpu_torch.parallel.commit import sharded_lde
+from nexus_zkvm_tpu_torch.prover import pcs
+from nexus_zkvm_tpu_torch.utils.device import to_u32
+import test_stark_e2e as E
+import test_torch_machine as tmach
+import test_torch_stark as tstark
+import torch_mesh as tm
+
+LOG, BLOWUP = 8, 1
+S = LOG + BLOWUP
+WIDTHS = {1: (16, 13), 2: (16, 13), 4: (16, 13), 8: (16, 13, 5)}
+CASES = [(d, c) for d, cs in WIDTHS.items() for c in cs]
+
+
+def _columns(C):
+    rng = np.random.default_rng(0)
+    return rng.integers(0, (1 << 31) - 1, (16, 1 << LOG)).astype(
+        np.uint32)[:C]
+
+
+def _commits(d):
+    return [(tm.mesh_commit_rank, (_columns(c), LOG, BLOWUP, True))
+            for c in WIDTHS[d]]
+
+
+def _spawn(d, checks):
+    return tm.spawn(tm.checks_rank, d, checks, backend="gloo", device="cpu",
+                    timeout=600)
+
+
+@pytest.fixture
+def cpu_process(monkeypatch):
+    """This process as a rank of its own on the CPU: no process group
+    (the environment holds none), meshes on the CPU."""
+    for name in ("NZT_COORDINATOR", "JAX_COORDINATOR", "MASTER_ADDR",
+                 "MASTER_PORT", "NZT_NUM_PROCESSES", "JAX_NUM_PROCESSES",
+                 "WORLD_SIZE", "NZT_PROCESS_ID", "JAX_PROCESS_ID", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    return par.init_distributed(device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    """{D: per rank, the results of its checks}: the commits of every
+    width, then (D = 2) the collectives and the fib n = 10 machine
+    proof, (D = 4) the e2e fixture's proof."""
+    extra = {2: [(tm.mesh_collectives_rank, ()),
+                 (tm.mesh_machine_rank, (tmach.FIB10_SRC, b"", "cpu",
+                                         tmach.TCFG, False))],
+             4: [(tm.mesh_slice_rank, (1, E.LOG_SQ, tstark.TCFG, "cpu"))],
+             8: []}
+    return {d: _spawn(d, _commits(d) + extra[d]) for d in (2, 4, 8)}
+
+
+@pytest.fixture(scope="module")
+def references():
+    """Per width: the JAX sharded commit on its 8-device mesh where 8
+    divides C, else the JAX pcs commit; the port's single-process pcs
+    commit; the JAX sharded LDE."""
+    out = {}
+    for c in (16, 13, 5):
+        cols = _columns(c)
+        if c % 8 == 0:
+            ev, root = rsharded(rmake_mesh(8), cols, LOG, log_blowup=BLOWUP)
+            lde = rcommit.sharded_lde(rmake_mesh(8), cols, LOG, S)
+        else:
+            rc = rpcs.commit_columns("t", list(cols), [LOG] * c, BLOWUP)
+            ev, root, lde = rc.evals[S], rc.trees[S].root(), rc.evals[S]
+        tc = pcs.commit_columns("t", list(cols), [LOG] * c, BLOWUP, "cpu")
+        out[c] = {"jax": (np.asarray(ev, np.uint32),
+                          np.asarray(root, np.uint32),
+                          np.asarray(lde, np.uint32)),
+                  "port": (to_u32(tc.evals[S]), tc.trees[S].root())}
+    return out
+
+
+def _rank_commits(ranks, d, c):
+    if d == 1:
+        mesh = par.local_mesh()
+        ev, root = par.sharded_commit_columns(mesh, _columns(c), LOG, BLOWUP)
+        lde = sharded_lde(mesh, _columns(c), LOG, S)
+        return [{"evals": to_u32(ev), "root": root, "lde": to_u32(lde),
+                 "rank": 0}]
+    return [r[WIDTHS[d].index(c)] for r in ranks[d]]
+
+
+@pytest.mark.parametrize("d,c", CASES, ids=[f"D{d}-C{c}" for d, c in CASES])
+def test_sharded_commit_equals_reference(ranks, references, cpu_process,
+                                         d, c):
+    """Every rank's evaluations and root equal the JAX package's and the
+    port's single process's; the sharded LDE equals the JAX one."""
+    ev, root, lde = references[c]["jax"]
+    pev, proot = references[c]["port"]
+    assert np.array_equal(pev, ev) and np.array_equal(proot, root)
+    recs = _rank_commits(ranks, d, c)
+    assert [r["rank"] for r in recs] == list(range(d))
+    for rec in recs:
+        assert rec["evals"].shape == (c, 1 << S)
+        assert np.array_equal(rec["evals"], ev), rec["rank"]
+        assert np.array_equal(rec["root"], root), rec["rank"]
+        assert np.array_equal(rec["lde"], lde), rec["rank"]
+
+
+def test_two_processes_through_the_environment(ranks):
+    """Rank r of 2 joined through NZT_COORDINATOR / NZT_NUM_PROCESSES /
+    NZT_PROCESS_ID: a sum across ranks and a row-sharded hash_rows equal
+    the host's."""
+    for r, rec in enumerate(ranks[2]):
+        coll = rec[len(WIDTHS[2])]
+        assert coll == {"sum": int(np.arange(128).sum()),
+                        "hash_rows_equal": True}, r
+        assert rec[0]["ranks"] == 2 and rec[0]["backend"] == "gloo"
+
+
+def test_machine_proof_on_two_ranks_has_reference_digest(ranks):
+    """The fib n = 10 machine proof on a 2-rank mesh: on every rank the
+    reference's proof bytes, verified, with the main trees committed
+    over the mesh."""
+    for r, rec in enumerate(ranks[2]):
+        m = rec[-1]
+        assert m["proof_blake2s"] == tmach.FIB10_PROOF_BLAKE2S, r
+        assert m["ranks_agree"] and m["verified"], r
+        assert ("main", m["cpu_log_rows"] + 1) in m["sharded"], m["sharded"]
+
+
+def test_e2e_proof_on_four_ranks_equals_reference(ranks):
+    """The e2e fixture proved on a 4-rank mesh equals the JAX package's
+    proof field by field, on every rank, and verifies."""
+    ref = rprove(E.COMPONENTS, E.LOG_SIZES, E.make_traces(), RChannel(),
+                 tstark.RCFG)
+    for r, rec in enumerate(ranks[4]):
+        sl = rec[-1]
+        assert sl["verified"], r
+        assert sl["sharded"], r
+        assert tstark.tree_eq(tstark.to_port_proof(ref), sl["proof"]), r
+
+
+def test_local_mesh_is_degenerate(cpu_process):
+    """A mesh of one on the device init_distributed was given: no process
+    group, the gather is the identity."""
+    mesh = par.local_mesh()
+    assert (mesh.size, mesh.rank, mesh.backend) == (1, 0, None)
+    assert mesh.device == torch.device("cpu")
+    t = torch.arange(6, dtype=torch.int32).reshape(3, 2)
+    assert mesh.all_gather(t) is t
+    assert par.make_mesh().size == 1
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        par.make_mesh(2)
+
+
+def test_init_distributed_without_environment_is_a_no_op(cpu_process):
+    info = cpu_process
+    assert info == {"process_id": 0, "n_processes": 1, "local_devices": 1,
+                    "global_devices": 1}
+    assert set(info) == set(rdist.process_info())
+    assert not par.is_distributed()
+    assert not torch.distributed.is_initialized()
+    assert tdist.device() == torch.device("cpu")
+
+
+def test_use_mesh_scoping(cpu_process):
+    assert par.active_mesh() is None
+    mesh = par.local_mesh()
+    with par.use_mesh(mesh):
+        assert par.active_mesh() is mesh
+    assert par.active_mesh() is None
+    par.set_mesh(mesh)
+    try:
+        assert par.active_mesh() is mesh
+    finally:
+        par.set_mesh(None)
+
+
+@pytest.mark.parametrize("shape,rank,window", [
+    ((3, 8), 1, slice(2, 4)), ((8,), 3, slice(6, 8)), ((3, 6), 0, None),
+    ((), 0, None)])
+def test_shard_rows_takes_the_rank_window_or_nothing(cpu_process, shape,
+                                                    rank, window):
+    """The rank's window of the last axis when 4 divides it; the tensor
+    itself otherwise, and with no mesh or a mesh of one."""
+    t = torch.arange(int(np.prod(shape)), dtype=torch.int32).reshape(shape)
+    assert par.shard_rows(t) is t
+    mesh = par.mesh.Mesh(size=4, rank=rank, device=torch.device("cpu"),
+                         backend="gloo")
+    with par.use_mesh(mesh):
+        got = par.shard_rows(t)
+    if window is None:
+        assert got is t
+    else:
+        assert torch.equal(got, t[..., window])
+    with par.use_mesh(par.local_mesh()):
+        assert par.shard_rows(t) is t
+

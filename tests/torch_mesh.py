@@ -1,0 +1,226 @@
+"""Ranks of one machine as processes, and the programs they run.
+
+    results = spawn(fn, nprocs, *args, backend="gloo", device="cpu")
+
+starts ``nprocs`` processes with ``torch.multiprocessing`` (the spawn
+method), joins each to a process group through the port's environment
+contract (``NZT_COORDINATOR`` on a free localhost port,
+``NZT_NUM_PROCESSES``, ``NZT_PROCESS_ID``; ``init_distributed``) and
+returns ``fn(make_mesh(), *args)`` of every rank, in rank order.  ``fn``
+and its arguments must be picklable; results travel pickled.  A rank
+that raises ends the call with its traceback, and the other ranks are
+stopped.  CPU ranks run one thread each.
+
+The rank programs below are the mesh checks of
+tests/test_torch_parallel.py, tests/test_torch_cuda.py and
+chip_smoke.py's ``parallel`` phase; nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import pickle
+import socket
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+P31 = (1 << 31) - 1
+K1K2 = ("circle_ifft", "circle_fft", "blake2s_messages", "blake2s_parents")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(fn, nprocs: int, *args, backend: str | None = None,
+          device="cuda", timeout: float = 900.0) -> list:
+    env = {"NZT_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "NZT_NUM_PROCESSES": str(nprocs)}
+    results = mp.get_context("spawn").SimpleQueue()
+    ctx = mp.start_processes(_rank, (env, backend, str(device), results, fn,
+                                     args), nprocs=nprocs, join=False,
+                             start_method="spawn")
+    got, deadline = {}, time.monotonic() + timeout
+    try:
+        while True:
+            done = ctx.join(timeout=0.1)   # raises when a rank failed
+            while not results.empty():     # a rank blocks until it is read
+                r, blob = results.get()
+                got[r] = pickle.loads(blob)
+            if done:
+                return [got[r] for r in range(nprocs)]
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} on {nprocs} ranks passed "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def _rank(r: int, env: dict, backend, device: str, results, fn, args):
+    from nexus_zkvm_tpu_torch.parallel import init_distributed, make_mesh
+    os.environ.update(env, NZT_PROCESS_ID=str(r))
+    if device == "cpu":
+        torch.set_num_threads(1)
+    init_distributed(backend=backend, device=device)
+    out = fn(make_mesh(), *args)
+    results.put((r, pickle.dumps(out)))
+    dist.destroy_process_group()
+
+
+def checks_rank(mesh, checks) -> list:
+    """Run ``checks``, [(rank program, its arguments)], in one process:
+    their results in order."""
+    return [fn(mesh, *args) for fn, args in checks]
+
+
+def proof_digest(blob: bytes) -> str:
+    return hashlib.blake2s(blob).hexdigest()
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_columns(spec, device):
+    """Columns that are the same on every rank: a numpy (C, N) uint32
+    array as it is, or for (C, log N, seed) draws from the seed on
+    ``device``."""
+    from nexus_zkvm_tpu_torch.utils.device import from_u32
+    if isinstance(spec, np.ndarray):
+        return from_u32(spec, device)
+    C, log_n, seed = spec
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, P31, (C, 1 << log_n), generator=gen,
+                         device=device, dtype=torch.int32)
+
+
+def mesh_commit_rank(mesh, spec, trace_log: int, log_blowup: int,
+                     keep_evals: bool = False) -> dict:
+    """``sharded_commit_columns`` on this rank: one untimed run, then a
+    profiled one with its launch counts (set to 0 just before it) and
+    its steps' ms: the local K1 LDE, the gathers, the K2 leaves and the
+    K2 climb.  ``keep_evals``: the committed evaluations, and those of
+    ``sharded_lde``, come back too."""
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.parallel import sharded_commit_columns
+    from nexus_zkvm_tpu_torch.parallel.commit import sharded_lde
+    from nexus_zkvm_tpu_torch.utils.device import to_u32
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    cols = mesh_columns(spec, mesh.device)
+    sharded_commit_columns(mesh, cols, trace_log, log_blowup)
+    _sync(cols.device)
+    kernels.reset_launches()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        ev, root = sharded_commit_columns(mesh, cols, trace_log, log_blowup)
+        _sync(cols.device)
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    out = {"rank": mesh.rank, "ranks": mesh.size, "backend": mesh.backend,
+           "device": str(cols.device),
+           "shape": [int(cols.shape[0]), 1 << trace_log], "root": root,
+           "ms": ms, "step_ms": {k: v * 1e3 for k, v in prof.times.items()},
+           "launches": {k: launches[k] for k in K1K2}}
+    if keep_evals:
+        out["evals"] = to_u32(ev)
+        out["lde"] = to_u32(sharded_lde(mesh, cols, trace_log,
+                                        trace_log + log_blowup))
+    return out
+
+
+def mesh_collectives_rank(mesh) -> dict:
+    """A sum across the ranks and a hash_rows sharded by rows (each rank
+    hashes its share of 16 messages; the digests are gathered): both
+    must equal the host's, as tests/test_distributed.py checks the JAX
+    package's runtime."""
+    from nexus_zkvm_tpu_torch.ops.blake2s import (hash_rows,
+                                                  np_batch_blake2s_words)
+    from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
+    msgs = np.arange(16 * 8, dtype=np.uint32).reshape(16, 8)
+    w = len(msgs) // mesh.size
+    mine = from_u32(msgs[mesh.rank * w:(mesh.rank + 1) * w], mesh.device)
+    total = int(mesh.all_gather(mine.to(torch.int64).sum().reshape(1)).sum())
+    digests = to_u32(mesh.all_gather(hash_rows(mine)))
+    if total != int(msgs.astype(np.uint64).sum()) or \
+            not np.array_equal(digests, np_batch_blake2s_words(msgs)):
+        raise RuntimeError("mesh collectives disagree with the host")
+    return {"sum": total, "hash_rows_equal": True}
+
+
+def mesh_slice_rank(mesh, k_squares: int, log_n: int, cfg,
+                    device="cuda") -> dict:
+    """chip_smoke's synthetic fixture (``make_components``; one square is
+    tests/test_stark_e2e.py's) proved under the mesh: the proof, the
+    sharded trees the prover noted, and whether it verifies."""
+    import chip_smoke as cs
+    import nexus_zkvm_tpu_torch as T
+    from nexus_zkvm_tpu_torch.parallel import use_mesh
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    comps = cs.make_components(k_squares)
+    with use_mesh(mesh), profiled() as prof:
+        proof = T.prove(comps, [log_n, cs.TABLE_LOG],
+                        cs.make_traces(log_n, k_squares), T.Blake2sChannel(),
+                        cfg, device=device)
+    return {"proof": proof, "sharded": prof.notes["sharded"],
+            "verified": T.verify(comps, proof, T.Blake2sChannel(), cfg,
+                                 device=device)}
+
+
+def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
+                      config=None, warm: bool = True) -> dict:
+    """The guest of assembly ``src`` on ``public`` through LocalProver
+    under the mesh: a cold proof (``warm``), then a profiled one with
+    its launch counts (set to 0 just before it) and peak device memory;
+    verify; the proof digests of every rank, gathered, must agree."""
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.parallel import use_mesh
+    from nexus_zkvm_tpu_torch.sdk import Guest, LocalProver, proof_to_bytes
+    from nexus_zkvm_tpu_torch.utils.device import to_u32
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    cuda = torch.device(device).type == "cuda"
+    prover = LocalProver(Guest.from_asm(src), config, device=device)
+    cold_s = None
+    with use_mesh(mesh):
+        if warm:
+            t0 = time.perf_counter()
+            prover.prove_with_input(public_input=public)
+            _sync(device)
+            cold_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            view, proof = prover.prove_with_input(public_input=public)
+            _sync(device)
+            prove_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    t0 = time.perf_counter()
+    ok = prover.verify(view, proof)
+    verify_s = time.perf_counter() - t0
+    blob = proof_to_bytes(proof)
+    digest = proof_digest(blob)
+    words = torch.from_numpy(np.frombuffer(bytes.fromhex(digest), np.int32)
+                             .copy()).to(mesh.device)
+    every = {bytes(to_u32(d)).hex()
+             for d in mesh.all_gather(words[None]).unbind(0)}
+    return {"rank": mesh.rank, "ranks": mesh.size, "backend": mesh.backend,
+            "cpu_log_rows": proof.stark.log_sizes[0],
+            "proof_blake2s": digest, "proof_bytes": len(blob),
+            "ranks_agree": every == {digest}, "verified": ok, "warm": warm,
+            "prove_s": prove_s, "prove_cold_s": cold_s, "verify_s": verify_s,
+            "peak_bytes": peak, "sharded": prof.notes["sharded"],
+            "streamed": prof.notes["streamed"], "phase_s": prof.times,
+            "launches": launches}
