@@ -71,7 +71,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              `phase_parallel`).
 9. kernels — one JSON line with every kernel's numbers: launches from
              the path it belongs to (phase 5, or phase 6 for the memory
-             mode's three), times at that path's shapes.
+             mode's three; K1 counts one launch a transform), times at
+             that path's shapes; ``circle_fft`` adds ``extend``, the
+             composition's zero-extending LDE (see
+             `check_prover_kernels`).
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device
 the script exits with code 2 and prints no result.
@@ -352,7 +355,7 @@ def check_kernels(full: bool = True) -> dict:
     def rand(shape, hi=P):
         return from_u32(rng.integers(0, hi, shape, dtype=np.uint32), dev)
 
-    # K1 --------------------------------------------------------------------
+    # K1 (and the LDE's zero-extension by 1 and 2) ----------------------------
     for n in (4, 10, 21) if full else (4, 10):
         for C in (1, 192):
             x = rand((C, 1 << n))
@@ -360,6 +363,11 @@ def check_kernels(full: bool = True) -> dict:
                   lambda: cfft.interpolate_plain(x), 0, 0, False)
             check("circle_fft", [C, 1 << n], lambda: cfft.evaluate(x),
                   lambda: cfft.evaluate_plain(x), 0, 0, False)
+            for b in (1, 2):
+                check("circle_fft", [C, 1 << n, 1 << (n + b)],
+                      lambda: cfft.evaluate(x, n + b),
+                      lambda: cfft.evaluate_plain(
+                          cfft.extend_coeffs(x, n + b)), 0, 0, False)
             del x
     # K2 --------------------------------------------------------------------
     for W in (1, 4, 16, 192):
@@ -703,6 +711,24 @@ def check_prover_kernels(comps, log_sizes) -> dict:
     keep(check("circle_fft", [C, E], lambda: cfft.evaluate(x),
                lambda: cfft.evaluate_plain(x), 2 * 4 * C * E + 4 * E,
                butterflies(C, n + 2) * (2 * ADD + MUL), True))
+    del x
+    # K1 extending: the composition's LDE of every column of the largest
+    # component (main, preprocessed, interaction) from 2^n to the 4x
+    # domain, zero-extended in the kernel's first pass.  Bytes: the
+    # compact input read once, the output written once, the twiddles
+    # once; operations: the n stages whose odd halves are not zero.  The
+    # plain version runs 64 columns at a time (its int64 stages of the
+    # whole matrix would not fit beside it).
+    big = infos[log_sizes.index(n)]
+    Cc = big.n_main + big.n_pre + 4 * big.n_logup_cols
+    x = rand((Cc, N))
+    rec = check("circle_fft", [Cc, N, E], lambda: cfft.evaluate(x, n + 2),
+                lambda: torch.cat([cfft.evaluate_plain(cfft.extend_coeffs(
+                    x[i:i + 64], n + 2)) for i in range(0, Cc, 64)]),
+                4 * Cc * (N + E) + 4 * E,
+                Cc * n * (E // 2) * (2 * ADD + MUL), True, reps=5,
+                plain_reps=1)
+    out["circle_fft_extend"] = rec
     del x
     # K2: the interaction commitment's leaves; the composition tree's
     # first parent layer
@@ -1490,7 +1516,11 @@ def main() -> int:
         "plain_ms": timed[name]["plain_ms"],
         "bound_ms": timed[name]["bound_ms"],
         "bound_by": timed[name]["bound_by"], "library_ms": None,
-        "shape": timed[name]["shape"]} for name in KERNELS]})
+        "shape": timed[name]["shape"],
+        **({"extend": {k: timed["circle_fft_extend"][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")}} if name == "circle_fft" else {})}
+        for name in KERNELS]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

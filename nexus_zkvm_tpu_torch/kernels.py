@@ -43,8 +43,9 @@ _U = ctypes.c_uint32
 # kernel name -> (source, C entry point, argtypes).  Every entry point
 # ends with the stream argument.
 KERNELS = {
-    "circle_ifft": ("cfft", "nzt_ifft_stage", [_P, _P, _P, _L, _I, _I, _U]),
-    "circle_fft": ("cfft", "nzt_fft_stage", [_P, _P, _P, _L, _I, _I]),
+    "circle_ifft": ("cfft", "nzt_circle_ifft",
+                    [_P, _P, _P, _L, _I, _U, _I, _P]),
+    "circle_fft": ("cfft", "nzt_circle_fft", [_P, _P, _P, _L, _I, _I, _I, _P]),
     "blake2s_messages": ("blake2s", "nzt_blake2s_messages",
                          [_P, _P, _L, _I, _L, _L]),
     "blake2s_parents": ("blake2s", "nzt_blake2s_parents", [_P, _P, _L]),

@@ -12,11 +12,16 @@ after.  The butterflies are in place: f0 replaces a, f1 replaces b.
 Evaluation stage j computes a = f0 + t·f1, b = f0 - t·f1, from j = n
 down to 1.
 
-On a CUDA tensor each stage is one launch of ``csrc/cfft.cu``; on a CPU
-tensor the plain PyTorch version below runs the same stages.
+On a CUDA tensor a whole transform is one launch of ``csrc/cfft.cu``,
+which runs the stages in a few passes over shared-memory tiles
+(:func:`_pass_plan`) and fuses an LDE's zero-extension into its first
+pass; on a CPU tensor the plain PyTorch version below runs the same
+stages.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -92,30 +97,64 @@ def evaluate_plain(coeffs: torch.Tensor) -> torch.Tensor:
 # CUDA kernel K1
 # ---------------------------------------------------------------------------
 
-def _stages_cuda(x: torch.Tensor, inverse: bool, out=None) -> torch.Tensor:
+TILE_LOG = 14      # a tile holds 2^14 words: 66 KB of shared memory, padded
+LOG_W = 4          # a large-half tile reads runs of at least 2^4 words
+_LOG_W_MAX = 5     # and of at most 2^5 (128 bytes)
+
+
+def _pass_plan(k: int, n: int, inverse: bool, T: int = TILE_LOG,
+               logw: int = LOG_W) -> list:
+    """The passes of csrc/cfft.cu for a transform of 2^k inputs on 2^n
+    points (k < n: a forward LDE from 2^k coefficients), in the order they
+    run, as (lo, hi, wb, s0): the pass runs the stages of position bits
+    [s0, hi) on tiles of 2^(wb + hi - lo) <= 2^T words, every position
+    whose bits [0, wb) and [lo, hi) vary.  The small-half pass (lo = 0)
+    takes up to T bits; the rest are split evenly into large-half passes
+    of at most T - logw stages, whose runs of 2^wb contiguous words are
+    as long as the tile allows, up to 2^5.  So n <= T takes one pass and
+    n <= 2T - logw two.  The first log_n - log_k forward stages act on
+    zero odd halves and are not run: the first pass reads the compact
+    input."""
+    assert 1 <= k <= n <= 30 and not (inverse and k < n), (k, n, inverse)
+    assert 0 <= logw < T, (T, logw)
+    e = n - k
+    h = min(n, T)
+    passes = [(0, h, 0, e)] if h > e else []
+    lo = h if h > e else e
+    rest = n - lo
+    m = -(-rest // (T - logw))
+    for i in range(m):
+        st = rest // m + (i < rest % m)
+        passes.append((lo, lo + st, min(lo, T - st, _LOG_W_MAX), lo))
+        lo += st
+    return passes[::-1] if inverse else passes
+
+
+def _transform_cuda(x: torch.Tensor, n: int, inverse: bool,
+                    out=None) -> torch.Tensor:
+    """One K1 launch: the inverse FFT of x (..., 2^n), or the forward FFT
+    of x (..., 2^k) on 2^n points; ``out`` may be ``x`` itself."""
     kernels.check_cuda_tensor(x, "cfft input")
-    n = _log2(x.shape[-1])
-    rows = x.numel() >> n
+    k = _log2(x.shape[-1])
+    rows = x.numel() >> k
+    shape = x.shape[:-1] + (1 << n,)
     if out is None:
-        out = torch.empty_like(x)
+        out = torch.empty(shape, dtype=torch.int32, device=x.device)
     kernels.check_cuda_tensor(out, "cfft output")
-    if out.shape != x.shape:
+    if out.shape != shape:
         raise ValueError(f"output {tuple(out.shape)} for input "
-                         f"{tuple(x.shape)}")
+                         f"{tuple(x.shape)} on 2^{n} points")
+    plan = _pass_plan(k, n, inverse)
+    flat = (ctypes.c_int * (4 * len(plan)))(*[v for p in plan for v in p])
     tw = twiddle_table(n, inverse, x.device)
-    src = x
-    order = range(1, n + 1) if inverse else range(n, 0, -1)
-    inv_n = pow(1 << n, P - 2, P)
-    for j in order:
-        twp = tw.data_ptr() + 4 * _stage_off(n, j)
-        if inverse:
-            kernels.launch("circle_ifft", src.data_ptr(), out.data_ptr(),
-                           twp, rows, n, j, inv_n if j == n else 1,
-                           device=x.device)
-        else:
-            kernels.launch("circle_fft", src.data_ptr(), out.data_ptr(),
-                           twp, rows, n, j, device=x.device)
-        src = out
+    if inverse:
+        kernels.launch("circle_ifft", x.data_ptr(), out.data_ptr(),
+                       tw.data_ptr(), rows, n, pow(1 << n, P - 2, P),
+                       len(plan), flat, device=x.device)
+    else:
+        kernels.launch("circle_fft", x.data_ptr(), out.data_ptr(),
+                       tw.data_ptr(), rows, k, n, len(plan), flat,
+                       device=x.device)
     return out
 
 
@@ -125,10 +164,10 @@ def _stages_cuda(x: torch.Tensor, inverse: bool, out=None) -> torch.Tensor:
 
 def interpolate(evals: torch.Tensor, out=None) -> torch.Tensor:
     """(..., N) int32 evals (layout order) -> bit-reversed coefficients,
-    into ``out`` (contiguous, the same shape) when given: the first stage
-    reads ``evals``, every later one runs in place in ``out``."""
+    into ``out`` (contiguous, the same shape; ``evals`` itself is allowed)
+    when given."""
     if evals.is_cuda:
-        return _stages_cuda(evals, inverse=True, out=out)
+        return _transform_cuda(evals, _log2(evals.shape[-1]), True, out)
     if evals.device.type == "cpu":
         cf = interpolate_plain(evals)
         return cf if out is None else out.copy_(cf)
@@ -150,14 +189,14 @@ def extend_coeffs(coeffs: torch.Tensor, log_size: int) -> torch.Tensor:
 def evaluate(coeffs: torch.Tensor, log_size: int | None = None
              ) -> torch.Tensor:
     """Bit-reversed coefficients -> evals on domain(log_size), layout
-    order, zero-extending first when log_size exceeds the input basis."""
+    order, zero-extending first when log_size exceeds the input basis (on
+    the card, inside the kernel's first pass)."""
     k = _log2(coeffs.shape[-1])
-    if log_size is not None and log_size > k:
-        coeffs = extend_coeffs(coeffs, log_size)
+    n = k if log_size is None else max(k, log_size)
     if coeffs.is_cuda:
-        return _stages_cuda(coeffs.contiguous(), inverse=False)
+        return _transform_cuda(coeffs.contiguous(), n, False)
     if coeffs.device.type == "cpu":
-        return evaluate_plain(coeffs)
+        return evaluate_plain(extend_coeffs(coeffs, n))
     raise ValueError(f"unsupported device {coeffs.device}")
 
 

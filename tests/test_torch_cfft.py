@@ -50,3 +50,92 @@ def test_twiddle_table_layout():
         off = TC._stage_off(5, j)
         assert np.array_equal(tw[off: off + (32 >> j)],
                               d.inv_x_twiddle_stages[j - 2])
+
+
+@pytest.mark.parametrize("k,b", [(k, b) for k in (3, 8, 11)
+                                 for b in (1, 2, 3)])
+def test_evaluate_extending(k, b):
+    """The LDE's evaluate(x, k + b), which the card's kernel computes from
+    the compact coefficients, against the JAX package's."""
+    x = rows(k, 100 * k + b)
+    got = to_u32(TC.evaluate(from_u32(x, "cpu"), k + b))
+    assert np.array_equal(got, np.asarray(RC.evaluate(x, k + b)))
+
+
+# -- the pass plan of csrc/cfft.cu --------------------------------------------
+
+def emulate_plan(x, k, n, inverse, T, logw):
+    """csrc/cfft.cu's passes for `_pass_plan(k, n, inverse, T, logw)`, tile
+    by tile with the kernel's index math (tile base, positions, twiddle
+    index, compact read, 1/N on the last store), in numpy int64."""
+    tw = to_u32(TC.twiddle_table(n, inverse, "cpu")).astype(np.int64)
+    out = np.zeros((x.shape[0], 1 << n), np.int64)
+    plan = TC._pass_plan(k, n, inverse, T, logw)
+    for i, (lo, hi, wb, s0) in enumerate(plan):
+        src, log_src = (x.astype(np.int64), k) if i == 0 else (out, n)
+        S = wb + hi - lo
+        assert S <= T and lo <= s0 < hi and wb <= lo
+        q = np.arange(1 << S)
+        tile = np.arange(1 << (lo - wb + n - hi))
+        nhigh = n - hi
+        base = ((tile & ((1 << nhigh) - 1)) << hi) | ((tile >> nhigh) << wb)
+        lowbase = base & ((1 << lo) - 1)
+        wmask = (1 << wb) - 1
+        pos = base[:, None] | (q & wmask) | ((q >> wb) << lo)
+        # the tiles partition the row: a pass may run in place
+        assert np.array_equal(np.sort(pos.ravel()), np.arange(1 << n))
+        v = src[:, pos >> (n - log_src)]
+        lbs = range(wb + s0 - lo, S)
+        for lb in (reversed(lbs) if inverse else lbs):
+            b = lo + lb - wb
+            qa = q[(q >> lb) & 1 == 0]
+            qc = qa | (1 << lb)
+            prel = lowbase[:, None] | (qa & wmask) | ((qa >> wb) << lo)
+            t = tw[(1 << n) - (2 << b) + (prel & ((1 << b) - 1))]
+            a, c = v[:, :, qa], v[:, :, qc]
+            if inverse:
+                v[:, :, qa], v[:, :, qc] = (a + c) % P, (a - c) * t % P
+            else:
+                tc = t * c % P
+                v[:, :, qa], v[:, :, qc] = (a + tc) % P, (a - tc) % P
+        if inverse and i == len(plan) - 1:
+            v = v * pow(1 << n, P - 2, P) % P
+        out[:, pos] = v
+    stages = sorted(b for _lo, hi, _wb, s0 in plan for b in range(s0, hi))
+    assert stages == list(range(n - k, n))
+    return out.astype(np.uint32)
+
+
+@pytest.mark.parametrize("T,logw", [(3, 0), (3, 1), (4, 2)])
+@pytest.mark.parametrize("n", range(1, 13))
+def test_pass_plan_emulated(T, logw, n):
+    """Every pass plan at a small T (1 to 6 passes for n = 1..12), run
+    through the emulation, equals the plain transforms: the inverse, the
+    forward, and the forward LDE from 2^(n - e) coefficients."""
+    x = rows(n, 7 * n + T)
+    xt = from_u32(x, "cpu")
+    got = emulate_plan(x, n, n, True, T, logw)
+    assert np.array_equal(got, to_u32(TC.interpolate_plain(xt)))
+    got = emulate_plan(x, n, n, False, T, logw)
+    assert np.array_equal(got, to_u32(TC.evaluate_plain(xt)))
+    for e in (1, 2, 3):
+        if n - e >= 1:
+            c = x[:, : 1 << (n - e)]
+            got = emulate_plan(c, n - e, n, False, T, logw)
+            want = TC.evaluate_plain(TC.extend_coeffs(from_u32(c, "cpu"), n))
+            assert np.array_equal(got, to_u32(want))
+
+
+@pytest.mark.parametrize("n", range(1, 31))
+def test_pass_plan_on_the_card(n):
+    """The card's plan: one pass up to TILE_LOG, two up to 2 TILE_LOG -
+    LOG_W (24: the main path's largest domain), tiles of at most
+    TILE_LOG words, large-half runs of at least 2^LOG_W words."""
+    T, W = TC.TILE_LOG, TC.LOG_W
+    for k, inverse in [(n, True), (n, False)] + [(n - e, False)
+                                                 for e in (1, 2) if n > e]:
+        plan = TC._pass_plan(k, n, inverse)
+        assert len(plan) == (1 if n <= T else 2 if n <= 2 * T - W else 3)
+        for lo, hi, wb, s0 in plan:
+            assert wb + hi - lo <= T
+            assert lo == 0 or wb >= min(W, lo)

@@ -33,11 +33,34 @@ def rand(dev, shape, hi=P, seed=0):
     return from_u32(rng.integers(0, hi, shape, dtype=np.uint32), dev)
 
 
-@pytest.mark.parametrize("n", [1, 2, 5, 11])
-def test_cfft(dev, n):
-    x = rand(dev, (3, 1 << n), seed=n)
+# K1's pass boundaries: one pass up to T, two up to 2T - LOG_W (the main
+# path's 2^24), three past it
+_T, _TWO = cfft.TILE_LOG, 2 * cfft.TILE_LOG - cfft.LOG_W
+
+
+@pytest.mark.parametrize("rows", [3, 5])
+@pytest.mark.parametrize("n", sorted({1, 2, 5, 11, _T, _T + 1, 22, _TWO,
+                                      _TWO + 1}))
+def test_cfft(dev, n, rows):
+    x = rand(dev, (rows, 1 << n), seed=n + rows)
     assert torch.equal(cfft.interpolate(x), cfft.interpolate_plain(x))
     assert torch.equal(cfft.evaluate(x), cfft.evaluate_plain(x))
+
+
+@pytest.mark.parametrize("n", [1, 5, _T + 1, 22])
+def test_cfft_in_place(dev, n):
+    x = rand(dev, (3, 1 << n), seed=n)
+    want = cfft.interpolate_plain(x)
+    assert cfft.interpolate(x, out=x).data_ptr() == x.data_ptr()
+    assert torch.equal(x, want)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_cfft_extend(dev, b):
+    """The LDE's zero-extension fused into the first forward pass."""
+    x = rand(dev, (5, 1 << 20), seed=b)
+    assert torch.equal(cfft.evaluate(x, 20 + b),
+                       cfft.evaluate_plain(cfft.extend_coeffs(x, 20 + b)))
 
 
 @pytest.mark.parametrize("W", [1, 4, 16, 17, 192])
