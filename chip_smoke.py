@@ -5,14 +5,18 @@
     python3 chip_smoke.py --time-machine [CHECKOUT]
 
 The second form only times warm fib 2^20 machine proofs (phase 5's
-path) with the package of another checkout (this one by default), so
-that two checkouts can be compared on one card: run it for each in turn.
+path) and kernel K7 at that proof's shapes (`time_k7`) with the package
+of another checkout (this one by default), so that two checkouts can be
+compared on one card: run it for each in turn.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. build   — compile every CUDA source of ``nexus_zkvm_tpu_torch/csrc``
-             (kernels K1-K12) with nvcc for sm_90a; print the card's
-             name and power limit.
+             (kernels K1-K6, K8-K12) with nvcc for sm_90a; print the
+             card's name and power limit.  Then K7, generated from each
+             constraint tape: the pieces of both tapes of every
+             component of the fib proof, built in one batch (`build_k7`:
+             seconds, and each piece's registers and spill bytes).
 2. kernel  — every kernel against its plain PyTorch version on the same
              CUDA tensors (uint32 equality), first at the shapes of the
              synthetic slice (phase 4), then, timed, at the shapes the
@@ -45,7 +49,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              composition pass): every kernel but the memory mode's three
              must have been launched, and those three not.  Then the fib guest at n = 10
              proved on the CPU and on the card: the proof bytes must be
-             equal.
+             equal.  Then the keccak guest (``KECCAK_SRC``, one keccak-f
+             permutation) the same way (`phase_keccak_parity`): its
+             keccak component's real rows through K7's pieces.
 6. machine_stream — the large-trace memory mode, chosen by size with
              the defaults: the fib guest at n = 838,858 (a CPU component
              of 2^22 rows) through ``LocalProver``, a cold and a warm,
@@ -98,6 +104,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -166,6 +173,20 @@ MIXED_SRC = """
     next:
         lw   t1, 0x84(zero)
         sw   t0, 0(t1)
+""" + EXIT_ASM
+
+# one keccak-f permutation (the custom instruction) of a heap block: the
+# keccak component's real rows through its generated K7 pieces
+KECCAK_SRC = """
+        addi a7, zero, 0x403
+        ecall
+        mv   t1, a0
+        li   t2, 0x12345678
+        sw   t2, 4(t1)
+        keccakf x0, t1, x0
+        lw   t3, 8(t1)
+        lw   t4, 0x84(zero)
+        sw   t3, 0(t4)
 """ + EXIT_ASM
 
 # a different claim: a proof of fib must not verify against it
@@ -276,9 +297,9 @@ REPLACES = {
     "fri_fold": ("fri.cu", "nexus_zkvm_tpu/ops/fri.py:209"),
     "cpu_fill": ("fill.cu", "nexus_zkvm_tpu/machine/fill_dev.py:143"),
     "logup_columns": ("logup.cu", "nexus_zkvm_tpu/air/component.py:346"),
-    "air_eval_composition": ("air_eval.cu",
+    "air_eval_composition": ("air_eval_gen.cuh",
                              "nexus_zkvm_tpu/air/component.py:601"),
-    "air_eval_operands": ("air_eval.cu",
+    "air_eval_operands": ("air_eval_gen.cuh",
                           "nexus_zkvm_tpu/air/component.py:346"),
     "oods_dot": ("oods.cu", "nexus_zkvm_tpu/prover/stark.py:197"),
     "gather_openings": ("gather.cu", "nexus_zkvm_tpu/ops/merkle.py:440"),
@@ -571,7 +592,8 @@ def check_recorded(calls, timed_run: bool) -> dict:
     the CPU component's composition and operands (K7) and LogUp columns
     (K6), the largest OODS group (K8), the whole opening gather (K9)."""
     import torch
-    from nexus_zkvm_tpu_torch.air import component as cmp, tape as tp
+    from nexus_zkvm_tpu_torch.air import component as cmp, tape as tp, \
+        tape_cuda
     from nexus_zkvm_tpu_torch.ops import merkle
     from nexus_zkvm_tpu_torch.prover import stark
     out = {}
@@ -654,9 +676,11 @@ def check_recorded(calls, timed_run: bool) -> dict:
           "operand_tapes": len(ops), "oods_groups": len(groups),
           "opening_pieces": len(pieces), "opening_words": words,
           "gather_tables_host_ms": tables_ms,
-          "tapes": [{"component_rows": c[4], "instructions": len(c[0].program),
+          "tapes": [{"component": c[0].name, "component_rows": c[4],
+                     "instructions": len(c[0].program),
                      "slots": c[0].n_slots, "loads": len(c[0].loads),
-                     "uniforms": len(c[2])} for c in comps]})
+                     "uniforms": len(c[2]),
+                     "pieces": len(tape_cuda.pieces(c[0]))} for c in comps]})
     return out
 
 
@@ -1199,22 +1223,48 @@ def check_stream_kernels(comps, log_sizes) -> dict:
 def phase_machine_parity(n: int = FIB_PARITY_N):
     """The fib guest at a small n proved on the CPU (plain path) and on
     the card: the serialized proofs must be byte-equal."""
-    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
-                                          proof_to_bytes)
+    from nexus_zkvm_tpu_torch.sdk import encode_u32s
+    emit({"phase": "machine_parity", "n": n,
+          **_cpu_card_parity(fib_guest(), encode_u32s(n))})
+
+
+def phase_keccak_parity():
+    """The keccak guest (KECCAK_SRC: one keccak-f permutation of a heap
+    block) proved on the CPU (plain path) and on the card, so that its
+    keccak component's real rows run through K7's generated pieces: the
+    proof bytes must be equal, and the card's proof must have launched
+    both K7 entries."""
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.sdk import Guest
+    before = kernels.launch_counts()
+    rec = _cpu_card_parity(Guest.from_asm(KECCAK_SRC), b"")
+    ran = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    if not ran["air_eval_composition"] or not ran["air_eval_operands"]:
+        raise RuntimeError(f"the keccak proof skipped K7: {ran}")
+    emit({"phase": "keccak_parity", "guest": "KECCAK_SRC", **rec,
+          "k7_launches": {k: ran[k] for k in ("air_eval_composition",
+                                              "air_eval_operands")}})
+
+
+def _cpu_card_parity(guest, public: bytes) -> dict:
+    """Prove ``guest`` on ``public`` on the CPU and on the card; raise
+    unless the serialized proofs are byte-equal and verify."""
+    from nexus_zkvm_tpu_torch.sdk import LocalProver, proof_to_bytes
     out, secs = {}, {}
     for device in ("cpu", "cuda"):
-        prover = LocalProver(fib_guest(), device=device)
+        prover = LocalProver(guest, device=device)
         t0 = time.perf_counter()
-        view, proof = prover.prove_with_input(public_input=encode_u32s(n))
+        view, proof = prover.prove_with_input(public_input=public)
         secs[device] = time.perf_counter() - t0
         out[device] = proof_to_bytes(proof)
     if out["cpu"] != out["cuda"]:
         raise RuntimeError("CPU and CUDA machine proofs differ")
     if not prover.verify(view, proof):
-        raise RuntimeError("the small machine proof does not verify")
-    emit({"phase": "machine_parity", "n": n, "equal_bytes": True,
-          "proof_bytes": len(out["cuda"]), "cpu_prove_s": secs["cpu"],
-          "cuda_prove_s": secs["cuda"]})
+        raise RuntimeError("the machine proof does not verify")
+    return {"equal_bytes": True, "log_sizes": proof.stark.log_sizes,
+            "proof_bytes": len(out["cuda"]),
+            "proof_blake2s": proof_digest(out["cuda"]),
+            "cpu_prove_s": secs["cpu"], "cuda_prove_s": secs["cuda"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1343,7 +1393,7 @@ def phase_parallel(fib_digest: str) -> None:
     import gc
     import torch
     import nexus_zkvm_tpu_torch as T
-    from nexus_zkvm_tpu_torch.kernels import KERNELS
+    from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.prover import pcs
     from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
                                           proof_to_bytes)
@@ -1373,7 +1423,7 @@ def phase_parallel(fib_digest: str) -> None:
     torch.cuda.empty_cache()
     cbound = commit_bound(C, log_n, MESH_RANKS, host_copy_gbps(device))
     torch.cuda.empty_cache()
-    expected = set(KERNELS) - set(MEMORY_MODE)
+    expected = set(kernels.launch_counts()) - set(MEMORY_MODE)
 
     src = (ROOT / "examples" / "guests" / "fib.s").read_text()
     t0 = time.perf_counter()
@@ -1420,6 +1470,99 @@ def phase_parallel(fib_digest: str) -> None:
     if cards < 2:
         emit({"phase": "parallel", "path": "parallel/nccl", "ran": False,
               "reason": f"{cards} card: NCCL needs a card for each rank"})
+
+
+def fib_tapes():
+    """The fib guest's machine components (n = FIB_PARITY_N: the
+    components, their tapes and so K7's sources are the same at every
+    trace size) and relations drawn from a fresh channel."""
+    import nexus_zkvm_tpu_torch as T
+    from nexus_zkvm_tpu_torch.air.component import component_info
+    from nexus_zkvm_tpu_torch.air.lookups import draw_relations
+    from nexus_zkvm_tpu_torch.machine.driver import build_components
+    from nexus_zkvm_tpu_torch.prover.stark import _relation_widths
+    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
+    view, _t = LocalProver(fib_guest(), device="cpu").trace(
+        public_input=encode_u32s(FIB_PARITY_N))
+    comps = build_components(view, 1)[0]
+    return comps, draw_relations(T.Blake2sChannel(), _relation_widths(
+        [component_info(c) for c in comps]))
+
+
+def build_k7() -> None:
+    """K7's generated pieces for both tapes of every component of the fib
+    proof, built in one batch (one nvcc a piece, as many at once as the
+    machine has CPUs, the longest first):
+    the seconds, the slowest piece, the CPU seconds of every nvcc, and
+    each piece's row operations, table words, nvcc wall and CPU seconds,
+    registers and spill bytes (ptxas)."""
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.air import tape as tp, tape_cuda
+    comps, rel = fib_tapes()
+    t0 = time.perf_counter()
+    rec = tp.build_kernels(comps, [PARITY_LOG] * len(comps), rel)
+    secs = time.perf_counter() - t0
+    pieces = []
+    for c in comps:
+        for kind, fn in (("domain", tp.domain_tape), ("gen", tp.gen_tape)):
+            tape = fn(c, PARITY_LOG, rel)
+            for i, p in enumerate(tape_cuda.pieces(tape) if tape else []):
+                lib = p.lib
+                pieces.append({"tape": f"{c.name}/{kind}", "piece": i,
+                               "ops": p.n_ops, "live": p.live,
+                               "table_words": len(p.table),
+                               "nvcc": rec["pieces"].get(lib.name),
+                               **kernels.ptxas_summary(lib)})
+    emit({"phase": "k7_build", "seconds": secs, "built": rec["built"],
+          "slowest_piece_s": rec["slowest_s"], "nvcc_cpu_s": rec["cpu_s"],
+          "cpu_count": os.cpu_count(), "pieces": pieces})
+
+
+def time_k7(reps: int = 5) -> None:
+    """K7 with the package on the path, on random rows at the fib 2^20
+    proof's shapes: the CPU component's composition over its 2^22-row 4x
+    domain (the one window [0, N)) and its LogUp operands over 2^20 rows,
+    ms each by CUDA events.  It calls the tape module's public functions
+    only, so two checkouts' K7 compare in one call."""
+    import torch
+    from nexus_zkvm_tpu_torch.air import tape as tp
+    from nexus_zkvm_tpu_torch.air.component import (component_info,
+                                                    domain_halo)
+    from nexus_zkvm_tpu_torch.utils.device import from_u32
+    comps, rel = fib_tapes()
+    cpu = comps[0]
+    info = component_info(cpu)
+    rng = np.random.default_rng(2030)
+
+    def rand(shape):
+        return from_u32(rng.integers(0, P31, shape, dtype=np.uint32),
+                        "cuda") if shape[0] else None
+
+    def felt():
+        return rng.integers(0, P31, 4).astype(np.uint64)
+    dom = tp.domain_tape(cpu, FULL_LOG, rel)
+    hneg, hpos = domain_halo(info)
+    N = 1 << (FULL_LOG + 2)
+    W = N + hneg + hpos
+    mats = {tp.MAIN: rand((info.n_main, W)), tp.PRE: rand((info.n_pre, W)),
+            tp.INTER: rand((4 * info.n_logup_cols, W)), tp.ISF: rand((1, W))}
+    uni, alpha, shift = dom.uniforms(rel, felt()), felt(), felt()
+    invv, bucket = rand((N,)), rand((N, 4))
+    comp_ms = cuda_ms(lambda: tp.air_eval_composition(
+        dom, mats, uni, 0, N, hneg, alpha, shift, invv, bucket), reps)
+    del mats, invv, bucket
+    gen = tp.gen_tape(cpu, FULL_LOG, rel)
+    M = 1 << FULL_LOG
+    gmats = {tp.MAIN: rand((info.n_main, M)), tp.PRE: rand((info.n_pre, M)),
+             tp.ISF: rand((1, M))}
+    guni = gen.uniforms(rel, None)
+    ops_ms = cuda_ms(lambda: tp.air_eval_operands(gen, gmats, guni, M), reps)
+    del gmats
+    torch.cuda.empty_cache()
+    emit({"phase": "time_k7", "package": str(Path(tp.__file__).resolve()
+                                             .parents[1]),
+          "composition_ms": comp_ms, "composition_rows": N,
+          "operands_ms": ops_ms, "operand_rows": M})
 
 
 def time_machine(runs: int = 3) -> None:
@@ -1478,16 +1621,18 @@ def main() -> int:
     print(card, flush=True)
     if timing:
         time_machine()
+        time_k7()
         return 0
     t0 = time.perf_counter()
     kernels.build()
     ptxas = {}
-    for f in sorted(kernels.BUILD_DIR.glob("*.ptxas.txt")):
-        ptxas[f.name.split("-")[0]] = [ln.strip() for ln in
-                                       f.read_text().splitlines()
-                                       if "registers" in ln or "spill" in ln]
+    for src in sorted({s for s, _f, _a in kernels.KERNELS.values()}):
+        f = kernels._lib_path(src).with_suffix(".ptxas.txt")
+        ptxas[src] = [ln.strip() for ln in f.read_text().splitlines()
+                      if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "gpu": card, "ptxas": ptxas})
+    build_k7()
 
     timed = check_kernels(full=True)
     comps = make_components()
@@ -1495,14 +1640,15 @@ def main() -> int:
     phase_slice(comps)
     launches, fib_digest = phase_machine()
     phase_machine_parity()
+    phase_keccak_parity()
     stream_launches, stream_comps, stream_logs = phase_machine_stream()
     phase_stream_parity()
     timed.update(check_stream_kernels(stream_comps, stream_logs))
     del stream_comps
     phase_parallel(fib_digest)
 
-    from nexus_zkvm_tpu_torch.kernels import KERNELS
-    unused = [k for k in KERNELS if not launches[k] and not stream_launches[k]]
+    names = list(kernels.launch_counts())
+    unused = [k for k in names if not launches[k] and not stream_launches[k]]
     if unused:
         raise RuntimeError(f"kernels launched on no path: {unused}")
     emit({"kernels": [{
@@ -1520,7 +1666,7 @@ def main() -> int:
         **({"extend": {k: timed["circle_fft_extend"][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by")}} if name == "circle_fft" else {})}
-        for name in KERNELS]})
+        for name in names]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

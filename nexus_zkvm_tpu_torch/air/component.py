@@ -8,7 +8,8 @@ contexts:
 * ``TapeGenContext`` / ``TapeDomainContext`` (``air/tape.py``) — record
   evaluate() once as an M31 program (a tape) for the interaction
   operands and the composition over the 4x domain; kernel K7
-  (``csrc/air_eval.cu``) runs it over every row, or its plain
+  (generated from each tape, ``air/tape_cuda.py``) runs it over every
+  row, or its plain
   interpreter on the CPU.  ``air/tape.py`` builds on this module (the
   contexts' base, the LogUp constraints and pairing, the load roles and
   K6's operand modes); this module does not import it.

@@ -14,7 +14,8 @@ width (keccak's 1,600-wide vectors included):
   that is not an ``ID`` array is a constant (keccak wraps a numpy 0/1
   mask as a ``Felt``).
 * A node that reads no row is row-independent: the relations' z and
-  alpha powers and the claimed sum enter as inputs, and everything
+  alpha powers, the claimed sum and the component's integer params enter
+  as inputs, and everything
   derived from them and from constants is evaluated once per launch on
   the host into a table of uniforms.  Loads (role, column, offset) and
   constants are deduplicated.
@@ -29,11 +30,13 @@ params), so proofs and challenges reuse it.
 
 A compiled :class:`Tape` carries two schedules of the same DAG:
 
-* the kernel's (K7, ``csrc/air_eval.cu``): one instruction stream for
-  every row, ordered depth-first from each output so that values die
-  soon after they are made, with slots assigned by liveness; loads and
-  uniforms are operands, not instructions; constraint j's emit adds
-  alpha^(K-1-j) c_j to the accumulator, its weight a table entry;
+* the kernel's (K7): one instruction stream for every row, ordered
+  depth-first from each output so that values die soon after they are
+  made, with slots assigned by liveness; loads and uniforms are
+  operands, not instructions; constraint j's emit adds alpha^(K-1-j) c_j
+  to the accumulator, its weight a table entry.  ``air/tape_cuda.py``
+  writes it out as CUDA C++, one statement an instruction (the kernel is
+  compiled from each tape, in pieces for a large one);
 * the plain interpreter's (:func:`air_eval_plain`): the row-dependent
   nodes grouped by DAG level and opcode, one gather and one op per
   group, over row chunks whose value table fits a memory budget.
@@ -41,11 +44,13 @@ A compiled :class:`Tape` carries two schedules of the same DAG:
 The prover reaches the tapes through :func:`generate_interaction` (the
 operands, then K6's LogUp columns) and :func:`accumulate_composition`,
 whose wrappers launch K7 on CUDA tensors and run the plain interpreter
-on CPU ones.  This module builds on ``air/component.py``, which does not
-import it.
+on CPU ones; :func:`build_kernels` builds a proof's K7 pieces in one
+batch before its first launch.  This module builds on
+``air/component.py``, which does not import it.
 
-Print every machine component's tape length and slot count with
-``python -m nexus_zkvm_tpu_torch.air.tape`` (CPU only).
+Print every machine component's tape length, slots, loads, uniforms and
+K7 pieces with ``python -m nexus_zkvm_tpu_torch.air.tape`` (CPU only),
+and a tape's generated source with ``--source NAME [--kind gen]``.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import tape_cuda
 from ..ops import field as F
 from ..ops.field import np_qm31, np_qm31_mul
 from ..utils.device import dev_const
@@ -73,7 +79,8 @@ __all__ = ["ID", "Tape", "TapeBackend", "TapeDomainContext",
            "air_eval_composition", "air_eval_composition_plain",
            "composition_uniforms", "constraint_weights",
            "air_eval_operands", "air_eval_operands_plain",
-           "generate_interaction", "accumulate_composition", "tape_stats"]
+           "generate_interaction", "accumulate_composition", "build_kernels",
+           "tape_stats"]
 
 P = F.P
 ID = np.dtype([("n", np.int64)])          # a payload of node ids
@@ -81,7 +88,7 @@ ID = np.dtype([("n", np.int64)])          # a payload of node ids
 # node kinds; a leaf keeps its constant value, input index or load index
 # in ``val``, an operation its operands in ``a`` / ``b`` (b = -1 for neg)
 CONST, INPUT, LOAD, ADD, SUB, MUL, NEG = range(7)
-# kernel opcodes (csrc/air_eval.cu)
+# kernel opcodes (the instruction stream air/tape_cuda.py writes out)
 K_ADD, K_SUB, K_MUL, K_NEG, K_EMIT1, K_EMITQ_LO, K_EMITQ_HI, K_STORE = \
     range(8)
 # operand word: kind in bits 30-31, index below
@@ -309,7 +316,8 @@ class TapeBackend:
 
 
 class _TapeCtx(BaseContext):
-    """Reads record loads; relations, claimed sum are inputs."""
+    """Reads record loads; relations, claimed sum and integer params are
+    inputs."""
     STRIDE = 1                     # eval rows per trace row
 
     def __init__(self, relations, params):
@@ -341,6 +349,15 @@ class _TapeCtx(BaseContext):
     @property
     def is_first(self) -> Felt:
         return self._load(ISF, 0, 0)
+
+    def param(self, name: str) -> Felt:
+        """An integer parameter enters the uniform table, not the program
+        as a constant, so a component's tape and K7's source are the same
+        for every value (every guest program's addresses)."""
+        if isinstance(self._params[name], (int, np.integer)):
+            return Felt(_wrap(self.rec.input(("param", name))), "m31",
+                        self.be, deg=0)
+        return super().param(name)
 
 
 class TapeDomainContext(_TapeCtx):
@@ -401,16 +418,24 @@ class Tape:
     stores: np.ndarray         # (S, 3) value index, word base, stride (gen)
     meta: torch.Tensor = None  # (4, B, 2) K6 operand table (gen)
     n_words: int = 0           # words of the packed operand buffer (gen)
+    # (S, 2) a, b with word base a * M + b, M the trace rows (gen): the
+    # same for every log size
+    store_terms: np.ndarray = None
+    name: str = ""             # the component's
+    params: dict = None        # the component's, the "param" inputs' values
     _dev: dict = field(default_factory=dict, repr=False)
 
     def uniforms(self, relations, claimed) -> np.ndarray:
-        """(U,) int64 uniform table for these challenges."""
+        """(U,) int64 uniform table for these challenges (and the params
+        the tape was recorded with)."""
         v = np.zeros(self.u_size, np.int64)
         pos, vals = self.u_const
         v[pos] = vals
         for p, key in zip(self.u_input.tolist(), self.inputs):
             if key[0] == "claimed":
                 v[p] = int(np.asarray(claimed).reshape(-1)[key[1]])
+            elif key[0] == "param":
+                v[p] = int(self.params[key[1]]) % P
             else:
                 r = relations[key[1]]
                 src = r.z if key[0] == "z" else r.alpha_pows
@@ -419,21 +444,6 @@ class Tape:
         for op, lo, hi, a, b in self.u_groups:
             v[lo:hi] = _fold(op, v[a], None if b is None else v[b])
         return v[self.u_table]
-
-    def _on(self, name, arr, device) -> torch.Tensor:
-        key = (name, str(device))
-        if key not in self._dev:
-            self._dev[key] = torch.from_numpy(
-                np.ascontiguousarray(arr)).to(device)
-        return self._dev[key]
-
-    def device_program(self, device) -> torch.Tensor:
-        """The (I, 4) int32 instruction stream on ``device`` (cached)."""
-        return self._on("program", self.program, device)
-
-    def device_stores(self, device) -> torch.Tensor:
-        """(S, 2) int64 word base and row stride of every STORE."""
-        return self._on("stores", self.stores[:, 1:], device)
 
 
 def _reachable(rec: Recorder, roots) -> np.ndarray:
@@ -557,7 +567,8 @@ def _kernel_program(rec: Recorder, seq, rowop, word, outputs,
 
 
 def _compile(rec: Recorder, kind: str, stride: int, outputs,
-             n_constraints: int, emits=None, stores=None, meta=None,
+             n_constraints: int, name: str, params: dict, emits=None,
+             stores=None, store_terms=None, meta=None,
              n_words: int = 0) -> Tape:
     """outputs: [(kernel opcode, constraint or store index, operand node
     ids)] in order."""
@@ -617,7 +628,8 @@ def _compile(rec: Recorder, kind: str, stride: int, outputs,
                else np.zeros((0, 4), np.int64)),
         stores=(np.concatenate([vpos[stores[:, :1]], stores[:, 1:]], axis=1)
                 if stores is not None else np.zeros((0, 3), np.int64)),
-        meta=meta, n_words=n_words)
+        meta=meta, n_words=n_words, store_terms=store_terms, name=name,
+        params=params)
 
 
 def _record_domain(component, relations) -> Tape:
@@ -635,7 +647,8 @@ def _record_domain(component, relations) -> Tape:
         else:
             outputs.append((K_EMITQ_LO, j, tuple(e)))
     return _compile(ctx.rec, "domain", ctx.STRIDE, outputs,
-                    ctx.n_constraints, emits=emits)
+                    ctx.n_constraints, component.name, component.params(),
+                    emits=emits)
 
 
 def _record_gen(component, relations, log_size: int) -> Tape:
@@ -648,7 +661,8 @@ def _record_gen(component, relations, log_size: int) -> Tape:
     rec, be = ctx.rec, ctx.be
     M = 1 << log_size
     pairs = pair_entries(ctx.entries, be)
-    meta, stores, outputs, off = [], [], [], 0
+    meta, stores, terms, outputs, off = [], [], [], [], 0
+    off_m, off_c = 0, 0           # off = off_m * M + off_c
     for k in range(4):
         for pair in pairs:
             f = pair[k // 2][k % 2]
@@ -663,12 +677,18 @@ def _record_gen(component, relations, log_size: int) -> Tape:
             for node, t, step in coords:
                 outputs.append((K_STORE, len(stores), (int(node),)))
                 stores.append((int(node), off + t, step))
+                terms.append((off_m, off_c + t))
             meta.append((off, mode))
             off += words
+            if row:
+                off_m += words // M
+            else:
+                off_c += words
     meta = torch.tensor(meta, dtype=torch.int64).reshape(4, len(pairs), 2)
-    return _compile(rec, "gen", ctx.STRIDE, outputs, 0,
-                    stores=np.asarray(stores, np.int64), meta=meta,
-                    n_words=off)
+    return _compile(rec, "gen", ctx.STRIDE, outputs, 0, component.name,
+                    component.params(), stores=np.asarray(stores, np.int64),
+                    store_terms=np.asarray(terms, np.int64).reshape(-1, 2),
+                    meta=meta, n_words=off)
 
 
 _CACHE: dict = {}
@@ -786,38 +806,34 @@ def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
 
 
 # ---------------------------------------------------------------------------
-# Kernel K7 (csrc/air_eval.cu), its plain versions, and the prover's calls
+# Kernel K7 (generated from each tape: air/tape_cuda.py,
+# csrc/air_eval_gen.cuh), its plain versions, and the prover's calls
 # ---------------------------------------------------------------------------
 
-# K7 keeps a thread's slots in dynamic shared memory; a block's take at
-# most this many bytes (two blocks or more per SM)
-_SMEM_BLOCK_BYTES = 96 * 1024
+def _role_cols(tape) -> np.ndarray:
+    """(4,) the number of columns each role's loads need (0: none)."""
+    got = tape._dev.get("role_cols")
+    if got is None:
+        got = np.zeros(4, np.int64)
+        for role in range(4):
+            cols = tape.loads[tape.loads[:, 0] == role, 1]
+            got[role] = int(cols.max()) + 1 if len(cols) else 0
+        tape._dev["role_cols"] = got
+    return got
 
 
-def _launch_geometry(n_slots: int):
-    """(threads per block, shared bytes) for a tape of ``n_slots``."""
-    for threads in (128, 64, 32):
-        if n_slots * threads * 4 <= _SMEM_BLOCK_BYTES:
-            return threads, n_slots * threads * 4
-    raise ValueError(f"a tape of {n_slots} slots does not fit K7's "
-                     f"{_SMEM_BLOCK_BYTES} shared bytes at 32 threads")
-
-
-def _tape_table(tape, mats, uniforms, N: int) -> torch.Tensor:
-    """The per-launch int64 table of K7: each load's column address
-    (columns of N words) and row shift, then the uniforms (and, for the
-    composition, the constraint weights)."""
-    base, rows = np.zeros(4, np.int64), np.zeros(4, np.int64)
-    for role, m in mats.items():
-        if m is not None:
-            base[role], rows[role] = m.data_ptr(), m.shape[0]
-    role, col = tape.loads[:, 0], tape.loads[:, 1]
-    if (col >= rows[role]).any():
-        raise ValueError("a tape load lies outside its matrix")
-    ptrs = base[role] + 4 * N * col
-    shifts = tape.loads[:, 2] * tape.stride
-    return torch.from_numpy(np.concatenate(
-        [ptrs, shifts, np.asarray(uniforms, np.int64)]))
+def _bases(tape, mats) -> list:
+    """The four role pointers of a K7 launch (an absent role, which no
+    load reads, points at the first matrix)."""
+    need = _role_cols(tape)
+    out = []
+    for role in range(4):
+        m = mats.get(role)
+        rows = 0 if m is None else int(m.shape[0])
+        if need[role] > rows:
+            raise ValueError("a tape load lies outside its matrix")
+        out.append((_first(mats) if m is None else m).data_ptr())
+    return out
 
 
 def _check_mats(mats, N: int, device) -> None:
@@ -838,18 +854,6 @@ def _first(mats) -> torch.Tensor:
     return next(m for m in mats.values() if m is not None)
 
 
-def _launch_tape(name: str, tape, mats, table, rows: tuple, *tail) -> None:
-    """Launch K7 entry ``name``: the program and table, the row
-    arguments ``rows`` ((N,) for the operands, (lo, L, hneg) for the
-    composition), the launch geometry, then the entry's own arguments."""
-    dev = _first(mats).device
-    threads, smem = _launch_geometry(tape.n_slots)
-    table = table.to(dev)
-    kernels.launch(name, tape.device_program(dev).data_ptr(),
-                   len(tape.program), table.data_ptr(), len(tape.loads),
-                   *rows, threads, smem, *tail, device=dev)
-
-
 def air_eval_operands_plain(tape, mats, uniforms, N: int) -> torch.Tensor:
     """K7's operands epilogue in plain torch (the tape interpreter)."""
     out = torch.empty(tape.n_words, dtype=torch.int32,
@@ -859,16 +863,16 @@ def air_eval_operands_plain(tape, mats, uniforms, N: int) -> torch.Tensor:
 
 def air_eval_operands(tape, mats, uniforms, N: int) -> torch.Tensor:
     """The packed LogUp operands (``tape.n_words`` int32) of a gen tape
-    over N rows: launches K7 on CUDA matrices, runs
+    over N rows: launches K7 (the tape's generated pieces) on CUDA
+    matrices, runs
     `air_eval_operands_plain` on CPU ones.  mats: load role -> (cols, N)
     int32 (or None)."""
     dev = _first(mats).device
     _check_mats(mats, N, dev)
     if _first(mats).is_cuda:
         out = torch.empty(tape.n_words, dtype=torch.int32, device=dev)
-        _launch_tape("air_eval_operands", tape, mats,
-                     _tape_table(tape, mats, uniforms, N), (N,),
-                     tape.device_stores(dev).data_ptr(), out.data_ptr())
+        tape_cuda.launch(tape, uniforms, _bases(tape, mats),
+                         (N, out.data_ptr()), dev)
         return out
     if dev.type == "cpu":
         return air_eval_operands_plain(tape, mats, uniforms, N)
@@ -906,8 +910,9 @@ def air_eval_composition(tape, mats, uniforms, lo: int, L: int, hneg: int,
     constraints, invv the (N,) 1 / v_n, bucket (N, 4) int32.  mats: role
     -> halo-extended (cols, W) blocks whose position q holds natural row
     lo - hneg + q (mod N); every load must fall inside them (a resident
-    composition is the one window [0, N)).  Launches K7 on CUDA
-    matrices, runs `air_eval_composition_plain` on CPU ones."""
+    composition is the one window [0, N)).  Launches K7 (the tape's
+    generated pieces, one after another) on CUDA matrices, runs
+    `air_eval_composition_plain` on CPU ones."""
     dev = _first(mats).device
     W = int(_first(mats).shape[1])
     _check_mats(mats, W, dev)
@@ -921,12 +926,11 @@ def air_eval_composition(tape, mats, uniforms, lo: int, L: int, hneg: int,
     if _first(mats).is_cuda:
         kernels.check_cuda_tensor(invv, "invv", ndim=1)
         kernels.check_cuda_tensor(bucket, "bucket", ndim=2)
-        table = _tape_table(tape, mats, composition_uniforms(
-            tape, uniforms, alpha), W)
-        _launch_tape("air_eval_composition", tape, mats, table,
-                     (lo, L, hneg),
-                     *(int(x) for x in np.asarray(shift, np.uint64)),
-                     invv.data_ptr(), bucket.data_ptr())
+        tape_cuda.launch(
+            tape, composition_uniforms(tape, uniforms, alpha),
+            _bases(tape, mats),
+            (W, lo, L, hneg, *(int(x) for x in np.asarray(shift, np.uint64)),
+             invv.data_ptr(), bucket.data_ptr()), dev)
         return
     if dev.type == "cpu":
         air_eval_composition_plain(tape, mats, uniforms, lo, L, hneg, alpha,
@@ -980,13 +984,24 @@ def accumulate_composition(component, log_size: int, mats, relations,
     return tape.n_constraints
 
 
+def build_kernels(components, log_sizes, relations) -> dict:
+    """Record every component's two tapes and build their K7 pieces that
+    are not loaded yet, in one batch (one ``nvcc`` a piece, as many at
+    once as the machine has CPUs); returns the build's record
+    (`kernels.build_generated`)."""
+    tapes = [t for comp, n in zip(components, log_sizes)
+             for t in (domain_tape(comp, n, relations),
+                       gen_tape(comp, n, relations)) if t is not None]
+    return tape_cuda.build(tapes)
+
+
 # ---------------------------------------------------------------------------
 # Statistics
 # ---------------------------------------------------------------------------
 
 def tape_stats(component, log_size: int, relations) -> dict:
-    """Instruction count, slot count, loads, uniforms and outputs of a
-    component's two tapes."""
+    """Instruction count, slot count, loads, uniforms, outputs and K7
+    pieces of a component's two tapes."""
     out = {"name": component.name, "log_size": log_size}
     for kind, tape in (("domain", domain_tape(component, log_size,
                                               relations)),
@@ -997,14 +1012,17 @@ def tape_stats(component, log_size: int, relations) -> dict:
                      "slots": tape.n_slots, "loads": len(tape.loads),
                      "uniforms": len(tape.u_table), "nodes": tape.n_nodes,
                      "outputs": (len(tape.emits) if kind == "domain"
-                                 else len(tape.stores))}
+                                 else len(tape.stores)),
+                     "pieces": len(tape_cuda.pieces(tape))}
     return out
 
 
 def _main():
     """Tape statistics of every component of the fib guest's machine
     proof at n = 10 (the tapes depend on the component and its params,
-    not on the trace size)."""
+    not on the trace size); with ``--source NAME``, the generated K7
+    source of that component's tape instead (every piece)."""
+    import argparse
     import json
     from pathlib import Path
     from .component import component_info
@@ -1013,6 +1031,11 @@ def _main():
     from ..machine.driver import build_components
     from ..prover.stark import _relation_widths
     from ..sdk import Guest, LocalProver, encode_u32s
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--source", metavar="NAME",
+                    help="print the generated K7 source of this component")
+    ap.add_argument("--kind", choices=("domain", "gen"), default="domain")
+    args = ap.parse_args()
     src = (Path(__file__).resolve().parents[2] / "examples" / "guests"
            / "fib.s").read_text()
     view, trace = LocalProver(Guest.from_asm(src), device="cpu").trace(
@@ -1020,8 +1043,15 @@ def _main():
     comps = build_components(view, 1)[0]
     relations = draw_relations(Blake2sChannel(), _relation_widths(
         [component_info(c) for c in comps]))
-    for c in comps:
-        print(json.dumps(tape_stats(c, 5, relations)))
+    if args.source is None:
+        for c in comps:
+            print(json.dumps(tape_stats(c, 5, relations)))
+        return
+    comp = next(c for c in comps if c.name == args.source)
+    tape = (domain_tape if args.kind == "domain" else gen_tape)(
+        comp, 5, relations)
+    for piece in tape_cuda.pieces(tape):
+        print(piece.text)
 
 
 if __name__ == "__main__":

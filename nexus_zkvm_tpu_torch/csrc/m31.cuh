@@ -9,10 +9,14 @@
 //
 // CM31 = M31[i]/(i^2 + 1); QM31 = CM31[u]/(u^2 - (2 + i)), stored as
 // four words (a + b i) + (c + d i) u, the layout of the Python side.
+//
+// Under NZT_HOST (host_shim.h) the same functions compile as plain C++.
 #pragma once
 
 #include <cstdint>
+#ifndef NZT_HOST
 #include <cuda_runtime.h>
+#endif
 
 #define NZT_P 0x7fffffffu
 

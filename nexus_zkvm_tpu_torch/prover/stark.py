@@ -50,7 +50,8 @@ from ..air.component import (
     component_info, run_constraints, PointEvalContext,
     preprocessed_is_first, domain_halo, MAIN, PRE, INTER, ISF,
 )
-from ..air.tape import generate_interaction, accumulate_composition
+from ..air.tape import (generate_interaction, accumulate_composition,
+                        build_kernels)
 from ..air.lookups import draw_relations
 from ..parallel import commit as pcommit
 from ..parallel.context import active_mesh
@@ -493,8 +494,13 @@ def prove(components, log_sizes, main_traces, channel,
                                     memory=memory, mesh=mesh)
         rc_main.mix_roots(channel)
 
+    relations = draw_relations(channel, _relation_widths(infos))
+    if dev.type == "cuda":
+        # every component's two tapes, and their K7 kernels built in one
+        # batch (loaded already on a warm proof)
+        with scope("k7:build"):
+            build_kernels(components, log_sizes, relations)
     with scope("interaction"):
-        relations = draw_relations(channel, _relation_widths(infos))
         inter_cols, claimed = _interactions(components, infos, plan,
                                             log_sizes, relations, rc_pre,
                                             rc_main, dev)

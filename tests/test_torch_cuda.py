@@ -198,8 +198,9 @@ def _random_mats(dev, comp, rel, N, seed, domain):
 @pytest.mark.parametrize("window", [(0, 1), (1, 4)], ids=["whole", "pass"])
 @pytest.mark.parametrize("log_size", [3, 6])
 def test_air_eval_composition(dev, log_size, window):
-    """Every tape over the whole domain, and over its second quarter (a
-    pass of the memory mode), from halo-extended blocks."""
+    """Every tape's generated kernel (keccak's in pieces) over the whole
+    domain, and over its second quarter (a pass of the memory mode), from
+    halo-extended blocks."""
     from nexus_zkvm_tpu_torch.air.component import component_info, domain_halo
     from nexus_zkvm_tpu_torch.air.tape import (
         air_eval_composition, air_eval_composition_plain, domain_tape)
@@ -229,6 +230,8 @@ def test_air_eval_composition(dev, log_size, window):
 
 @pytest.mark.parametrize("log_size", [3, 6])
 def test_air_eval_operands(dev, log_size):
+    """Every gen tape's generated kernel: one library serves both sizes
+    (the store words are a * M + b, M an argument)."""
     from nexus_zkvm_tpu_torch.air.tape import (
         air_eval_operands, air_eval_operands_plain, gen_tape)
     comps, rel = _tape_components()
@@ -242,6 +245,47 @@ def test_air_eval_operands(dev, log_size):
         assert torch.equal(air_eval_operands(tape, mats, uni, N),
                            air_eval_operands_plain(tape, mats, uni, N)), \
             comp.name
+
+
+def test_generated_kernels_load_from_cache(dev, monkeypatch):
+    """A tape's K7 pieces, once built, load from build/kernels/ without
+    running nvcc when the process has not loaded them yet; a launch of
+    several pieces counts one."""
+    from nexus_zkvm_tpu_torch.air import tape_cuda
+    from nexus_zkvm_tpu_torch.air.tape import domain_tape, gen_tape
+    comps, rel = _tape_components()
+    keccak = next(c for c in comps if c.name == "keccak")
+    tapes = [domain_tape(keccak, 3, rel), gen_tape(keccak, 3, rel)]
+    n = sum(len(tape_cuda.pieces(t)) for t in tapes)
+    assert n > 2
+    tape_cuda.build(tapes)
+    monkeypatch.setattr(kernels, "_GEN_LIBS", {})
+
+    def no_nvcc():
+        raise AssertionError("nvcc ran for a piece built before")
+    monkeypatch.setattr(kernels, "_nvcc", no_nvcc)
+    rec = tape_cuda.build(tapes)
+    assert rec["built"] == 0 and rec["loaded"] == n
+    before = kernels.launch_counts()["air_eval_composition"]
+    from nexus_zkvm_tpu_torch.air.component import component_info, domain_halo
+    from nexus_zkvm_tpu_torch.air.tape import air_eval_composition
+    hneg, hpos = domain_halo(component_info(keccak))
+    N = 1 << 5
+    mats = _random_mats(dev, keccak, rel, N + hneg + hpos, 0, True)
+    felt = np.arange(4, dtype=np.uint64)
+    air_eval_composition(tapes[0], mats, tapes[0].uniforms(rel, felt), 0, N,
+                         hneg, felt, felt, rand(dev, (N,)),
+                         rand(dev, (N, 4)))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["air_eval_composition"] == before + 1
+
+
+def test_generated_build_failure_raises_with_the_log(dev):
+    text = '#error "no such piece"\n'
+    with pytest.raises(RuntimeError, match="no such piece"):
+        kernels.build_generated([(
+            "air_eval_operands",
+            kernels.generated_path("air_broken_gen_0", text), text)])
 
 
 @pytest.mark.parametrize("C,log_n", [(1, 4), (3, 11), (5, 13), (40, 16)])

@@ -78,6 +78,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     def refuse(*a, **k):
         raise RuntimeError("kernel unavailable")
     monkeypatch.setattr(kernels, "launch", refuse)
+    monkeypatch.setattr(kernels, "generated_entries", refuse)
+    monkeypatch.setattr(kernels, "launch_generated", refuse)
     monkeypatch.setattr(kernels, "check_cuda_tensor", lambda *a, **k: None)
 
     class FakeCuda(torch.Tensor):
@@ -92,8 +94,9 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
 
 
 def _fake_cuda_env(monkeypatch, module, *plain_names):
-    """kernels.launch refuses, the argument checks pass, and every named
-    plain version of ``module`` records a call."""
+    """kernels.launch and the generated kernels' entry points (K7)
+    refuse, the argument checks pass, and every named plain version of
+    ``module`` records a call."""
     from nexus_zkvm_tpu_torch import kernels
     calls = []
     for name in plain_names:
@@ -103,6 +106,8 @@ def _fake_cuda_env(monkeypatch, module, *plain_names):
     def refuse(*a, **k):
         raise RuntimeError("kernel unavailable")
     monkeypatch.setattr(kernels, "launch", refuse)
+    monkeypatch.setattr(kernels, "generated_entries", refuse)
+    monkeypatch.setattr(kernels, "launch_generated", refuse)
     monkeypatch.setattr(kernels, "check_cuda_tensor", lambda *a, **k: None)
 
     class FakeCuda(torch.Tensor):

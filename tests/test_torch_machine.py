@@ -63,17 +63,7 @@ FIB10_SRC = """
         lw   t1, 0x84(zero)
         sw   a0, 0(t1)
 """ + EXIT
-KECCAK_SRC = """
-        addi a7, zero, 0x403
-        ecall
-        mv   t1, a0
-        li   t2, 0x12345678
-        sw   t2, 4(t1)
-        keccakf x0, t1, x0
-        lw   t3, 8(t1)
-        lw   t4, 0x84(zero)
-        sw   t3, 0(t4)
-""" + EXIT
+KECCAK_SRC = chip_smoke.KECCAK_SRC
 PROGRAMS = {"fib10": FIB10_SRC, "mixed": chip_smoke.MIXED_SRC,
             "keccak": KECCAK_SRC}
 

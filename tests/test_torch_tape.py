@@ -201,15 +201,16 @@ def test_operands_equal_reference(programs, prog, name):
 
 
 # ---------------------------------------------------------------------------
-# K7's instruction stream, run by a numpy model of csrc/air_eval.cu
+# K7's instruction stream (the schedule air/tape_cuda.py writes out as
+# code), run by a numpy model
 # ---------------------------------------------------------------------------
 
 def _run_program(tape, mats, table, N):
-    """What K7 computes, instruction by instruction over all N rows at
-    once: operand words decoded as the kernel does, slots as its shared
-    memory, emits weighted from ``table`` (the uniforms and, for a
-    domain tape, the weights), stores into the packed buffer.  Returns
-    the (N, 4) accumulator or the operand buffer."""
+    """What the instruction stream computes, instruction by instruction
+    over all N rows at once: operand words decoded, slots as registers,
+    emits weighted from ``table`` (the uniforms and, for a domain tape,
+    the weights), stores into the packed buffer.  Returns the (N, 4)
+    accumulator or the operand buffer."""
     from nexus_zkvm_tpu_torch.air import tape as tp
     rows = np.arange(N)
     slots = np.zeros((max(1, tape.n_slots), N), np.uint64)
@@ -263,8 +264,9 @@ PROGRAM_CASES = ([("fib10", n) for n in MACHINE]
 @pytest.mark.parametrize("prog,name", PROGRAM_CASES)
 def test_kernel_program_equals_interpreter(programs, prog, name):
     """Both tapes' K7 instruction streams (depth-first order, liveness
-    slots, emit weights, stores) compute what the plain interpreter does
-    on the same seeded rows."""
+    slots, emit weights, stores), which the generated kernels are written
+    from, compute what the plain interpreter does on the same seeded
+    rows."""
     from nexus_zkvm_tpu_torch.air.tape import (
         air_eval_operands_plain, air_eval_plain, composition_uniforms)
     _rc, comp, _rr, trel = _pick(programs, prog, name)
@@ -299,20 +301,6 @@ def test_kernel_program_equals_interpreter(programs, prog, name):
         assert np.array_equal(got.astype(np.uint32), want), kind
         ran += 1
     assert ran
-
-
-def test_launch_geometry_fits_shared_memory_or_refuses():
-    """K7's slots live in shared memory: 128, 64 or 32 threads a block,
-    and a tape whose slots do not fit at 32 is refused with its count."""
-    from nexus_zkvm_tpu_torch.air.tape import (_SMEM_BLOCK_BYTES,
-                                               _launch_geometry)
-    assert _launch_geometry(0) == (128, 0)
-    assert _launch_geometry(78) == (128, 78 * 128 * 4)
-    assert _launch_geometry(450) == (32, 450 * 32 * 4)
-    limit = _SMEM_BLOCK_BYTES // (32 * 4)
-    assert _launch_geometry(limit)[0] == 32
-    with pytest.raises(ValueError, match=str(limit + 1)):
-        _launch_geometry(limit + 1)
 
 
 # ---------------------------------------------------------------------------
