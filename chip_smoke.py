@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-machine [CHECKOUT]
+    python3 chip_smoke.py --time-stream [CHECKOUT]
 
 The second form only times warm fib 2^20 machine proofs (phase 5's
-path) and kernel K7 at that proof's shapes (`time_k7`) with the package
-of another checkout (this one by default), so that two checkouts can be
-compared on one card: run it for each in turn.
+path) and kernel K7 at that proof's shapes (`time_k7`), the third warm
+fib 2^22 proofs in the memory mode (phase 6's path) and kernels K10 and
+K11 at that proof's shapes (`time_stream_kernels`), with the package of another
+checkout (this one by default), so that two checkouts can be compared on
+one card: run it for each in turn.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -317,9 +320,11 @@ FILL_ROW_OPS = 600
 
 
 def check(name, shape, kernel_fn, plain_fn, nbytes, ops, timed, reps=10,
-          plain_reps=2):
+          plain_reps=2, timed_fn=None):
     """Run the kernel and its plain version on the same inputs; raise
-    unless their outputs are equal; time both when ``timed``."""
+    unless their outputs are equal; time both when ``timed`` (the kernel
+    through ``timed_fn`` where given: a launch that updates a buffer in
+    place, with no copy to time beside it)."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     before = kernels.launch_counts()[name]
@@ -342,7 +347,7 @@ def check(name, shape, kernel_fn, plain_fn, nbytes, ops, timed, reps=10,
            "max_abs_err": 0}
     if timed:
         b_ms, b_by = bound(nbytes, ops)
-        rec.update(ms=cuda_ms(kernel_fn, reps),
+        rec.update(ms=cuda_ms(timed_fn or kernel_fn, reps),
                    plain_ms=cuda_ms(plain_fn, plain_reps),
                    bound_ms=b_ms, bound_by=b_by)
     emit(rec)
@@ -1108,14 +1113,40 @@ def phase_stream_parity():
           "prove_s_default": d["prove_s"], "prove_s_streamed": f["prove_s"]})
 
 
+def stream_k11_inputs(comps, log_sizes, rng) -> dict:
+    """K11's coefficients at the 2^22 proof's shapes: the CPU component's
+    size group (2^s points) with samples drawn from random OODS values
+    (so its zero pattern is the proof's), and the group's first main
+    column.  {"s", "K", "k0", "prep": prep_args_full's dict}."""
+    import nexus_zkvm_tpu_torch as T
+    from nexus_zkvm_tpu_torch.air.component import component_info
+    from nexus_zkvm_tpu_torch.ops import circle, quotients
+    from nexus_zkvm_tpu_torch.prover.stark import _build_samples, build_plan
+
+    def felt():
+        return rng.integers(0, P31, 4).astype(np.uint64)
+    cfg = T.PcsConfig()
+    plan = build_plan(log_sizes, [component_info(c) for c in comps], cfg)
+    s = log_sizes[0] + cfg.fri.log_blowup
+    K = len(plan.groups[s])
+    sampled = [np.stack([felt() for _ in m.offsets]) for m in plan.metas]
+    samples = _build_samples(plan, circle.oods_point_from_felt(felt()),
+                             sampled)[s]
+    return {"s": s, "K": K,
+            "k0": [plan.metas[i].role for i in plan.groups[s]].index("main"),
+            "prep": quotients.prep_args_full(samples, felt(), 0, K)}
+
+
 def check_stream_kernels(comps, log_sizes) -> dict:
     """The memory mode's kernels against their plain versions at the
     shapes the 2^22 proof gives them, timed: K10 on a middle chunk of
-    the main tree (16 columns of 2^23 leaves) and on its last one, K11
-    on a 16-column LDE chunk with that size group's samples, K12 on its
-    column sums, K7 on one pass of the CPU component (its record is
-    printed; the kernels line times K7 on the 2^20 path).  Inputs are
-    random; returns {kernel name: timed record}."""
+    the main tree (16 columns of 2^23 leaves), then on the main and
+    interaction trees' last, ragged chunks; K11 on a 16-column LDE chunk
+    with that size group's samples, on the ragged chunks and on a
+    committed-order block; K12 on its column sums; K7 on one pass of the
+    CPU component (its record is printed; the kernels line times K7 on
+    the 2^20 path).  K10 and K11 are timed launching in place on one
+    buffer.  Inputs are random; returns {kernel name: timed record}."""
     import torch
     import nexus_zkvm_tpu_torch as T
     from nexus_zkvm_tpu_torch.air import tape as tp
@@ -1123,13 +1154,13 @@ def check_stream_kernels(comps, log_sizes) -> dict:
                                                     domain_halo)
     from nexus_zkvm_tpu_torch.air.lookups import draw_relations
     from nexus_zkvm_tpu_torch.ops import blake2s, circle, quotients
-    from nexus_zkvm_tpu_torch.prover.stark import (
-        _build_samples, _natural_rows, _relation_widths, build_plan)
+    from nexus_zkvm_tpu_torch.prover.stark import (_natural_rows,
+                                                   _relation_widths)
     from nexus_zkvm_tpu_torch.utils.device import from_u32
     dev = torch.device("cuda")
     rng = np.random.default_rng(2028)
     P = (1 << 31) - 1
-    cfg, memory = T.PcsConfig(), T.MemoryConfig()
+    memory = T.MemoryConfig()
     out = {}
 
     def rand(shape, hi=P):
@@ -1142,46 +1173,61 @@ def check_stream_kernels(comps, log_sizes) -> dict:
         out[rec["name"]] = rec
 
     infos = [component_info(c) for c in comps]
-    plan = build_plan(log_sizes, infos, cfg)
     n = log_sizes[0]
-    s = n + cfg.fri.log_blowup
+    k11 = stream_k11_inputs(comps, log_sizes, rng)
+    s = k11["s"]
     M = 1 << s
     c = memory.chunk_cols(s)
     C = infos[0].n_main
-    # K10: a middle chunk (timed) and the last, ragged one
+    # K10: a middle chunk (timed), then the main and interaction trees'
+    # last, ragged chunks
     chunk, state = rand((c, M)), rand((M, 8), 1 << 32)
+    buf = state.clone()
     keep(check("blake2s_leaves_stream", [c, M],
                lambda: blake2s.leaves_stream(state.clone(), chunk, c, C,
                                              False),
                lambda: blake2s.leaves_stream_plain(state, chunk, c, C, False),
-               4 * c * M + 64 * M, M * (c // 16) * COMPRESS, True, reps=5,
-               plain_reps=1))
-    tail = C % c or c
-    last = rand((tail, M))
-    check("blake2s_leaves_stream", [tail, M],
-          lambda: blake2s.leaves_stream(state.clone(), last, C - tail, C,
-                                        True),
-          lambda: blake2s.leaves_stream_plain(state, last, C - tail, C, True),
-          0, 0, False)
+               4 * c * M + 64 * M, M * (c // 16) * COMPRESS, True, reps=10,
+               plain_reps=1,
+               timed_fn=lambda: blake2s.leaves_stream(buf, chunk, c, C,
+                                                      False)))
+    del buf
+    for width in (C, 4 * infos[0].n_logup_cols):
+        tail = width % c or c
+        last = rand((tail, M))
+        check("blake2s_leaves_stream", [tail, M],
+              lambda: blake2s.leaves_stream(state.clone(), last, width - tail,
+                                            width, True),
+              lambda: blake2s.leaves_stream_plain(state, last, width - tail,
+                                                  width, True),
+              0, 0, False)
     del chunk, state, last
     # K11, K12: the CPU component's size group, its first main chunk
-    K = len(plan.groups[s])
-    sampled = [np.stack([felt() for _ in m.offsets]) for m in plan.metas]
-    samples = _build_samples(plan, circle.oods_point_from_felt(felt()),
-                             sampled)[s]
-    a = quotients.prep_args_full(samples, felt(), 0, K)
-    S = len(samples)
-    k0 = [plan.metas[i].role for i in plan.groups[s]].index("main")
+    a, k0 = k11["prep"], k11["k0"]
+    S = len(a["gcs"])
     gcs = from_u32(np.ascontiguousarray(a["gcs"][:, k0:k0 + c]), dev)
     nnz = int((a["gcs"][:, k0:k0 + c] != 0).any(axis=2).sum())
     acc, chunk = rand((S, M, 4)), rand((c, M))
+    buf = acc.clone()
     keep(check("quotient_colsums", [S, c, M],
                lambda: quotients.colsum_fold(acc.clone(), chunk, gcs, True),
                lambda: quotients.colsum_fold_plain(acc.clone(), chunk, gcs,
                                                    True),
                4 * c * M + 32 * S * M,
-               M * (nnz * 4 * (MUL + 2) + S * 4 * 2 * ADD), True, reps=5,
-               plain_reps=1))
+               M * (nnz * 4 * (MUL + 2) + S * 4 * 2 * ADD), True, reps=10,
+               plain_reps=1,
+               timed_fn=lambda: quotients.colsum_fold(buf, chunk, gcs, True)))
+    del buf
+    # the ragged last chunks (layout order), a committed-order block
+    for width, brev in ((C % c, True), (4 * infos[0].n_logup_cols % c, True),
+                        (c, False)):
+        g = from_u32(np.ascontiguousarray(a["gcs"][:, k0:k0 + width]), dev)
+        check("quotient_colsums", [S, width, M, int(brev)],
+              lambda: quotients.colsum_fold(acc.clone(), chunk[:width], g,
+                                            brev),
+              lambda: quotients.colsum_fold_plain(acc.clone(), chunk[:width],
+                                                  g, brev),
+              0, 0, False)
     xs, ys = circle.dev_committed_points(s, dev)
     consts = from_u32(a["consts"], dev)
     keep(check("quotient_finalize", [S, M],
@@ -1565,20 +1611,24 @@ def time_k7(reps: int = 5) -> None:
           "operands_ms": ops_ms, "operand_rows": M})
 
 
-def time_machine(runs: int = 3) -> None:
-    """Warm fib proofs at FIB_N (a 2^20-row CPU component) through
-    LocalProver with the package on the path, after a cold one: per run,
-    an unprofiled proof's seconds and peak device memory, then a
-    profiled proof's phase times."""
+def time_proofs(phase: str, n: int, runs: int = 3):
+    """Warm fib proofs at n through LocalProver with the package on the
+    path, after a cold one: per run, an unprofiled proof's seconds and
+    peak device memory, then a profiled proof's phase times, printed as
+    ``phase``.  Returns the cold proof's machine components and log
+    sizes."""
     import torch
     import nexus_zkvm_tpu_torch as T
     from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.machine.driver import build_components
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     from nexus_zkvm_tpu_torch.utils.profile import profiled
     kernels.build()
     prover = LocalProver(fib_guest())
-    public = encode_u32s(FIB_N)
-    prover.prove_with_input(public_input=public)
+    public = encode_u32s(n)
+    view, proof = prover.prove_with_input(public_input=public)
+    comps, log_sizes = build_components(view, 1)[0], proof.stark.log_sizes
+    del view, proof
     for i in range(runs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1589,10 +1639,45 @@ def time_machine(runs: int = 3) -> None:
         peak = torch.cuda.max_memory_allocated()
         with profiled() as prof:
             prover.prove_with_input(public_input=public)
-        emit({"phase": "time_machine", "package": str(Path(T.__file__)
-                                                      .resolve().parent),
-              "run": i, "n": FIB_N, "prove_s": prove_s, "peak_bytes": peak,
+        emit({"phase": phase, "package": str(Path(T.__file__)
+                                             .resolve().parent),
+              "run": i, "n": n, "prove_s": prove_s, "peak_bytes": peak,
               "phase_s": prof.times})
+    del prover
+    torch.cuda.empty_cache()
+    return comps, log_sizes
+
+
+def time_stream_kernels(comps, log_sizes, reps: int = 20) -> None:
+    """K10 and K11 with the package on the path, on random inputs at the
+    2^22 proof's shapes (a 16-column chunk of 2^23 rows; K11 with that
+    size group's coefficients), each launched in place on one buffer, ms
+    by CUDA events.  It calls the ops modules' public functions only, so
+    two checkouts' kernels compare in one call."""
+    import torch
+    from nexus_zkvm_tpu_torch.air.component import component_info
+    from nexus_zkvm_tpu_torch.ops import blake2s, quotients
+    from nexus_zkvm_tpu_torch.utils.device import from_u32
+    rng = np.random.default_rng(2031)
+    k11 = stream_k11_inputs(comps, log_sizes, rng)
+    M, c, C = 1 << k11["s"], 16, component_info(comps[0]).n_main
+    gcs = np.ascontiguousarray(k11["prep"]["gcs"][:, k11["k0"]:k11["k0"] + c])
+    S = len(gcs)
+    chunk = from_u32(rng.integers(0, P31, (c, M), dtype=np.uint32), "cuda")
+    state = from_u32(rng.integers(0, 1 << 32, (M, 8), dtype=np.uint32),
+                     "cuda")
+    k10_ms = cuda_ms(lambda: blake2s.leaves_stream(state, chunk, c, C, False),
+                     reps)
+    del state
+    acc = from_u32(rng.integers(0, P31, (S, M, 4), dtype=np.uint32), "cuda")
+    g = from_u32(gcs, "cuda")
+    k11_ms = cuda_ms(lambda: quotients.colsum_fold(acc, chunk, g, True), reps)
+    del acc, chunk
+    torch.cuda.empty_cache()
+    emit({"phase": "time_stream_kernels",
+          "package": str(Path(blake2s.__file__).resolve().parents[1]),
+          "blake2s_leaves_stream_ms": k10_ms, "k10_shape": [c, M],
+          "quotient_colsums_ms": k11_ms, "k11_shape": [S, c, M]})
 
 
 def gpu_name_and_limit() -> str:
@@ -1607,7 +1692,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    timing = sys.argv[1:2] == ["--time-machine"]
+    timing = sys.argv[1] if sys.argv[1:2] in (["--time-machine"],
+                                              ["--time-stream"]) else None
     if timing and len(sys.argv) > 2:
         # another checkout's package, imported in its place
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
@@ -1619,9 +1705,14 @@ def main() -> int:
         return 2
     card = gpu_name_and_limit()
     print(card, flush=True)
-    if timing:
-        time_machine()
+    if timing == "--time-machine":
+        # fib 2^20 (resident), then K7 at that proof's shapes
+        time_proofs("time_machine", FIB_N)
         time_k7()
+        return 0
+    if timing == "--time-stream":
+        # fib 2^22 (the memory mode), then K10 and K11 at its shapes
+        time_stream_kernels(*time_proofs("time_stream", FIB_STREAM_N))
         return 0
     t0 = time.perf_counter()
     kernels.build()

@@ -27,6 +27,7 @@
 // ceil(W / 16) compressions against 4 W bytes read, so hashing is far
 // above the memory roofline.  The design keeps everything in registers
 // and lets rotates map to funnel shifts.
+#include "brev_tile.cuh"
 #include "m31.cuh"
 
 namespace {
@@ -143,49 +144,49 @@ __global__ void blake2s_parents(const uint32_t* __restrict__ in,
 // evaluation matrix that never exists at once.  The columns arrive in
 // chunks of c (a multiple of 16 but for the last), each chunk the (c, M)
 // LDE in K1's layout order; leaf m (committed order) is row brev(m) of
-// every column, read here through __brev, so no committed-order copy of
-// the chunk is built.  One thread per leaf carries its Blake2s state
-// (M, 8) across chunks: written from the IV on the first chunk, read and
-// written back on the others.  A chunk runs its whole 16-word blocks
-// (all of them, the last zero-padded, on the last chunk); the byte
-// counter after block b is 4 (done + 16 (b + 1)), done the words of the
-// earlier chunks, and 4 C with the final flag on the very last block,
-// which is the digest of `nzt_blake2s_messages` on the whole row.
+// every column.  Each leaf's Blake2s state (M, 8) is carried across
+// chunks: written from the IV on the first chunk, read and written back
+// on the others.  A chunk runs its whole 16-word blocks (all of them, the
+// last zero-padded, on the last chunk), one pass of this kernel a block;
+// the byte counter after block b is 4 (done + 16 (b + 1)), done the words
+// of the earlier chunks, and 4 C with the final flag on the very last
+// block, which is the digest of `nzt_blake2s_messages` on the whole row.
 //
-// What bounds it: the compressions, 968 operations each, ceil(c / 16) a
-// leaf, against 4 c M bytes read once; the bit-reversed reads scatter
-// across rows (neighbouring threads read rows far apart), which the
-// compressions hide.
-__global__ void blake2s_leaves_stream(uint32_t* __restrict__ state,
-                                      const uint32_t* __restrict__ chunk,
-                                      long long M, int log_m, int c,
-                                      long long done, long long C, int first,
-                                      int last) {
-  long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
+// What bounds it: the chunk read once and the states read and written
+// (4 c M + 64 M bytes) against ceil(c / 16) compressions of 968
+// operations a leaf; the two are close.  The first design ran one thread
+// a leaf reading chunk[k M + brev(m)]: a warp's 32 loads of a column lay
+// 2^(log_m - 5) words apart, each fetching its own 32-byte sector, 8x the
+// bytes (4.75 ms at (16, 2^23) against a 0.32 ms bound).  Now a block
+// copies its 16 columns' runs of consecutive rows into a shared-memory
+// tile (brev_tile.cuh), and each thread gathers its leaf's 16-word
+// message from the tile, transposed; the states at state + 8 m stay
+// coalesced in m.
+__global__ void __launch_bounds__(NZT_TILE_THREADS)
+    blake2s_leaves_stream(uint32_t* __restrict__ state,
+                          const uint32_t* __restrict__ cols, long long M,
+                          int log_m, int t, int nk, uint64_t counter,
+                          int first, int fin) {
+  __shared__ uint32_t tile[NZT_TILE_COLS * NZT_TILE_COL_WORDS];
+  const unsigned mid = blockIdx.x;
+  brev_tile::load(tile, cols, M, log_m, t, mid, nk, true);
+  if (threadIdx.x >= 1u << (2 * t)) return;
+  int word;
+  const long long m = brev_tile::point(t, log_m, mid, true, &word);
   uint32_t h[8];
-  uint4* st = reinterpret_cast<uint4*>(state + m * 8);
   if (first) {
     init_state(h);
   } else {
-    uint4 a = st[0], b = st[1];
+    const uint4* st = reinterpret_cast<const uint4*>(state + m * 8);
+    const uint4 a = st[0], b = st[1];
     h[0] = a.x; h[1] = a.y; h[2] = a.z; h[3] = a.w;
     h[4] = b.x; h[5] = b.y; h[6] = b.z; h[7] = b.w;
   }
-  const long long row =
-      log_m ? (long long)(__brev((unsigned)m) >> (32 - log_m)) : 0;
-  const int nb = last ? (c + 15) / 16 : c / 16;
-  for (int blk = 0; blk < nb; ++blk) {
-    uint32_t msg[16];
+  uint32_t msg[16];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      int w = blk * 16 + i;
-      msg[i] = w < c ? __ldg(chunk + (long long)w * M + row) : 0u;
-    }
-    bool fin = last && blk == nb - 1;
-    compress(h, msg, fin ? 4ull * (uint64_t)C
-                         : 4ull * (uint64_t)(done + 16 * (blk + 1)), fin);
-  }
+  for (int i = 0; i < 16; ++i)
+    msg[i] = i < nk ? tile[i * NZT_TILE_COL_WORDS + word] : 0u;
+  compress(h, msg, counter, fin);
   store_digest(state + m * 8, h);
 }
 
@@ -212,17 +213,28 @@ extern "C" int nzt_blake2s_parents(const uint32_t* in, uint32_t* out,
 
 // state (M, 8) leaf states, chunk (c, M) layout-order evaluations, M =
 // 2^log_m; done = columns absorbed by earlier chunks, C = all columns;
-// first: start from the IV; last: finalize.
+// first: start from the IV; last: finalize; (t, blocks) the tile plan of
+// brev_tile.cuh.  One launch a 16-word block of the chunk, in order.
 extern "C" int nzt_blake2s_leaves_stream(uint32_t* state, const uint32_t* chunk,
                                          long long M, int log_m, int c,
                                          long long done, long long C,
-                                         int first, int last, void* stream) {
+                                         int first, int last, int t,
+                                         long long blocks, void* stream) {
   if (c <= 0 || (!last && c % 16) || log_m < 0 || log_m > 31 ||
-      M != (1LL << log_m) || done + c > C || (last && done + c != C))
+      M != (1LL << log_m) || done + c > C || (last && done + c != C) ||
+      !brev_tile::plan_ok(log_m, t, blocks))
     return (int)cudaErrorInvalidValue;
-  long long blocks = (M + kThreads - 1) / kThreads;
-  blake2s_leaves_stream<<<(unsigned)blocks, kThreads, 0,
-                          (cudaStream_t)stream>>>(state, chunk, M, log_m, c,
-                                                  done, C, first, last);
-  return (int)cudaGetLastError();
+  const int nb = last ? (c + 15) / 16 : c / 16;
+  for (int b = 0; b < nb; ++b) {
+    const bool fin = last && b == nb - 1;
+    const uint64_t counter =
+        fin ? 4ull * (uint64_t)C : 4ull * (uint64_t)(done + 16 * (b + 1));
+    blake2s_leaves_stream<<<(unsigned)blocks, NZT_TILE_THREADS, 0,
+                            (cudaStream_t)stream>>>(
+        state, chunk + (long long)b * 16 * M, M, log_m, t,
+        c - 16 * b < 16 ? c - 16 * b : 16, counter, first && b == 0, fin);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -60,12 +60,12 @@ KERNELS = {
                          [_P, _P, _L, _I, _L, _L]),
     "blake2s_parents": ("blake2s", "nzt_blake2s_parents", [_P, _P, _L]),
     "blake2s_leaves_stream": ("blake2s", "nzt_blake2s_leaves_stream",
-                              [_P, _P, _L, _I, _I, _L, _L, _I, _I]),
+                              [_P, _P, _L, _I, _I, _L, _L, _I, _I, _I, _L]),
     "deep_quotients": ("quotients", "nzt_deep_quotients",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                         _I, _I, _L, _P]),
     "quotient_colsums": ("quotients", "nzt_quotient_colsums",
-                         [_P, _P, _P, _I, _I, _L, _I, _I]),
+                         [_P, _P, _P, _I, _I, _L, _I, _I, _I, _L]),
     "quotient_finalize": ("quotients", "nzt_quotient_finalize",
                           [_P, _P, _P, _P, _I, _L, _P]),
     "fri_fold": ("fri", "nzt_fri_fold",

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .circle import dev_bit_reverse
+from .circle import brev_tile_plan, dev_bit_reverse
 
 __all__ = ["hash_rows", "hash_parents", "hash_rows_plain", "leaves_stream",
            "leaves_stream_plain", "np_batch_compress",
@@ -204,7 +204,8 @@ def leaves_stream(state, chunk: torch.Tensor, done: int, total: int,
             raise ValueError("state must be (M, 8)")
         kernels.launch("blake2s_leaves_stream", state.data_ptr(),
                        chunk.data_ptr(), M, log_m, c, done, total,
-                       int(first), int(last), device=chunk.device)
+                       int(first), int(last), *brev_tile_plan(log_m),
+                       device=chunk.device)
         return state
     if chunk.device.type == "cpu":
         return leaves_stream_plain(state, chunk, done, total, last)

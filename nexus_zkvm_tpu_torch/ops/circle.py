@@ -177,6 +177,22 @@ def m31_point_as_qm31(p):
     return np_qm31(np.uint64(p[0])), np_qm31(np.uint64(p[1]))
 
 
+# -- the tile plan of csrc/brev_tile.cuh --------------------------------------
+
+TILE_LOG = 4    # NZT_TILE_LOG: runs of at most 2^4 consecutive rows
+
+
+def brev_tile_plan(log_m: int, t_max: int = TILE_LOG) -> tuple:
+    """(t, blocks) for kernels K10 and K11 on a layout-order chunk of
+    2^log_m rows: point m = (hi | mid | lo), hi and lo t bits each, reads
+    row (brev_t(lo) | brev(mid) | brev_t(hi)), so a block owns one mid
+    and its 2^2t points, and reads each column as 2^t runs of 2^t
+    consecutive rows.  t = min(t_max, log_m // 2); blocks = 2^(log_m -
+    2t), one a value of mid."""
+    t = min(t_max, log_m // 2)
+    return t, 1 << (log_m - 2 * t)
+
+
 # -- device copies -----------------------------------------------------------
 
 def dev_bit_reverse(log_n: int, device):

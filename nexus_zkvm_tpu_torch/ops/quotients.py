@@ -39,7 +39,8 @@ from .field import (
     np_qm31_add, np_qm31_sub, np_qm31_mul, np_qm31_inv, np_qm31_conj,
     np_qm31_pow, np_m31_mul, np_qm31,
 )
-from .circle import committed_points, dev_bit_reverse, dev_committed_points
+from .circle import (brev_tile_plan, committed_points, dev_bit_reverse,
+                     dev_committed_points)
 from ..utils.device import from_u32
 
 __all__ = ["PointSample", "n_terms", "prep_args_full", "accumulate_blocks",
@@ -228,9 +229,10 @@ def colsum_fold(acc, block, gcs, brev: bool) -> torch.Tensor:
                              f"a non-empty block, got {S}, {c}")
         for name, t in (("acc", acc), ("block", block), ("gcs", gcs)):
             kernels.check_cuda_tensor(t, name)
+        log_m = M.bit_length() - 1
         kernels.launch("quotient_colsums", acc.data_ptr(), block.data_ptr(),
-                       gcs.data_ptr(), S, c, M, M.bit_length() - 1,
-                       int(brev), device=acc.device)
+                       gcs.data_ptr(), S, c, M, log_m, int(brev),
+                       *brev_tile_plan(log_m), device=acc.device)
         return acc
     if block.device.type == "cpu":
         return colsum_fold_plain(acc, block, gcs, brev)

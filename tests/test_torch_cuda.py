@@ -325,40 +325,57 @@ def test_gather_openings(dev):
 
 # -- K10, K11 and K12 (the large-trace memory mode) ---------------------------
 
-@pytest.mark.parametrize("C,chunk", [(70, 16), (17, 64), (64, 32)])
-def test_blake2s_leaves_stream(dev, C, chunk):
-    s = 9
-    mat = rand(dev, (C, 1 << s), seed=C)
-    got = want = None
-    done = 0
-    while done < C:
-        c = min(chunk, C - done)
-        last = done + c == C
-        want = blake2s.leaves_stream_plain(want, mat[done:done + c], done, C,
-                                           last)
-        got = blake2s.leaves_stream(got, mat[done:done + c], done, C, last)
-        assert torch.equal(got, want), done
-        done += c
+# the tile plan's boundaries (csrc/brev_tile.cuh): t shrinks below 2T
+_BT = circle.TILE_LOG
+_LOG_M = sorted({0, 1, 2 * _BT - 1, 2 * _BT, 2 * _BT + 1, 9, 12})
+_WIDTHS = [1, 4, 16, 17, 64]
 
 
-def test_quotient_colsums_and_finalize(dev):
-    s, S = 9, 3
-    M = 1 << s
-    acc0 = rand(dev, (S, M, 4), seed=11)
-    block = rand(dev, (20, M), seed=12)
-    gcs_np = np.random.default_rng(13).integers(0, P, (S, 20, 4),
+@pytest.mark.parametrize("width", _WIDTHS)
+@pytest.mark.parametrize("log_m", _LOG_M)
+def test_blake2s_leaves_stream(dev, log_m, width):
+    """K10 launched with chunks of ``width`` columns: alone (first and
+    last at once), after a 16-column chunk (last), and, for a multiple
+    of 16, before one (neither), every state equal to the plain one."""
+    splits = [[width], [16, width]] + ([[width, 16]] if width % 16 == 0
+                                      else [])
+    for split in splits:
+        C = sum(split)
+        mat = rand(dev, (C, 1 << log_m), seed=C + log_m)
+        got = want = None
+        done = 0
+        for c in split:
+            last = done + c == C
+            want = blake2s.leaves_stream_plain(want, mat[done:done + c], done,
+                                               C, last)
+            got = blake2s.leaves_stream(got, mat[done:done + c], done, C,
+                                        last)
+            assert torch.equal(got, want), (split, done)
+            done += c
+
+
+@pytest.mark.parametrize("brev", [False, True])
+@pytest.mark.parametrize("width", _WIDTHS)
+@pytest.mark.parametrize("log_m", _LOG_M)
+def test_quotient_colsums_and_finalize(dev, log_m, width, brev):
+    """K11 on a ``width``-column block in committed or layout order, some
+    coefficients zero, then K12 on the sums."""
+    S = 3
+    M = 1 << log_m
+    acc0 = rand(dev, (S, M, 4), seed=11 + log_m)
+    block = rand(dev, (width, M), seed=12 + width)
+    gcs_np = np.random.default_rng(13).integers(0, P, (S, width, 4),
                                                 dtype=np.uint32)
     gcs_np[1, ::3] = 0
     gcs = from_u32(gcs_np, dev)
-    for brev in (False, True):
-        got, want = acc0.clone(), acc0.clone()
-        quotients.colsum_fold(got, block, gcs, brev)
-        quotients.colsum_fold_plain(want, block, gcs, brev)
-        assert torch.equal(got, want), brev
+    got, want = acc0.clone(), acc0.clone()
+    quotients.colsum_fold(got, block, gcs, brev)
+    quotients.colsum_fold_plain(want, block, gcs, brev)
+    assert torch.equal(got, want)
     consts = rand(dev, (S, 6, 4), seed=14)
-    xs, ys = circle.dev_committed_points(s, dev)
-    assert torch.equal(quotients.colsum_finalize(acc0, xs, ys, consts),
-                       quotients.colsum_finalize_plain(acc0, xs, ys, consts))
+    xs, ys = rand(dev, (M,), seed=15), rand(dev, (M,), seed=16)
+    assert torch.equal(quotients.colsum_finalize(got, xs, ys, consts),
+                       quotients.colsum_finalize_plain(got, xs, ys, consts))
 
 
 def test_sharded_commit_on_the_card(dev):
