@@ -8,9 +8,10 @@
 The second form only times warm fib 2^20 machine proofs (phase 5's
 path) and kernel K7 at that proof's shapes (`time_k7`), the third warm
 fib 2^22 proofs in the memory mode (phase 6's path) and kernels K10 and
-K11 at that proof's shapes (`time_stream_kernels`), with the package of another
-checkout (this one by default), so that two checkouts can be compared on
-one card: run it for each in turn.
+K11 at that proof's shapes (`time_stream_kernels`); both then time K6
+and K8 on one more proof's own calls (`time_k6_k8`).  Each runs with
+the package of another checkout (this one by default), so that two
+checkouts can be compared on one card: run it for each in turn.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -31,10 +32,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              call of the constraint tapes (K7: the composition of every
              component over its 4x domain, the CPU component's 2^22
              rows and keccak included, and every component's LogUp
-             operands), of the LogUp columns (K6), of the OODS dots (K8,
-             every (role, size, offset) group) and of the opening gather
-             (K9) is run again through the kernel and the plain version
-             on its own inputs.  K1-K4 at that proof's shapes (see
+             operands), of the LogUp columns (K6: every component's,
+             then the largest again with zero denominators), of the OODS
+             dots (K8: the proof's one launch over every (role, size,
+             offset) group, then each group alone) and of the opening
+             gather (K9) is run again through the kernel and the plain
+             version on its own inputs; all of the proof's K6 launches
+             are timed in turn.  K1-K4 at that proof's shapes (see
              `check_prover_kernels`).
 3. parity  — a proof at 2^10 rows on the CPU (plain path) and on the
              card (kernels) must be equal field by field.
@@ -80,10 +84,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              `phase_parallel`).
 9. kernels — one JSON line with every kernel's numbers: launches from
              the path it belongs to (phase 5, or phase 6 for the memory
-             mode's three; K1 counts one launch a transform), times at
-             that path's shapes; ``circle_fft`` adds ``extend``, the
-             composition's zero-extending LDE (see
-             `check_prover_kernels`).
+             mode's three; K1 counts one launch a transform, K8 one a
+             proof), times at that path's shapes; ``circle_fft`` adds
+             ``extend``, the composition's zero-extending LDE (see
+             `check_prover_kernels`), and ``oods_dot`` ``all_groups``,
+             its launch over all of a proof's groups.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device
 the script exits with code 2 and prints no result.
@@ -96,7 +101,9 @@ limit, 4 schedulers x 32 lanes = 128 lane operations per SM per clock
 an FMA counted as one operation; the INT32 pipe alone (64 lanes per SM)
 is half of it, so the bound is a floor, not a target.  Operation counts
 follow a simple model: an M31 product (widening multiply and fold) is 6
-operations, an M31 add or subtract 3, a Blake2s compression 968 (80 G
+operations, an M31 add or subtract 3, a widening multiply-add into a
+uint64 sum 2 and that sum's reduction 6 (K6's lazy products, K8's
+sums), a Blake2s compression 968 (80 G
 mixes of 12: a three-input add counts once, as IADD3 does it, and so
 does a three-input xor, as LOP3 does it; plus 8 for the output xors).
 A constraint tape (K7) counts the field operations of its instructions
@@ -124,6 +131,14 @@ COMPRESS = 80 * 12 + 8
 QM31_MUL = 16 * MUL + 14 * ADD
 QM31_INV = 57 * MUL + 20 * ADD
 M31_INV = 37 * MUL
+# a widening 32 x 32 -> 64-bit multiply-add, and the reduction of a
+# uint64 sum to a word (two folds and a subtract)
+MAD, RED = 2, 6
+# K6's lazily reduced products (csrc/logup.cu): a QM31 product (16
+# products, each coordinate reduced once); the norm |A^2 - R B^2|^2 of
+# a QM31 denominator and the conjugate products (A - B u) conj(.)
+QMUL_LAZY = 16 * MAD + 4 * RED + 5 * ADD
+NORM = 16 * MAD + 9 * RED + 7 * ADD
 
 K_SQUARES = 64
 FULL_LOG = 20
@@ -455,22 +470,46 @@ def check_kernels(full: bool = True) -> dict:
     return timed
 
 
-def logup_ops(meta) -> int:
+def logup_ops(meta, chunk: int) -> int:
     """Operations per row of one logup_columns launch, counted from the
     operand modes of each pair (modes 0 and 1 are M31): a product with
-    one M31 factor is 4 M31 products, with two it is one; a denominator
-    product in M31 is inverted in M31; then the pair's running-sum add,
-    and the row scan's add once per row."""
+    one M31 factor is 4 M31 products, with two it is one, with none a
+    lazily reduced QM31 product; a QM31 denominator's norm and conjugate
+    products (`NORM`) and t = num * adj, an M31 one none; every pair's
+    share of the batched inversion (3 M31 products), t / m (4) and its
+    running-sum add; one M31 inverse a ``chunk`` of pairs; the row
+    scan's add once per row."""
     def mul(a, b):
-        return MUL if a and b else 4 * MUL if a or b else QM31_MUL
-    ops = 4 * ADD
-    for n1, d1, n2, d2 in meta[..., 1].t().tolist():
+        return MUL if a and b else 4 * MUL if a or b else QMUL_LAZY
+    pairs = meta[..., 1].t().tolist()
+    ops = 4 * ADD + M31_INV * -(-len(pairs) // chunk)
+    for n1, d1, n2, d2 in pairs:
         n1, d1, n2, d2 = (m < 2 for m in (n1, d1, n2, d2))
         num, den = n1 and d2 and n2 and d1, d1 and d2
         ops += (mul(n1, d2) + mul(n2, d1) + (ADD if num else 4 * ADD)
-                + mul(d1, d2) + (M31_INV if den else QM31_INV)
-                + mul(num, den) + 4 * ADD)
+                + mul(d1, d2) + (0 if den else NORM + mul(num, False))
+                + 3 * MUL + 4 * MUL + 4 * ADD)
     return ops
+
+
+def oods_cost(shapes) -> tuple:
+    """Bytes and operations of one oods_dot launch over groups of
+    ``shapes`` [(rows, log_n)]: every sampled word read once, (rows, 4)
+    written; a widening multiply-add into a uint64 sum (`MAD`) for each
+    of a word's 4 coordinates, a fold (one more) after every 4 words;
+    each unit's end: its (row, lo) sums reduced and multiplied by B_lo
+    (`stark.oods_plan`: 2^(log_n - k) / H units a row); the basis tables'
+    QM31 products."""
+    from nexus_zkvm_tpu_torch.prover.stark import OODS_CHUNK, OODS_LO_BITS
+    nbytes = ops = 0
+    for r, n in shapes:
+        k = min(n, OODS_LO_BITS)
+        units = (1 << (n - k)) // min(1 << (n - k), OODS_CHUNK)
+        nbytes += 4 * (r << n) + 16 * r
+        ops += (r << n) * 5 * MAD + r * units * (1 << k) * (
+            4 * RED + QM31_MUL + 4 * ADD) + ((1 << k) * k + (
+                1 << (n - k)) * (n - k)) * QM31_MUL
+    return nbytes, ops
 
 
 def check_machine_kernels(full: bool = True) -> dict:
@@ -530,7 +569,8 @@ RECORDED = {
     "air_eval_operands": ("nexus_zkvm_tpu_torch.air.tape",
                           "air_eval_operands"),
     "logup_columns": ("nexus_zkvm_tpu_torch.air.tape", "logup_columns"),
-    "oods_dot": ("nexus_zkvm_tpu_torch.prover.stark", "oods_dot"),
+    "oods_dot_groups": ("nexus_zkvm_tpu_torch.prover.stark",
+                        "oods_dot_groups"),
     "decommit_many_fused": ("nexus_zkvm_tpu_torch.ops.merkle",
                             "decommit_many_fused"),
 }
@@ -591,11 +631,29 @@ def tape_cost(tape, N: int) -> tuple:
     return nbytes, N * per_row
 
 
+def zero_denominators(src, meta, M: int, chunk: int):
+    """A copy of K6's operands with the first denominator of some pairs
+    set to 0: the first, middle and last pair of the first chunk, the
+    first of the second (a boundary) and the last pair; a column's at
+    rows 0, 1, M // 2 and M - 1, a constant at every row."""
+    out = src.clone()
+    B = int(meta.shape[1])
+    for b in sorted({0, chunk // 2, chunk - 1, chunk, B - 1} & set(range(B))):
+        off, mode = (int(x) for x in meta[1, b])
+        w = (1, 1, 4, 4)[mode]
+        for r in ((0,) if mode in (0, 2) else (0, 1, M // 2, M - 1)):
+            out[off + w * r:off + w * r + w] = 0
+    return out
+
+
 def check_recorded(calls, timed_run: bool) -> dict:
     """Every recorded call of K6-K9 again through the kernel and its
-    plain version, uint32-exact; timed (``timed_run``) at the largest:
-    the CPU component's composition and operands (K7) and LogUp columns
-    (K6), the largest OODS group (K8), the whole opening gather (K9)."""
+    plain version, uint32-exact, K6 also on operands with zero
+    denominators and K8 on all of the proof's groups in its one launch
+    and on each group alone; timed (``timed_run``) at the largest: the
+    CPU component's composition and operands (K7) and LogUp columns (K6),
+    K8's launch and its largest group, the whole opening gather (K9);
+    and all of the proof's K6 launches in turn."""
     import torch
     from nexus_zkvm_tpu_torch.air import component as cmp, tape as tp, \
         tape_cuda
@@ -631,33 +689,53 @@ def check_recorded(calls, timed_run: bool) -> dict:
                    lambda: tp.air_eval_operands_plain(tape, mats, uni, N),
                    *tape_cost(tape, N), timed_run and i == 0, reps=5,
                    plain_reps=1))
-    # K6 on the CPU component's operands (the largest)
-    src, meta, M = max(calls["logup_columns"], key=lambda a: a[2])
-    B = int(meta.shape[1])
-    words = {0: 1, 1: M, 2: 4, 3: 4 * M}
-    in_bytes = 4 * sum(words[m] for m in meta[..., 1].reshape(-1).tolist())
-    keep(check("logup_columns", [B, M, 4],
-               lambda: cmp.logup_columns(src, meta, M),
-               lambda: cmp.logup_columns_plain(src, meta, M),
-               in_bytes + 16 * B * M, M * logup_ops(meta), timed_run,
-               reps=5))
-    # K8: every (role, size, offset) group of the proof
-    groups = sorted(calls["oods_dot"], key=lambda a: -a[0].numel())
-    for i, (cols, factors) in enumerate(groups):
-        C, N = (int(x) for x in cols.shape)
-        k = min(stark.OODS_LO_BITS, len(factors))
-        rec = check("oods_dot", [C, N],
-                    lambda: stark.oods_dot(cols, factors),
-                    lambda: stark.oods_dot_plain(cols, factors),
-                    4 * C * N + 16 * C,
-                    C * N * 4 * (MUL + ADD)
-                    + C * (N >> k) * (QM31_MUL + 4 * ADD),
-                    timed_run and i == 0, plain_reps=1)
-        keep(rec)
+    # K6: every component's LogUp columns, timed on the CPU component's
+    # (the largest); then its operands with zero denominators (each
+    # place of a chunk, across chunk boundaries, the last pair); then
+    # all of the proof's launches in turn
+    logups = sorted(calls["logup_columns"], key=lambda a: -a[2])
+    for i, (src, meta, M) in enumerate(logups):
+        B = int(meta.shape[1])
+        words = {0: 1, 1: M, 2: 4, 3: 4 * M}
+        in_bytes = 4 * sum(words[m] for m in meta[..., 1].reshape(-1).tolist())
+        keep(check("logup_columns", [B, M, 4],
+                   lambda: cmp.logup_columns(src, meta, M),
+                   lambda: cmp.logup_columns_plain(src, meta, M),
+                   in_bytes + 16 * B * M,
+                   M * logup_ops(meta, cmp.LOGUP_CHUNK), timed_run and i == 0,
+                   reps=5, plain_reps=1))
+    src, meta, M = logups[0]
+    zsrc = zero_denominators(src, meta, M, cmp.LOGUP_CHUNK)
+    check("logup_columns", [int(meta.shape[1]), M, 4, "zero denominators"],
+          lambda: cmp.logup_columns(zsrc, meta, M),
+          lambda: cmp.logup_columns_plain(zsrc, meta, M), 0, 0, False)
+    del zsrc
     if timed_run:
+        emit({"phase": "logup_launches", "launches": len(logups),
+              "all_launches_ms": cuda_ms(lambda: [
+                  cmp.logup_columns(*a) for a in logups], 3)})
+    # K8: the proof's one launch over every (role, size, offset) group,
+    # then each group alone (timed: the largest)
+    (groups,), = calls["oods_dot_groups"]
+    shapes = [(int(b.shape[0]) if r is None else len(r),
+               int(b.shape[1]).bit_length() - 1) for b, r, _f in groups]
+    everything = check("oods_dot", [len(groups), sum(r for r, _n in shapes)],
+                       lambda: stark.oods_dot_groups(groups),
+                       lambda: stark.oods_dot_groups_plain(groups),
+                       *oods_cost(shapes), timed_run, plain_reps=1)
+    for i, g in enumerate(sorted(range(len(groups)),
+                                 key=lambda g: -(shapes[g][0] << shapes[g][1]))):
+        r, n = shapes[g]
+        keep(check("oods_dot", [r, 1 << n],
+                   lambda: stark.oods_dot_groups([groups[g]]),
+                   lambda: stark.oods_dot_groups_plain([groups[g]]),
+                   *oods_cost([shapes[g]]), timed_run and i == 0,
+                   plain_reps=1))
+    if timed_run:
+        out["oods_dot_all"] = everything
         emit({"phase": "oods_groups", "groups": len(groups),
-              "all_groups_ms": cuda_ms(
-                  lambda: [stark.oods_dot(c, f) for c, f in groups], 3)})
+              "all_groups_ms": everything["ms"],
+              "all_groups_bound_ms": everything["bound_ms"]})
     # K9: the proof's openings, one gather; its host tables (descriptors,
     # indices) are built once and timed apart from the launch
     (args,) = calls["decommit_many_fused"]
@@ -678,7 +756,8 @@ def check_recorded(calls, timed_run: bool) -> dict:
                                 + sum(len(p.idx) for p in pieces)),
                0, timed_run, plain_reps=3))
     emit({"phase": "recorded", "compositions": len(comps),
-          "operand_tapes": len(ops), "oods_groups": len(groups),
+          "operand_tapes": len(ops), "logup_launches": len(logups),
+          "oods_groups": len(groups),
           "opening_pieces": len(pieces), "opening_words": words,
           "gather_tables_host_ms": tables_ms,
           "tapes": [{"component": c[0].name, "component_rows": c[4],
@@ -977,6 +1056,9 @@ def phase_machine() -> tuple:
     if route["streamed"] or max(route["composition_passes"]) != 1:
         raise RuntimeError(f"the 2^20 proof left the resident route: {route}")
     check_path("machine", launches, set(launches) - set(MEMORY_MODE))
+    if launches["oods_dot"] != 3:
+        raise RuntimeError(f"K8 launched {launches['oods_dot']} times in "
+                           f"3 proofs, not once a proof")
     digest = proof_digest(proof_to_bytes(proof))
     emit({"phase": "machine", "guest": "examples/guests/fib.s", "n": FIB_N,
           "steps": steps, "cpu_log_rows": cpu_log, "proof_blake2s": digest,
@@ -1044,6 +1126,9 @@ def phase_machine_stream():
     # one K7 composition launch a pass of every component
     if warm["air_eval_composition"] != sum(route["composition_passes"]):
         raise RuntimeError("composition passes and K7 launches differ")
+    if warm["oods_dot"] != 1:
+        raise RuntimeError(f"K8 launched {warm['oods_dot']} times in a "
+                           f"proof, not once")
     rejects_tampering(prover, view, proof)
     check_path("machine_stream", launches, set(launches))
     emit({"phase": "machine_stream", "guest": "examples/guests/fib.s",
@@ -1680,6 +1765,66 @@ def time_stream_kernels(comps, log_sizes, reps: int = 20) -> None:
           "quotient_colsums_ms": k11_ms, "k11_shape": [S, c, M]})
 
 
+def time_k6_k8(n: int, reps: int = 5) -> None:
+    """K6 and K8 with the package on the path, on the calls of one fib
+    proof at n (recorded as `record_main_path` does, with whichever K8
+    entry the package's prover calls): the largest LogUp launch and all
+    of the proof's in turn; the largest OODS group and every group of
+    the proof, as that package issues them (one launch of
+    ``oods_dot_groups``, or one ``oods_dot`` a gathered group).  ms by
+    CUDA events; the calls' inputs are the proof's own."""
+    import torch
+    from nexus_zkvm_tpu_torch.air import tape
+    from nexus_zkvm_tpu_torch.prover import stark
+    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
+    k8 = "oods_dot_groups" if hasattr(stark, "oods_dot_groups") else \
+        "oods_dot"
+    calls = {"logup": [], "oods": []}
+    saved = [(mod, fn, key, getattr(mod, fn)) for mod, fn, key in (
+        (tape, "logup_columns", "logup"), (stark, k8, "oods"))]
+    for mod, fn, key, orig in saved:
+        def wrapped(*args, _orig=orig, _key=key):
+            calls[_key].append(args)
+            return _orig(*args)
+        setattr(mod, fn, wrapped)
+    try:
+        LocalProver(fib_guest()).prove_with_input(
+            public_input=encode_u32s(n))
+    finally:
+        for mod, fn, _key, orig in saved:
+            setattr(mod, fn, orig)
+    lg = sorted(calls["logup"], key=lambda a: -a[2])
+    k6 = tape.logup_columns
+    rec = {"phase": "time_k6_k8", "package": str(Path(stark.__file__)
+                                                .resolve().parents[1]),
+           "n": n, "logup_shape": [int(lg[0][1].shape[1]), lg[0][2]],
+           "logup_ms": cuda_ms(lambda: k6(*lg[0]), reps),
+           "logup_launches": len(lg),
+           "logup_all_ms": cuda_ms(lambda: [k6(*a) for a in lg], reps)}
+    if k8 == "oods_dot_groups":
+        (groups,), = calls["oods"]
+        big = max(groups, key=lambda g: (g[0].shape[0] if g[1] is None
+                                         else len(g[1])) * g[0].shape[1])
+        rec.update(oods_shape=[int(big[0].shape[0]) if big[1] is None
+                               else len(big[1]), int(big[0].shape[1])],
+                   oods_ms=cuda_ms(lambda: stark.oods_dot_groups([big]),
+                                   reps),
+                   oods_groups=len(groups),
+                   oods_all_ms=cuda_ms(lambda: stark.oods_dot_groups(groups),
+                                       reps))
+    else:
+        groups = calls["oods"]
+        big = max(groups, key=lambda g: g[0].numel())
+        rec.update(oods_shape=list(big[0].shape),
+                   oods_ms=cuda_ms(lambda: stark.oods_dot(*big), reps),
+                   oods_groups=len(groups),
+                   oods_all_ms=cuda_ms(lambda: [stark.oods_dot(*g)
+                                                for g in groups], reps))
+    del calls, lg, groups, big
+    torch.cuda.empty_cache()
+    emit(rec)
+
+
 def gpu_name_and_limit() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1709,10 +1854,13 @@ def main() -> int:
         # fib 2^20 (resident), then K7 at that proof's shapes
         time_proofs("time_machine", FIB_N)
         time_k7()
+        time_k6_k8(FIB_N)
         return 0
     if timing == "--time-stream":
-        # fib 2^22 (the memory mode), then K10 and K11 at its shapes
+        # fib 2^22 (the memory mode), then K10, K11, K6 and K8 at its
+        # shapes
         time_stream_kernels(*time_proofs("time_stream", FIB_STREAM_N))
+        time_k6_k8(FIB_STREAM_N)
         return 0
     t0 = time.perf_counter()
     kernels.build()
@@ -1756,7 +1904,10 @@ def main() -> int:
         "shape": timed[name]["shape"],
         **({"extend": {k: timed["circle_fft_extend"][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by")}} if name == "circle_fft" else {})}
+            "bound_by")}} if name == "circle_fft" else {}),
+        **({"all_groups": {k: timed["oods_dot_all"][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")}} if name == "oods_dot" else {})}
         for name in names]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -30,6 +30,7 @@ row totals; claimed_sum = S[last].  Constraints (deg <= 3):
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,6 +38,7 @@ import torch
 
 from .. import kernels
 from ..ops import field as F
+from ..utils.device import dev_const
 from .expr import Felt, NP
 from .lookups import LookupElements
 
@@ -304,15 +306,29 @@ def _check_meta(meta, n_words: int, M: int) -> None:
         raise ValueError("meta points outside the operand buffer")
 
 
+# pairs K6 batches under one M31 inverse (kChunk of csrc/logup.cu)
+LOGUP_CHUNK = 8
+
+
+def _meta_on(meta, device) -> torch.Tensor:
+    """The device copy of an operand table, kept per table content (a
+    tape's table is fixed, so each is copied to the card once)."""
+    host = meta.contiguous().numpy()
+    key = hashlib.blake2s(host.tobytes()).hexdigest()
+    return dev_const(f"logup.meta.{key}", int(host.shape[1]), device,
+                     lambda: host)
+
+
 def logup_columns(src, meta, M: int) -> torch.Tensor:
     """The LogUp columns of the packed pairs (see `logup_operands`; meta
-    stays on the host): launches ``csrc/logup.cu`` on a CUDA ``src``,
-    runs `logup_columns_plain` on a CPU one."""
+    is a host tensor, copied to the card once per table): launches
+    ``csrc/logup.cu`` on a CUDA ``src``, runs `logup_columns_plain` on a
+    CPU one."""
     _check_meta(meta, src.numel(), M)
     if src.is_cuda:
         kernels.check_cuda_tensor(src, "operands", ndim=1)
         B = int(meta.shape[1])
-        meta_dev = meta.contiguous().to(src.device)
+        meta_dev = _meta_on(meta, src.device)
         out = torch.empty((B, M, 4), dtype=torch.int32, device=src.device)
         scratch = torch.empty(((M + 255) // 256, 4), dtype=torch.int32,
                               device=src.device)

@@ -73,7 +73,8 @@ KERNELS = {
     "cpu_fill": ("fill", "nzt_cpu_fill", [_P, _L] + [_U] * 7 + [_P, _P]),
     "logup_columns": ("logup", "nzt_logup_columns",
                       [_P, _P, _I, _L, _P, _P]),
-    "oods_dot": ("oods", "nzt_oods_dot", [_P, _I, _I, _I, _P, _I, _P, _P]),
+    "oods_dot": ("oods", "nzt_oods_dot",
+                 [_P, _I, _P, _P, _L, _L, _I, _P, _P, _L, _P]),
     "gather_openings": ("gather", "nzt_gather_openings", [_P, _I, _P, _P]),
 }
 

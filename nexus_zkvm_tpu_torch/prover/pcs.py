@@ -75,20 +75,32 @@ class RoleCommitment:
         for _s, root in self.roots():
             channel.mix_u32s(root)
 
-    def _rows(self, batches, col_idxs):
+    def _row_index(self, batches, col_idxs):
+        """The (Cn, 2^n) batch of the columns ``col_idxs`` (all of one
+        size n), their rows in it (None: the whole batch in order) and
+        n."""
         ns = {self.trace_logs[i] for i in col_idxs}
         assert len(ns) == 1
         n = ns.pop()
         idxs, batch = batches[n]
         rowmap = {ci: r for r, ci in enumerate(idxs)}
         sel = [rowmap[i] for i in col_idxs]
-        if sel == list(range(batch.shape[0])):
+        return batch, None if sel == list(range(batch.shape[0])) else sel, n
+
+    def _rows(self, batches, col_idxs):
+        batch, sel, n = self._row_index(batches, col_idxs)
+        if sel is None:
             return batch, n
         return batch[torch.as_tensor(sel, device=batch.device)], n
 
     def coeff_rows(self, col_idxs):
         """(len(col_idxs), 2^n) coefficient rows and their n."""
         return self._rows(self.coeff_batches, col_idxs)
+
+    def coeff_row_index(self, col_idxs):
+        """The coefficient batch holding ``col_idxs`` and their rows in
+        it (None: all of it, in order), for reading them in place."""
+        return self._row_index(self.coeff_batches, col_idxs)[:2]
 
     def natural_rows(self, col_idxs):
         return self._rows(self.natural, col_idxs)

@@ -60,7 +60,8 @@ from ..utils.profile import note, scope
 from .config import MemoryConfig, PcsConfig
 from . import pcs
 
-__all__ = ["prove", "verify", "Proof", "oods_dot", "oods_dot_plain"]
+__all__ = ["prove", "verify", "Proof", "oods_dot", "oods_dot_plain",
+           "oods_dot_groups", "oods_dot_groups_plain", "oods_plan"]
 
 ROLE_ORDER = ("pre", "main", "inter", "comp")
 _QM31_BASIS = [np_qm31(*(np.uint64(1) if t == i else np.uint64(0)
@@ -198,32 +199,120 @@ def oods_dot_plain(cols: torch.Tensor, factors: np.ndarray) -> torch.Tensor:
                         for t in range(4)], dim=-1)
 
 
-# the low factors K8 keeps in registers: at most 2^11 basis entries
-OODS_LO_BITS = 11
+# K8's work partition (`oods_plan`, mirrored by csrc/oods.cu): a block of
+# 256 threads reads 2^OODS_LO_BITS words of a row a step (its lo words;
+# the row's other index bits are hi; kLoBits in the kernel), a unit of
+# work is OODS_CHUNK steps of one row, or as many short rows as fill one
+# step
+OODS_LO_BITS = 10
+OODS_CHUNK = 256
+# descriptor fields of a group, int64 each (the D_* of csrc/oods.cu)
+OODS_FIELDS = ("base", "rows", "n_rows", "log_n", "k", "R", "H", "n_chunks",
+               "unit0", "basis", "factors")
+
+
+def oods_plan(shapes, chunk: int = OODS_CHUNK):
+    """K8's work list for groups of ``shapes`` [(rows, log_n)] (output
+    order): (order, table, E, U), ``order`` the launch order (the
+    largest units first), ``table`` a (G, len(OODS_FIELDS)) int64
+    descriptor a group in that order, with "base" and "factors" left 0
+    for the wrapper, E the basis entries and U the units of all groups.
+    A group's lo/hi split is k = min(log_n, OODS_LO_BITS); a unit is R =
+    2^(OODS_LO_BITS - k) rows of H = min(2^(log_n - k), chunk) high
+    indices; "rows" (the group's first row in the row lists and the
+    output) and "basis" (2^k B_lo entries, then 2^(log_n - k) B_hi) are
+    running offsets, "unit0" the group's first unit."""
+    f = {name: i for i, name in enumerate(OODS_FIELDS)}
+    rows_off = np.cumsum([0] + [r for r, _n in shapes])
+    geo = []
+    for r, n in shapes:
+        k = min(n, OODS_LO_BITS)
+        nhi = 1 << (n - k)
+        R, H = 1 << (OODS_LO_BITS - k), min(nhi, chunk)
+        geo.append((k, R, H, nhi // H))
+    # words a unit, largest first (stable)
+    order = sorted(range(len(shapes)),
+                   key=lambda g: -(geo[g][1] * geo[g][2] << geo[g][0]))
+    table = np.zeros((len(shapes), len(OODS_FIELDS)), np.int64)
+    unit0 = basis = 0
+    for i, g in enumerate(order):
+        (r, n), (k, R, H, nch) = shapes[g], geo[g]
+        row = table[i]
+        row[[f["rows"], f["n_rows"], f["log_n"], f["k"], f["R"], f["H"],
+             f["n_chunks"], f["unit0"], f["basis"]]] = \
+            (rows_off[g], r, n, k, R, H, nch, unit0, basis)
+        unit0 += -(-r // R) * nch
+        basis += (1 << k) + (1 << (n - k))
+    return order, table, basis, unit0
+
+
+def oods_dot_groups_plain(groups) -> torch.Tensor:
+    """(sum of rows, 4) int32: `oods_dot_plain` of each group (batch,
+    rows, factors) in turn, its rows gathered (all of the batch for
+    ``rows`` None)."""
+    return torch.cat([oods_dot_plain(b if rows is None else b[list(rows)], f)
+                      for b, rows, f in groups]).to(torch.int32)
+
+
+def oods_dot_groups(groups) -> torch.Tensor:
+    """The OODS samples of every group (batch, rows, factors): ``batch``
+    a (R, 2^n) coefficient matrix, ``rows`` the indices of its rows to
+    sample (None: all, in order), ``factors`` the (n, 4) factors of the
+    group's point.  Returns (sum of rows, 4) int32, the groups' rows in
+    turn.  On CUDA batches one launch of ``csrc/oods.cu`` (kernel K8)
+    samples every group, each row read where it lies, after one
+    host-to-device copy of the descriptors, row lists and factors; on
+    CPU ones `oods_dot_groups_plain` runs."""
+    if not groups:
+        raise ValueError("no OODS groups")
+    dev = groups[0][0].device
+    shapes, rows_all, facts = [], [], []
+    for batch, rows, factors in groups:
+        n = len(factors)
+        R = int(batch.shape[0]) if batch.dim() == 2 else -1
+        rows = list(range(R)) if rows is None else [int(r) for r in rows]
+        if batch.device != dev or batch.dim() != 2 or \
+                batch.shape[1] != 1 << n or not rows or \
+                min(rows) < 0 or max(rows) >= R:
+            raise ValueError(f"OODS group of {len(rows)} rows of a batch "
+                             f"{tuple(batch.shape)} on {batch.device} "
+                             f"against {n} factors on {dev}")
+        shapes.append((len(rows), n))
+        rows_all.append(rows)
+        facts.append(np.asarray(factors, np.uint32).reshape(n, 4))
+    if not groups[0][0].is_cuda:
+        if dev.type == "cpu":
+            return oods_dot_groups_plain(groups)
+        raise ValueError(f"unsupported device {dev}")
+    order, table, E, U = oods_plan(shapes, OODS_CHUNK)
+    f = {name: i for i, name in enumerate(OODS_FIELDS)}
+    fact_off = np.cumsum([0] + [4 * s[1] for s in shapes])
+    for i, g in enumerate(order):
+        kernels.check_cuda_tensor(groups[g][0], "batch", ndim=2)
+        table[i, f["base"]] = groups[g][0].data_ptr()
+        table[i, f["factors"]] = fact_off[g]
+    n_out = int(sum(s[0] for s in shapes))
+    host = np.concatenate([table.reshape(-1), np.concatenate(rows_all),
+                           np.concatenate([x.reshape(-1) for x in facts])
+                           .astype(np.int64)])
+    buf = torch.from_numpy(host).to(dev)
+    basis = torch.empty((E, 4), dtype=torch.int32, device=dev)
+    acc = torch.empty(1 + 4 * n_out, dtype=torch.int64, device=dev)
+    out = torch.empty((n_out, 4), dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
+    kernels.launch("oods_dot", ptr, len(groups), ptr + 8 * table.size,
+                   ptr + 8 * (table.size + n_out), E, U, OODS_LO_BITS,
+                   basis.data_ptr(), acc.data_ptr(), n_out, out.data_ptr(),
+                   device=dev)
+    return out
 
 
 def oods_dot(cols: torch.Tensor, factors: np.ndarray) -> torch.Tensor:
     """(C, 4) int64 samples of the coefficient rows at the point of
-    ``factors``: launches ``csrc/oods.cu`` (kernel K8) on a CUDA
-    ``cols``, runs `oods_dot_plain` on a CPU one."""
+    ``factors``: one group of `oods_dot_groups` (kernel K8) on a CUDA
+    ``cols``, `oods_dot_plain` on a CPU one."""
     if cols.is_cuda:
-        kernels.check_cuda_tensor(cols, "cols", ndim=2)
-        C, N = (int(x) for x in cols.shape)
-        log_n = len(factors)
-        if N != 1 << log_n or C == 0:
-            raise ValueError(f"cols {tuple(cols.shape)} against "
-                             f"{log_n} factors")
-        k = min(OODS_LO_BITS, log_n)
-        dev = cols.device
-        f = from_u32(factors, dev)
-        nhi = 1 << (log_n - k)
-        G = min(nhi, max(-(-8 * 132 // C), -(-nhi // 256)))
-        partial = torch.empty((C, G, 4), dtype=torch.int32, device=dev)
-        out = torch.empty((C, 4), dtype=torch.int32, device=dev)
-        kernels.launch("oods_dot", cols.data_ptr(), C, log_n, k,
-                       f.data_ptr(), G, partial.data_ptr(), out.data_ptr(),
-                       device=dev)
-        return out.to(torch.int64)
+        return oods_dot_groups([(cols, None, factors)]).to(torch.int64)
     if cols.device.type == "cpu":
         return oods_dot_plain(cols, factors)
     raise ValueError(f"unsupported device {cols.device}")
@@ -546,13 +635,13 @@ def prove(components, log_sizes, main_traces, channel,
                 groups.setdefault((m.role, m.trace_log, o), []).append((i, oi))
         sampled = [np.zeros((len(m.offsets), 4), np.uint64)
                    for m in plan.metas]
-        dots = []
-        for (role, tlog, off), members in groups.items():
-            cols, _n = rcs[role].coeff_rows([plan.metas[i].ridx
-                                             for i, _ in members])
-            dots.append(oods_dot(cols, _oods_basis_factors(
-                tlog, _point_for(z, tlog, off))))
-        fetched = to_u32(torch.cat(dots).to(torch.int32)).astype(np.uint64)
+        # every group's rows sampled where they lie, in one K8 launch
+        fetched = to_u32(oods_dot_groups([
+            (*rcs[role].coeff_row_index([plan.metas[i].ridx
+                                         for i, _ in members]),
+             _oods_basis_factors(tlog, _point_for(z, tlog, off)))
+            for (role, tlog, off), members in groups.items()])) \
+            .astype(np.uint64)
         k = 0
         for members in groups.values():
             for i, oi in members:

@@ -123,10 +123,13 @@ def test_cpu_fill(dev):
     assert torch.equal(hist, want_hist)
 
 
-@pytest.mark.parametrize("B,M", [(1, 256), (7, 1000), (61, 1 << 12)])
+@pytest.mark.parametrize("B,M", [(1, 256), (1, 1), (7, 1000), (61, 1 << 12),
+                                 (61, 4097), (64, 777), (70, 300),
+                                 (200, 257)])
 def test_logup_columns(dev, B, M):
     """Every operand mode (M31/QM31, constant/column), a ragged last
-    block and a block-sum scan over several blocks."""
+    block and a block-sum scan over several blocks; B across K6's chunks
+    of pairs (16) and past 64."""
     from nexus_zkvm_tpu_torch.air.component import (logup_columns,
                                                     logup_columns_plain)
     rng = np.random.default_rng(B)
@@ -138,6 +141,39 @@ def test_logup_columns(dev, B, M):
             n = (1, M, 4, 4 * M)[mode]
             pieces.append(rng.integers(1, P, n, dtype=np.uint32))
             meta.append((off, mode))
+            off += n
+    src = from_u32(np.concatenate(pieces), dev)
+    meta = torch.tensor(meta, dtype=torch.int64).reshape(4, B, 2)
+    assert torch.equal(logup_columns(src, meta, M),
+                       logup_columns_plain(src, meta, M))
+
+
+@pytest.mark.parametrize("mode", range(4))
+def test_logup_columns_zero_denominators(dev, mode):
+    """Denominators of one operand mode set to 0 at the first, middle
+    and last pair of K6's chunks and across chunk boundaries (a
+    column's at a few rows, a constant at every row): f = 0 there, as
+    in the plain version, and the other pairs of each chunk unharmed."""
+    from nexus_zkvm_tpu_torch.air.component import (LOGUP_CHUNK,
+                                                    logup_columns,
+                                                    logup_columns_plain)
+    B, M, C = 2 * LOGUP_CHUNK + 5, 600, LOGUP_CHUNK
+    zero = {0, C // 2, C - 1, C, 2 * C - 1, 2 * C, B - 1}
+    rng = np.random.default_rng(mode)
+    pieces, meta, off = [], [], 0
+    for k in range(4):
+        for b in range(B):
+            m = mode if k == 1 else int(rng.integers(0, 4))
+            n = (1, M, 4, 4 * M)[m]
+            words = rng.integers(1, P, n, dtype=np.uint32)
+            if k == 1 and b in zero:
+                w = (1, 1, 4, 4)[m]
+                rows = range(n // w) if m in (0, 2) else (0, 1, 255, 256,
+                                                           M - 1)
+                for r in rows:
+                    words[w * r:w * r + w] = 0
+            pieces.append(words)
+            meta.append((off, m))
             off += n
     src = from_u32(np.concatenate(pieces), dev)
     meta = torch.tensor(meta, dtype=torch.int64).reshape(4, B, 2)
@@ -295,6 +331,42 @@ def test_oods_dot(dev, C, log_n):
     factors = np.random.default_rng(log_n).integers(
         0, P, (log_n, 4), dtype=np.uint32)
     assert torch.equal(oods_dot(cols, factors), oods_dot_plain(cols, factors))
+
+
+# (rows of the batch, log_n, rows sampled or None) a group; groups of one
+# case with equal (rows, log_n) share one batch
+_OODS_CASES = {
+    "shared": [(6, 12, None), (6, 12, [5, 0, 3]), (6, 12, [2])],
+    "small": [(40, 4, list(range(39, -1, -2))), (3, 7, None),
+              (200, 5, None), (2, 10, [1, 1, 0])],
+    "mixed": [(244, 16, None), (244, 16, [243, 7]), (9, 11, None),
+              (3, 14, [2, 0]), (70, 8, None), (1, 6, None)],
+    "large": [(3, 22, [2, 0]), (2, 20, None), (5, 21, [4])],
+}
+
+
+@pytest.mark.parametrize("words", ["random", "p"])
+@pytest.mark.parametrize("case", list(_OODS_CASES))
+def test_oods_dot_groups(dev, case, words):
+    """Many groups in one K8 launch: groups that share a batch, row
+    subsets out of order (and repeated), log_n 4..22 (k < 10 packed
+    rows included); words of p, a non-canonical zero, at every place."""
+    from nexus_zkvm_tpu_torch.prover.stark import (oods_dot_groups,
+                                                   oods_dot_groups_plain)
+    rng = np.random.default_rng(len(case))
+    batches, groups = {}, []
+    for R, n, rows in _OODS_CASES[case]:
+        if (R, n) not in batches:
+            batches[(R, n)] = (rand(dev, (R, 1 << n), seed=R + n)
+                               if words == "random" else
+                               torch.full((R, 1 << n), P, dtype=torch.int32,
+                                          device=dev))
+        groups.append((batches[(R, n)], rows,
+                       rng.integers(0, P, (n, 4), dtype=np.uint32)))
+    before = kernels.launch_counts()["oods_dot"]
+    got = oods_dot_groups(groups)
+    assert kernels.launch_counts()["oods_dot"] == before + 1
+    assert torch.equal(got, oods_dot_groups_plain(groups))
 
 
 def test_gather_openings(dev):

@@ -222,3 +222,30 @@ def test_stream_wrappers_never_take_the_plain_path(monkeypatch):
             dom, mats, dom.uniforms(rel, alpha), 4, L, hneg, alpha, alpha,
             zeros(N), zeros(N, 4))
     assert calls == [] and plain == []
+
+
+def test_oods_groups_and_logup_never_take_the_plain_path(monkeypatch):
+    """K8's one launch over many OODS groups (batches shared, rows
+    chosen) and K6's LogUp columns launch their kernels on CUDA tensors
+    and never call their plain versions."""
+    from nexus_zkvm_tpu_torch.air import component
+    from nexus_zkvm_tpu_torch.prover import stark
+    from nexus_zkvm_tpu_torch.utils.device import from_u32
+
+    calls, fake = _fake_cuda_env(monkeypatch, stark, "oods_dot_plain",
+                                 "oods_dot_groups_plain")
+    monkeypatch.setattr(component, "logup_columns_plain",
+                        lambda *a, **k: calls.append("logup"))
+    rng = np.random.default_rng(1)
+    batch = fake(from_u32(rng.integers(0, 1 << 31, (5, 16), dtype=np.uint32),
+                          "cpu"))
+    factors = rng.integers(0, 1 << 31, (4, 4), dtype=np.uint32)
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        stark.oods_dot_groups([(batch, None, factors),
+                               (batch, [4, 1], factors)])
+    src = fake(from_u32(rng.integers(1, 1 << 31, 40, dtype=np.uint32),
+                        "cpu"))
+    meta = torch.tensor([[[0, 1]], [[8, 3]], [[1, 0]], [[2, 2]]])
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        component.logup_columns(src, meta, 8)
+    assert calls == []
