@@ -9,7 +9,8 @@ The second form only times warm fib 2^20 machine proofs (phase 5's
 path) and kernel K7 at that proof's shapes (`time_k7`), the third warm
 fib 2^22 proofs in the memory mode (phase 6's path) and kernels K10 and
 K11 at that proof's shapes (`time_stream_kernels`); both then time K6
-and K8 on one more proof's own calls (`time_k6_k8`).  Each runs with
+and K8 (`time_k6_k8`) and K3 and K12 (`time_k3_k12`) on one more
+proof's own calls (`record_timing_calls`).  Each runs with
 the package of another checkout (this one by default), so that two
 checkouts can be compared on one card: run it for each in turn.
 
@@ -35,10 +36,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              operands), of the LogUp columns (K6: every component's,
              then the largest again with zero denominators), of the OODS
              dots (K8: the proof's one launch over every (role, size,
-             offset) group, then each group alone) and of the opening
-             gather (K9) is run again through the kernel and the plain
-             version on its own inputs; all of the proof's K6 launches
-             are timed in turn.  K1-K4 at that proof's shapes (see
+             offset) group, then each group alone), of the opening
+             gather (K9) and of the DEEP quotients (K3: every size
+             group, then the largest with one sample's V forced to 0)
+             is run again through the kernel and the plain version on
+             its own inputs; all of the proof's K6 and K3 launches are
+             timed in turn.  K1-K4 at that proof's shapes (see
              `check_prover_kernels`).
 3. parity  — a proof at 2^10 rows on the CPU (plain path) and on the
              card (kernels) must be equal field by field.
@@ -369,14 +372,33 @@ def check(name, shape, kernel_fn, plain_fn, nbytes, ops, timed, reps=10,
     return rec
 
 
+def quotient_epilogue_ops(S: int, points: int) -> float:
+    """Operations a point of the epilogue K3 and K12 share
+    (csrc/quotients.cu `quotient_sum`): per sample V = x dy - y dx + c0
+    (two multiply-adds, an add and a reduction a coordinate), num = sum -
+    A y - B (a multiply-add, two adds, a reduction), the norm and
+    adjugate (`NORM`), num times the adjugate (`QMUL_LAZY`), 3 products
+    of the batched inversion and the term t / m (4 products, a QM31
+    add); one M31 inverse for the thread's S x ``points`` norms."""
+    per_sample = (4 * (2 * MAD + ADD + RED) + 4 * (MAD + 2 * ADD + RED)
+                  + NORM + QMUL_LAZY + 3 * MUL + 4 * MUL + 4 * ADD)
+    return S * per_sample + M31_INV / points
+
+
 def quotient_cost(rows, M: int, gcs: np.ndarray):
     """Bytes and operations of one deep_quotients launch: the blocks and
-    the points read, the (M, 4) output written; per row, each (sample,
-    column) term's product and add in 4 coordinates, and per sample the
-    denominator's products and inverse."""
+    the points read, the (M, 4) output written; per point, each (sample,
+    column) term's 4 widening multiply-adds, every sample's fold (a mask,
+    a shift and an add a coordinate, counted as an add) after every 4
+    columns, and the epilogue (`quotient_epilogue_ops`, one inverse a
+    thread's points)."""
+    from nexus_zkvm_tpu_torch.ops.quotients import quotient_plan
+    S, K = len(gcs), sum(rows)
     nnz = int((gcs != 0).any(axis=2).sum())
-    return (4 * sum(rows) * M + 8 * M + 16 * M,
-            M * (nnz * 4 * (MUL + 2) + len(gcs) * (3 * QM31_MUL + QM31_INV)))
+    points = quotient_plan(rows, M, S)["points"]
+    return (4 * K * M + 8 * M + 16 * M,
+            M * (nnz * 4 * MAD + S * 4 * -(-K // 4) * ADD
+                 + quotient_epilogue_ops(S, points)))
 
 
 def check_kernels(full: bool = True) -> dict:
@@ -573,12 +595,14 @@ RECORDED = {
                         "oods_dot_groups"),
     "decommit_many_fused": ("nexus_zkvm_tpu_torch.ops.merkle",
                             "decommit_many_fused"),
+    "accumulate_blocks": ("nexus_zkvm_tpu_torch.ops.quotients",
+                          "accumulate_blocks"),
 }
 
 
 def record_main_path(n: int, device="cuda"):
     """Prove the fib guest at ``n`` on the card with the wrappers of
-    K6-K9 wrapped: each call's arguments are kept (the composition's
+    K3 and K6-K9 wrapped: each call's arguments are kept (the composition's
     bucket as it was before the call) and the call goes on.  Returns
     (log sizes, {name: [args]})."""
     import importlib
@@ -647,17 +671,18 @@ def zero_denominators(src, meta, M: int, chunk: int):
 
 
 def check_recorded(calls, timed_run: bool) -> dict:
-    """Every recorded call of K6-K9 again through the kernel and its
-    plain version, uint32-exact, K6 also on operands with zero
-    denominators and K8 on all of the proof's groups in its one launch
-    and on each group alone; timed (``timed_run``) at the largest: the
-    CPU component's composition and operands (K7) and LogUp columns (K6),
-    K8's launch and its largest group, the whole opening gather (K9);
-    and all of the proof's K6 launches in turn."""
+    """Every recorded call of K3 and K6-K9 again through the kernel and
+    its plain version, uint32-exact, K6 also on operands with zero
+    denominators, K3 on its largest group with a zero V and K8 on all of
+    the proof's groups in its one launch and on each group alone; timed
+    (``timed_run``) at the largest: the CPU component's composition and
+    operands (K7) and LogUp columns (K6), K8's launch and its largest
+    group, the whole opening gather (K9); and all of the proof's K6 and
+    K3 launches in turn."""
     import torch
     from nexus_zkvm_tpu_torch.air import component as cmp, tape as tp, \
         tape_cuda
-    from nexus_zkvm_tpu_torch.ops import merkle
+    from nexus_zkvm_tpu_torch.ops import merkle, quotients
     from nexus_zkvm_tpu_torch.prover import stark
     out = {}
 
@@ -755,6 +780,33 @@ def check_recorded(calls, timed_run: bool) -> dict:
                8 * words + 8 * (9 * len(pieces)
                                 + sum(len(p.idx) for p in pieces)),
                0, timed_run, plain_reps=3))
+    # K3: every size group's quotients (the proof's own evaluations and
+    # coefficients), the largest again with its first sample's V forced
+    # to 0 (dx = dy = 0); all of the proof's launches in turn
+    qcalls = sorted(calls["accumulate_blocks"],
+                    key=lambda a: -int(a[4].shape[1]) * int(a[1].shape[0]))
+    for blocks, xs, ys, consts, gcs in qcalls:
+        check("deep_quotients", [int(gcs.shape[0]), int(gcs.shape[1]),
+                                 int(xs.shape[0])],
+              lambda: quotients.accumulate_blocks(blocks, xs, ys, consts,
+                                                  gcs),
+              lambda: quotients.accumulate_blocks_plain(blocks, xs, ys,
+                                                        consts, gcs),
+              0, 0, False)
+    blocks, xs, ys, consts, gcs = qcalls[0]
+    zconsts = consts.clone()
+    zconsts[0, 2:4] = 0
+    check("deep_quotients", [int(gcs.shape[1]), int(xs.shape[0]), "zero V"],
+          lambda: quotients.accumulate_blocks(blocks, xs, ys, zconsts, gcs),
+          lambda: quotients.accumulate_blocks_plain(blocks, xs, ys, zconsts,
+                                                    gcs), 0, 0, False)
+    if timed_run:
+        emit({"phase": "quotient_groups", "launches": len(qcalls),
+              "shapes": [[int(a[4].shape[0]), int(a[4].shape[1]),
+                          int(a[1].shape[0])] for a in qcalls],
+              "all_groups_ms": cuda_ms(lambda: [
+                  quotients.accumulate_blocks(*a) for a in qcalls], 3)})
+    del qcalls, blocks, zconsts
     emit({"phase": "recorded", "compositions": len(comps),
           "operand_tapes": len(ops), "logup_launches": len(logups),
           "oods_groups": len(groups),
@@ -1319,8 +1371,9 @@ def check_stream_kernels(comps, log_sizes) -> dict:
                lambda: quotients.colsum_finalize(acc, xs, ys, consts),
                lambda: quotients.colsum_finalize_plain(acc, xs, ys, consts),
                16 * S * M + 8 * M + 16 * M,
-               M * S * (3 * QM31_MUL + QM31_INV), True, reps=5,
-               plain_reps=1))
+               M * quotient_epilogue_ops(
+                   S, quotients.QUOTIENT_PLAN["finalize_points"]), True,
+               reps=5, plain_reps=1))
     del acc, chunk
     # K7: the second pass of the CPU component
     ev = n + 2
@@ -1765,23 +1818,24 @@ def time_stream_kernels(comps, log_sizes, reps: int = 20) -> None:
           "quotient_colsums_ms": k11_ms, "k11_shape": [S, c, M]})
 
 
-def time_k6_k8(n: int, reps: int = 5) -> None:
-    """K6 and K8 with the package on the path, on the calls of one fib
-    proof at n (recorded as `record_main_path` does, with whichever K8
-    entry the package's prover calls): the largest LogUp launch and all
-    of the proof's in turn; the largest OODS group and every group of
-    the proof, as that package issues them (one launch of
-    ``oods_dot_groups``, or one ``oods_dot`` a gathered group).  ms by
-    CUDA events; the calls' inputs are the proof's own."""
-    import torch
+def record_timing_calls(n: int) -> dict:
+    """One fib proof at n with the package on the path, keeping the
+    calls of K6 (`logup_columns`), K8 (whichever entry that package's
+    prover calls: ``oods_dot_groups``, or ``oods_dot`` a gathered
+    group), K3 (`accumulate_blocks`) and K12 (`colsum_finalize`):
+    {"logup", "oods", "quotients", "finalize": [args], "k8": entry}."""
     from nexus_zkvm_tpu_torch.air import tape
+    from nexus_zkvm_tpu_torch.ops import quotients
     from nexus_zkvm_tpu_torch.prover import stark
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     k8 = "oods_dot_groups" if hasattr(stark, "oods_dot_groups") else \
         "oods_dot"
-    calls = {"logup": [], "oods": []}
+    calls = {"logup": [], "oods": [], "quotients": [], "finalize": [],
+             "k8": k8}
     saved = [(mod, fn, key, getattr(mod, fn)) for mod, fn, key in (
-        (tape, "logup_columns", "logup"), (stark, k8, "oods"))]
+        (tape, "logup_columns", "logup"), (stark, k8, "oods"),
+        (quotients, "accumulate_blocks", "quotients"),
+        (quotients, "colsum_finalize", "finalize"))]
     for mod, fn, key, orig in saved:
         def wrapped(*args, _orig=orig, _key=key):
             calls[_key].append(args)
@@ -1793,6 +1847,18 @@ def time_k6_k8(n: int, reps: int = 5) -> None:
     finally:
         for mod, fn, _key, orig in saved:
             setattr(mod, fn, orig)
+    return calls
+
+
+def time_k6_k8(calls: dict, n: int, reps: int = 5) -> None:
+    """K6 and K8 with the package on the path, on the calls of one fib
+    proof at n (`record_timing_calls`): the largest LogUp launch and all
+    of the proof's in turn; the largest OODS group and every group of
+    the proof, as that package issues them (one launch of
+    ``oods_dot_groups``, or one ``oods_dot`` a gathered group).  ms by
+    CUDA events; the calls' inputs are the proof's own."""
+    from nexus_zkvm_tpu_torch.air import tape
+    from nexus_zkvm_tpu_torch.prover import stark
     lg = sorted(calls["logup"], key=lambda a: -a[2])
     k6 = tape.logup_columns
     rec = {"phase": "time_k6_k8", "package": str(Path(stark.__file__)
@@ -1801,7 +1867,7 @@ def time_k6_k8(n: int, reps: int = 5) -> None:
            "logup_ms": cuda_ms(lambda: k6(*lg[0]), reps),
            "logup_launches": len(lg),
            "logup_all_ms": cuda_ms(lambda: [k6(*a) for a in lg], reps)}
-    if k8 == "oods_dot_groups":
+    if calls["k8"] == "oods_dot_groups":
         (groups,), = calls["oods"]
         big = max(groups, key=lambda g: (g[0].shape[0] if g[1] is None
                                          else len(g[1])) * g[0].shape[1])
@@ -1820,8 +1886,29 @@ def time_k6_k8(n: int, reps: int = 5) -> None:
                    oods_groups=len(groups),
                    oods_all_ms=cuda_ms(lambda: [stark.oods_dot(*g)
                                                 for g in groups], reps))
-    del calls, lg, groups, big
-    torch.cuda.empty_cache()
+    emit(rec)
+
+
+def time_k3_k12(calls: dict, n: int, reps: int = 5) -> None:
+    """K3 and K12 with the package on the path, on the calls of one fib
+    proof at n (`record_timing_calls`): K3 on the largest size group and
+    on all of the proof's groups in turn, K12 on the proof's own calls
+    (the memory mode's streamed groups; none in a resident proof).  ms
+    by CUDA events."""
+    from nexus_zkvm_tpu_torch.ops import quotients
+    qs = sorted(calls["quotients"],
+                key=lambda a: -int(a[4].shape[1]) * int(a[1].shape[0]))
+    k3 = quotients.accumulate_blocks
+    rec = {"phase": "time_k3_k12", "package": str(Path(quotients.__file__)
+                                                 .resolve().parents[1]),
+           "n": n, "quotients_shape": [int(x) for x in (
+               qs[0][4].shape[0], qs[0][4].shape[1], qs[0][1].shape[0])],
+           "quotients_ms": cuda_ms(lambda: k3(*qs[0]), reps),
+           "quotients_launches": len(qs),
+           "quotients_all_ms": cuda_ms(lambda: [k3(*a) for a in qs], reps),
+           "finalize": [{"shape": list(a[0].shape[:2]), "ms": cuda_ms(
+               lambda: quotients.colsum_finalize(*a), reps)}
+               for a in calls["finalize"]]}
     emit(rec)
 
 
@@ -1854,13 +1941,16 @@ def main() -> int:
         # fib 2^20 (resident), then K7 at that proof's shapes
         time_proofs("time_machine", FIB_N)
         time_k7()
-        time_k6_k8(FIB_N)
-        return 0
-    if timing == "--time-stream":
-        # fib 2^22 (the memory mode), then K10, K11, K6 and K8 at its
-        # shapes
+        n = FIB_N
+    elif timing == "--time-stream":
+        # fib 2^22 (the memory mode), then K10 and K11 at its shapes
         time_stream_kernels(*time_proofs("time_stream", FIB_STREAM_N))
-        time_k6_k8(FIB_STREAM_N)
+        n = FIB_STREAM_N
+    if timing:
+        # then K6, K8, K3 and K12 on one more proof's own calls
+        calls = record_timing_calls(n)
+        time_k6_k8(calls, n)
+        time_k3_k12(calls, n)
         return 0
     t0 = time.perf_counter()
     kernels.build()

@@ -17,24 +17,17 @@
 // copies the table into shared memory once; the wrapper keeps its device
 // copy per tape.
 //
-// Batched inversion.  1/den of a QM31 den = A + B u is
-//   (A - B u) conj(c) / |c|^2,  c = A^2 - R B^2 (CM31), |c|^2 in M31,
-// so every pair needs one M31 inverse (of |c|^2, or of den itself when
-// den is M31).  A thread takes its row's pairs kChunk at a time: for
-// each it keeps t = num (A - B u) conj(c) (QM31), its norm m and the
-// product of the norms before it, in registers; one inverse of the
-// chunk's product (37 products) then gives every 1/m by Montgomery's
-// trick, 3 M31 products a pair, and f_b = t / m.  A zero den has m = 0
-// and f_b = 0 (the ladder's inv(0) = 0, as the plain version has it):
-// its m is replaced by 1 in the product chain and its inverse forced to
-// 0, so one zero does not poison its chunk.
-//
-// Lazy products.  The kernel's QM31 and CM31 products sum the raw
-// 64-bit products of each output coordinate (at most four, each below
-// 2^62 for words below 2^31, p - y standing for -y) and reduce once;
-// a single product folds once (below 2^62 it leaves at most 2p - 1).
-// Against m31.cuh's products, which reduce every product twice, this
-// is about half the instructions.
+// Batched inversion and lazy products (qm31_lazy.cuh).  Every pair
+// needs one M31 inverse: of the norm |c|^2 of its QM31 denominator, or of
+// the denominator itself when it is M31.  A thread takes its row's pairs
+// kChunk at a time: for each it keeps t = num (A - B u) conj(c) (QM31)
+// and its norm m in registers; one inverse of the chunk's product (37
+// products) then gives every 1/m by Montgomery's trick, 3 M31 products a
+// pair, and f_b = t / m.  A zero den has m = 0 and f_b = 0 (the ladder's
+// inv(0) = 0, as the plain version has it): its m is replaced by 1 in
+// the product chain and its inverse forced to 0, so one zero does not
+// poison its chunk.  The QM31 and CM31 products reduce each coordinate's
+// raw 64-bit sum once, about half the instructions of m31.cuh's.
 //
 // Three passes, launched together:
 //   1. one thread per row: every pair's fraction, the running sum S_b
@@ -59,7 +52,7 @@
 // reduced), against at most 80 bytes moved.  The chunk is 8: at 16 the
 // thread's t, m and prefixes leave room for one block an SM, and the
 // kernel ran slower.
-#include "m31.cuh"
+#include "qm31_lazy.cuh"
 
 namespace {
 
@@ -88,36 +81,6 @@ __device__ __forceinline__ operand load_operand(const uint32_t* __restrict__ src
       return {{__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3)}, false};
     }
   }
-}
-
-// Lazily reduced products: a sum of at most four products of words
-// below 2^31 stays below 2^64 and is reduced once.
-__device__ __forceinline__ uint64_t prod(uint32_t a, uint32_t b) {
-  return (uint64_t)a * b;
-}
-
-// a * b for words below 2^31: the product is below 2^62, so one fold
-// leaves at most 2p - 1 and one subtract makes it canonical
-__device__ __forceinline__ uint32_t mul31(uint32_t a, uint32_t b) {
-  const uint64_t t = prod(a, b);
-  const uint32_t r = ((uint32_t)t & NZT_P) + (uint32_t)(t >> 31);
-  return r >= NZT_P ? r - NZT_P : r;
-}
-
-// (A + B u)(C + D u) = A C + B (R D) + (A D + B C) u, each coordinate
-// four products reduced once (p - y stands for -y)
-__device__ __forceinline__ qm31 qmul(qm31 x, qm31 y) {
-  const uint32_t z0 = m31_sub(m31_add(y.c, y.c), y.d);
-  const uint32_t z1 = m31_add(m31_add(y.d, y.d), y.c);
-  const uint32_t ny1 = NZT_P - y.b, ny3 = NZT_P - y.d, nz1 = NZT_P - z1;
-  return {m31_reduce64(prod(x.a, y.a) + prod(x.b, ny1) + prod(x.c, z0) + prod(x.d, nz1)),
-          m31_reduce64(prod(x.a, y.b) + prod(x.b, y.a) + prod(x.c, z1) + prod(x.d, z0)),
-          m31_reduce64(prod(x.a, y.c) + prod(x.b, ny3) + prod(x.c, y.a) + prod(x.d, ny1)),
-          m31_reduce64(prod(x.a, y.d) + prod(x.b, y.c) + prod(x.c, y.b) + prod(x.d, y.a))};
-}
-
-__device__ __forceinline__ qm31 qmul31(qm31 x, uint32_t s) {
-  return {mul31(x.a, s), mul31(x.b, s), mul31(x.c, s), mul31(x.d, s)};
 }
 
 // x * y, in M31 where a factor is M31
@@ -174,20 +137,8 @@ struct over_norm_t {
 
 __device__ __forceinline__ over_norm_t over_norm(operand num, operand den) {
   if (den.base) return {num.v, den.v.a};
-  const uint32_t a0 = den.v.a, a1 = den.v.b, b0 = den.v.c, b1 = den.v.d;
-  // A^2, B^2, c = A^2 - R B^2, m = |c|^2, (A - B u) conj(c)
-  const uint32_t sa0 = m31_reduce64(prod(a0, a0) + prod(a1, NZT_P - a1));
-  const uint32_t sa1 = m31_reduce64(2 * prod(a0, a1));
-  const uint32_t sb0 = m31_reduce64(prod(b0, b0) + prod(b1, NZT_P - b1));
-  const uint32_t sb1 = m31_reduce64(2 * prod(b0, b1));
-  const cm31 c = cm31_sub({sa0, sa1}, cm31_mul_r({sb0, sb1}));
-  const uint32_t m = m31_reduce64(prod(c.a, c.a) + prod(c.b, c.b));
-  const uint32_t nc0 = NZT_P - c.a, nc1 = NZT_P - c.b;
-  const qm31 adj = {m31_reduce64(prod(a0, c.a) + prod(a1, c.b)),
-                    m31_reduce64(prod(a1, c.a) + prod(a0, nc1)),
-                    m31_reduce64(prod(b0, nc0) + prod(b1, nc1)),
-                    m31_reduce64(prod(b0, c.b) + prod(b1, nc0))};
-  return {num.base ? qmul31(adj, num.v.a) : qmul(num.v, adj), m};
+  const norm_adj_t n = norm_adj(den.v);
+  return {num.base ? qmul31(n.adj, num.v.a) : qmul(num.v, n.adj), n.m};
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -217,19 +168,13 @@ logup_rows(const uint32_t* __restrict__ src, const long long* __restrict__ meta,
               over_norm(op_add(op_mul(n1, d2), op_mul(n2, d1)), op_mul(d1, d2));
           t[j] = f.t;
           m[j] = f.m;
-          before[j] = chain;
-          chain = mul31(chain, m[j] ? m[j] : 1u);
+          before[j] = chain_push(chain, m[j]);
         }
       }
       uint32_t inv = m31_inv(chain);            // 1 / (m_0 .. m_j), zeros as 1
 #pragma unroll
-      for (int j = kChunk - 1; j >= 0; --j) {
-        if (b0 + j < B) {
-          const uint32_t mi = m[j] ? mul31(inv, before[j]) : 0u;
-          inv = mul31(inv, m[j] ? m[j] : 1u);
-          t[j] = qmul31(t[j], mi);
-        }
-      }
+      for (int j = kChunk - 1; j >= 0; --j)
+        if (b0 + j < B) t[j] = qmul31(t[j], chain_pop(inv, m[j], before[j]));
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
         const int b = b0 + j;

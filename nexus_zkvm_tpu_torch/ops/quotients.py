@@ -46,10 +46,20 @@ from ..utils.device import from_u32
 __all__ = ["PointSample", "n_terms", "prep_args_full", "accumulate_blocks",
            "accumulate_blocks_plain", "accumulate_quotients", "colsum_fold",
            "colsum_fold_plain", "colsum_finalize", "colsum_finalize_plain",
-           "QuotientsAt", "MAX_SAMPLES", "MAX_ROLES"]
+           "QuotientsAt", "MAX_SAMPLES", "MAX_ROLES", "QUOTIENT_PLAN",
+           "quotient_plan"]
 
 MAX_SAMPLES = 8     # samples (OODS points) per size group the kernel takes
 MAX_ROLES = 4       # per-role column blocks (pre, main, inter, comp)
+
+# The shapes of kernels K3 and K12 (csrc/quotients.cu): K3's threads a
+# block and, for S samples (`k3_shape`), its points a thread, columns a
+# stage and stages in the ring, "few" up to S = few_samples and "many"
+# past it; K12's threads a block and points a thread
+QUOTIENT_PLAN = {"threads": 256, "few_samples": 2,
+                 "few": {"points": 4, "cols": 8, "stages": 3},
+                 "many": {"points": 1, "cols": 32, "stages": 2},
+                 "finalize_threads": 128, "finalize_points": 2}
 
 
 @dataclass
@@ -184,6 +194,25 @@ def colsum_finalize_plain(acc, x_p, y_p, consts) -> torch.Tensor:
 # CUDA kernel K3 and the public entry points
 # ---------------------------------------------------------------------------
 
+def quotient_plan(rows, M: int, S: int) -> dict:
+    """K3's work for role blocks of ``rows`` rows, M points and S samples,
+    as the kernel divides it: block b owns points [b run, b run + n_b)
+    (n_b = min(run, M - b run)); stage i holds the group's columns
+    [i cols, (i + 1) cols) in ring slot i % stages, column k read from
+    role block r, row j.  {"points", "cols", "stages", "run", "blocks",
+    "n": [n_b], "where": [[(r, j), ...] a stage]}."""
+    shape = dict(QUOTIENT_PLAN["few" if S <= QUOTIENT_PLAN["few_samples"]
+                               else "many"])
+    run = QUOTIENT_PLAN["threads"] * shape["points"]
+    c = shape["cols"]
+    where = [(r, j) for r, n in enumerate(rows) for j in range(n)]
+    stages = [where[k0:k0 + c] for k0 in range(0, len(where), c)]
+    blocks = -(-M // run)
+    return {**shape, "run": run, "blocks": blocks,
+            "n": [min(run, M - b * run) for b in range(blocks)],
+            "where": stages}
+
+
 def accumulate_blocks(blocks, x_p, y_p, consts, gcs) -> torch.Tensor:
     """Combined quotients of one size group: (M, 4) int32, committed
     order.  Same arguments as :func:`accumulate_blocks_plain`."""
@@ -201,6 +230,12 @@ def accumulate_blocks(blocks, x_p, y_p, consts, gcs) -> torch.Tensor:
                 b.shape[1] != M for b in blocks) or tuple(consts.shape) != (
                 S, 6, 4):
             raise ValueError("block rows, gcs and consts shapes disagree")
+        # each stage's runs arrive by bulk copies of 16-byte units
+        if M % 4 or any(t.data_ptr() % 16 for t in [gcs, *blocks]
+                        if t.numel()):
+            raise ValueError(f"kernel K3 copies 16-byte units: M ({M}) "
+                             f"must be a multiple of 4 and the blocks and "
+                             f"gcs 16-byte aligned")
         out = torch.empty((M, 4), dtype=torch.int32, device=x_p.device)
         ptrs = [b.data_ptr() for b in blocks] + [0] * (MAX_ROLES - len(blocks))
         rows = [int(b.shape[0]) for b in blocks] + [0] * (MAX_ROLES

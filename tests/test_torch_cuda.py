@@ -75,18 +75,63 @@ def test_blake2s(dev, W):
                        blake2s.hash_rows_plain(layer.reshape(-1, 16)))
 
 
-def test_quotients(dev):
-    s, rows = 9, (1, 7, 8)
-    blocks = [rand(dev, (r, 1 << s), seed=i) for i, r in enumerate(rows)]
-    gcs_np = np.random.default_rng(3).integers(0, P, (2, 16, 4),
-                                               dtype=np.uint32)
-    gcs_np[1, ::2] = 0
-    gcs = from_u32(gcs_np, dev)
-    consts = rand(dev, (2, 6, 4), seed=4)
+# K3: (samples, role block rows, log M, word): every S; K = 1, 15, 17 and
+# the fib 2^20 proof's 438 (roles of 1, 193 and 244 rows, so stages
+# straddle role boundaries); M from 4 points (one short block) to 2^21;
+# every word and coefficient p - 1; a sample whose V is 0 everywhere
+_Q_CASES = {
+    "S1_K1": (1, (1,), 2, None),
+    "S2_K15": (2, (15,), 3, None),
+    "S3_K17_roles": (3, (1, 7, 9), 9, None),
+    "S4_stage_edge": (4, (16, 1), 8, None),
+    "S5_K17": (5, (17,), 10, None),
+    "S6_K438": (6, (1, 193, 244), 13, None),
+    "S7_K31": (7, (14, 17), 16, None),
+    "S8_K438_2^21": (8, (1, 193, 244), 21, None),
+    "S3_K438_2^21": (3, (1, 193, 244), 21, None),
+    "words_p-1": (3, (1, 193, 244), 11, P - 1),
+    "zero_V": (4, (5, 12), 9, "zero_v"),
+}
+
+
+@pytest.mark.parametrize("case", list(_Q_CASES))
+def test_quotients(dev, case):
+    S, rows, s, words = _Q_CASES[case]
+    rng = np.random.default_rng(len(case) * 100 + S)
+    M, K = 1 << s, sum(rows)
+    if words == P - 1:
+        blocks = [from_u32(np.full((r, M), P - 1, np.uint32), dev)
+                  for r in rows]
+        gcs_np = np.full((S, K, 4), P - 1, np.uint32)
+    else:
+        blocks = [rand(dev, (r, M), seed=i + s) for i, r in enumerate(rows)]
+        gcs_np = rng.integers(0, P, (S, K, 4), dtype=np.uint32)
+        for i in range(1, S):               # columns absent from a sample
+            gcs_np[i, rng.random(K) < 0.6] = 0
+    consts_np = rng.integers(0, P, (S, 6, 4), dtype=np.uint32)
+    if words == "zero_v":
+        consts_np[1, 2:4] = 0               # dx = dy = 0: V = 0
+    gcs, consts = from_u32(gcs_np, dev), from_u32(consts_np, dev)
     xs, ys = circle.dev_committed_points(s, dev)
+    before = kernels.launch_counts()["deep_quotients"]
+    got = quotients.accumulate_blocks(blocks, xs, ys, consts, gcs)
+    assert kernels.launch_counts()["deep_quotients"] == before + 1
     assert torch.equal(
-        quotients.accumulate_blocks(blocks, xs, ys, consts, gcs),
-        quotients.accumulate_blocks_plain(blocks, xs, ys, consts, gcs))
+        got, quotients.accumulate_blocks_plain(blocks, xs, ys, consts, gcs))
+
+
+def test_quotients_refuses_what_the_copies_cannot_take(dev):
+    """K3's bulk copies move 16-byte units: M must be a multiple of 4
+    and every block 16-byte aligned; the wrapper raises otherwise."""
+    xs, ys = circle.dev_committed_points(3, dev)
+    consts, gcs = rand(dev, (1, 6, 4), seed=1), rand(dev, (1, 2, 4), seed=2)
+    with pytest.raises(ValueError, match="16-byte"):
+        quotients.accumulate_blocks([rand(dev, (2, 2), seed=3)], xs[:2],
+                                    ys[:2], consts, gcs)
+    flat = rand(dev, (2 * 8 + 1,), seed=4)
+    with pytest.raises(ValueError, match="16-byte"):
+        quotients.accumulate_blocks([flat[1:].reshape(2, 8)], xs, ys, consts,
+                                    gcs)
 
 
 def test_fri_fold(dev):
@@ -448,6 +493,24 @@ def test_quotient_colsums_and_finalize(dev, log_m, width, brev):
     xs, ys = rand(dev, (M,), seed=15), rand(dev, (M,), seed=16)
     assert torch.equal(quotients.colsum_finalize(got, xs, ys, consts),
                        quotients.colsum_finalize_plain(got, xs, ys, consts))
+    consts[1, 2:4] = 0                      # a sample whose V is 0
+    assert torch.equal(quotients.colsum_finalize(got, xs, ys, consts),
+                       quotients.colsum_finalize_plain(got, xs, ys, consts))
+
+
+@pytest.mark.parametrize("S", range(1, 9))
+def test_quotient_finalize(dev, S):
+    """K12 for every S, at M of one point, a ragged last block and 2^12,
+    a zero V at the first and last sample."""
+    for M in (1, 257, 1 << 12):
+        acc = rand(dev, (S, M, 4), seed=20 + S)
+        consts = rand(dev, (S, 6, 4), seed=21 + S)
+        consts[0, 2:4] = 0
+        consts[S - 1, 2:4] = 0
+        xs, ys = rand(dev, (M,), seed=22), rand(dev, (M,), seed=23)
+        assert torch.equal(quotients.colsum_finalize(acc, xs, ys, consts),
+                           quotients.colsum_finalize_plain(acc, xs, ys,
+                                                           consts)), M
 
 
 def test_sharded_commit_on_the_card(dev):

@@ -249,3 +249,24 @@ def test_oods_groups_and_logup_never_take_the_plain_path(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         component.logup_columns(src, meta, 8)
     assert calls == []
+
+
+def test_quotient_wrappers_never_take_the_plain_path(monkeypatch):
+    """K3's DEEP quotients over role blocks (a stage across two roles)
+    and K12's finalize launch their kernels on CUDA tensors and never
+    call their plain versions."""
+    from nexus_zkvm_tpu_torch.ops import quotients
+
+    calls, fake = _fake_cuda_env(monkeypatch, quotients,
+                                 "accumulate_blocks_plain",
+                                 "colsum_finalize_plain")
+
+    def zeros(*shape):
+        return fake(torch.zeros(shape, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        quotients.accumulate_blocks([zeros(3, 8), zeros(14, 8)], zeros(8),
+                                    zeros(8), zeros(2, 6, 4), zeros(2, 17, 4))
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        quotients.colsum_finalize(zeros(3, 8, 4), zeros(8), zeros(8),
+                                  zeros(3, 6, 4))
+    assert calls == []
