@@ -9,8 +9,10 @@ The second form only times warm fib 2^20 machine proofs (phase 5's
 path) and kernel K7 at that proof's shapes (`time_k7`), the third warm
 fib 2^22 proofs in the memory mode (phase 6's path) and kernels K10 and
 K11 at that proof's shapes (`time_stream_kernels`); both then time K6
-and K8 (`time_k6_k8`) and K3 and K12 (`time_k3_k12`) on one more
-proof's own calls (`record_timing_calls`).  Each runs with
+and K8 (`time_k6_k8`), K3 and K12 (`time_k3_k12`) and K9 (`time_k9`:
+the opening gather, its host tables and the whole opening call; the
+memory mode's streamed chunk gather) on one more proof's own calls
+(`record_timing_calls`).  Each runs with
 the package of another checkout (this one by default), so that two
 checkouts can be compared on one card: run it for each in turn.
 
@@ -37,7 +39,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              then the largest again with zero denominators), of the OODS
              dots (K8: the proof's one launch over every (role, size,
              offset) group, then each group alone), of the opening
-             gather (K9) and of the DEEP quotients (K3: every size
+             gather (K9: its host tables timed, the five largest pieces
+             printed) and of the DEEP quotients (K3: every size
              group, then the largest with one sample's V forced to 0)
              is run again through the kernel and the plain version on
              its own inputs; all of the proof's K6 and K3 launches are
@@ -75,7 +78,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              must equal the default route's and its peak device memory
              must be lower.  Then the memory mode's kernels (K10-K12, and
              K7 over one pass) against their plain versions, timed, at
-             the shapes of phase 6.
+             the shapes of phase 6; and K9 on every streamed chunk's
+             gather of one more 2^22 proof, then timed at that chunk's
+             shape beside `torch.index_select` (`check_stream_gathers`).
 8. parallel — the prover over a mesh (``nexus_zkvm_tpu_torch.parallel``),
              each rank a process: 4 gloo ranks sharing the card commit
              the interaction's shape of phase 5 sharded (root equal to
@@ -91,7 +96,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              proof), times at that path's shapes; ``circle_fft`` adds
              ``extend``, the composition's zero-extending LDE (see
              `check_prover_kernels`), and ``oods_dot`` ``all_groups``,
-             its launch over all of a proof's groups.
+             its launch over all of a proof's groups, ``gather_openings``
+             ``streamed_chunk``, the memory mode's gather beside
+             ``torch.index_select`` (its ``library_ms``; no PyTorch call
+             gathers a whole proof's openings), and the Blake2s kernels'
+             (K2, K10) ``int_pipe_bound_ms``.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device
 the script exits with code 2 and prints no result.
@@ -102,7 +111,11 @@ Bounds: the least time the card could take, the larger of bytes moved
 limit, 4 schedulers x 32 lanes = 128 lane operations per SM per clock
 (132 SMs, 1.98 GHz), which is the table's 67 TFLOP/s float32 rate with
 an FMA counted as one operation; the INT32 pipe alone (64 lanes per SM)
-is half of it, so the bound is a floor, not a target.  Operation counts
+is half of it, so the bound is a floor, not a target; the Blake2s
+kernels' lines (K2, K10) add ``int_pipe_bound_ms``, the same operations
+at that half rate, since every Blake2s operation (IADD3, LOP3, SHF/PRMT)
+runs on that pipe.  K9's times are queued behind a sleep (`cuda_ms`): a
+launch of a few us would otherwise time the host.  Operation counts
 follow a simple model: an M31 product (widening multiply and fold) is 6
 operations, an M31 add or subtract 3, a widening multiply-add into a
 uint64 sum 2 and that sum's reduction 6 (K6's lazy products, K8's
@@ -128,6 +141,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
+# the INT32 pipe alone: 64 lanes an SM a clock
+INT_PIPE_OPS_PER_S = INT32_OPS_PER_S / 2
+# cycles of `torch.cuda._sleep` that timed launches queue behind (about
+# 50 ms at 1.98 GHz), so that their events measure the card, not the
+# host's launches
+QUEUE_CYCLES = 100_000_000
 MUL, ADD = 6, 3
 P31 = (1 << 31) - 1
 COMPRESS = 80 * 12 + 8
@@ -237,18 +256,35 @@ def bound(nbytes: float, ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """ms a call of ``fn`` by CUDA events over ``reps`` calls after a
+    warm one; ``queued``: the calls are launched behind a sleep of
+    QUEUE_CYCLES, so the events time the card's work alone (a call of a
+    few us would otherwise time the host's launch)."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn) -> float:
+    """ms of one call of ``fn`` on the host's clock, the card
+    synchronized before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def max_abs_err(a, b) -> int:
@@ -338,11 +374,13 @@ FILL_ROW_OPS = 600
 
 
 def check(name, shape, kernel_fn, plain_fn, nbytes, ops, timed, reps=10,
-          plain_reps=2, timed_fn=None):
+          plain_reps=2, timed_fn=None, queued=False, int_pipe=False):
     """Run the kernel and its plain version on the same inputs; raise
     unless their outputs are equal; time both when ``timed`` (the kernel
     through ``timed_fn`` where given: a launch that updates a buffer in
-    place, with no copy to time beside it)."""
+    place, with no copy to time beside it; ``queued``: behind a sleep,
+    see `cuda_ms`).  ``int_pipe``: add the operations' time at the INT32
+    pipe's rate (`int_pipe_bound_ms`)."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     before = kernels.launch_counts()[name]
@@ -365,9 +403,11 @@ def check(name, shape, kernel_fn, plain_fn, nbytes, ops, timed, reps=10,
            "max_abs_err": 0}
     if timed:
         b_ms, b_by = bound(nbytes, ops)
-        rec.update(ms=cuda_ms(timed_fn or kernel_fn, reps),
+        rec.update(ms=cuda_ms(timed_fn or kernel_fn, reps, queued),
                    plain_ms=cuda_ms(plain_fn, plain_reps),
                    bound_ms=b_ms, bound_by=b_by)
+        if int_pipe:
+            rec["int_pipe_bound_ms"] = ops / INT_PIPE_OPS_PER_S * 1e3
     emit(rec)
     return rec
 
@@ -761,25 +801,29 @@ def check_recorded(calls, timed_run: bool) -> dict:
         emit({"phase": "oods_groups", "groups": len(groups),
               "all_groups_ms": everything["ms"],
               "all_groups_bound_ms": everything["bound_ms"]})
-    # K9: the proof's openings, one gather; its host tables (descriptors,
-    # indices) are built once and timed apart from the launch
+    # K9: the proof's openings, one gather; its host tables (the plan
+    # packed and copied to the card) are built once and timed apart from
+    # the launch
     (args,) = calls["decommit_many_fused"]
     pieces = []
     for item in args[0]:
         vals, sibs = merkle._pieces(*item)
         pieces += vals + sibs
     words = sum(p.words for p in pieces)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    tables_ms = [host_ms(lambda: merkle.gather_tables(pieces))
+                 for _ in range(21)]
     tables = merkle.gather_tables(pieces)
-    torch.cuda.synchronize()
-    tables_ms = (time.perf_counter() - t0) * 1e3
-    keep(check("gather_openings", [len(pieces), words],
-               lambda: merkle.gather_launch(*tables),
-               lambda: merkle.gather_openings_plain(pieces),
-               8 * words + 8 * (9 * len(pieces)
-                                + sum(len(p.idx) for p in pieces)),
-               0, timed_run, plain_reps=3))
+    rec = check("gather_openings", [len(pieces), words],
+                lambda: merkle.gather_launch(*tables),
+                lambda: merkle.gather_openings_plain(pieces),
+                8 * words + 8 * int(tables[0].numel()), 0, timed_run,
+                plain_reps=3, queued=True)
+    if timed_run:
+        rec.update(units=tables[2], library_ms=None,
+                   library_note="no single PyTorch call gathers a proof's "
+                   "value and digest pieces into one buffer")
+    keep(rec)
+    largest = sorted(pieces, key=lambda p: -p.words)[:5]
     # K3: every size group's quotients (the proof's own evaluations and
     # coefficients), the largest again with its first sample's V forced
     # to 0 (dx = dy = 0); all of the proof's launches in turn
@@ -811,7 +855,12 @@ def check_recorded(calls, timed_run: bool) -> dict:
           "operand_tapes": len(ops), "logup_launches": len(logups),
           "oods_groups": len(groups),
           "opening_pieces": len(pieces), "opening_words": words,
-          "gather_tables_host_ms": tables_ms,
+          "opening_units": tables[2],
+          "gather_tables_host_ms": float(np.median(tables_ms)),
+          "gather_tables_first_ms": tables_ms[0],
+          "largest_pieces": [{"rows": p.rows, "positions": len(p.idx),
+                              "W": p.width, "words": p.words}
+                             for p in largest],
           "tapes": [{"component": c[0].name, "component_rows": c[4],
                      "instructions": len(c[0].program),
                      "slots": c[0].n_slots, "loads": len(c[0].loads),
@@ -896,14 +945,15 @@ def check_prover_kernels(comps, log_sizes) -> dict:
     mat = rand((C, R))
     keep(check("blake2s_messages", [R, C], lambda: blake2s.hash_rows(mat.t()),
                lambda: blake2s.hash_rows_plain(mat.t()), 4 * C * R + 32 * R,
-               R * -(-4 * C // 64) * COMPRESS, True, reps=5))
+               R * -(-4 * C // 64) * COMPRESS, True, reps=5, int_pipe=True))
     del mat
     s0 = plan.n_comp_trace_log + blowup
     leaves = rand((1 << s0, 8), 1 << 32)
     keep(check("blake2s_parents", [1 << s0, 8],
                lambda: blake2s.hash_parents(leaves),
                lambda: blake2s.hash_rows_plain(leaves.reshape(-1, 16)),
-               48 * (1 << s0), (1 << (s0 - 1)) * COMPRESS, True))
+               48 * (1 << s0), (1 << (s0 - 1)) * COMPRESS, True,
+               int_pipe=True))
     del leaves
     # K3: the largest component's size group, as prove() builds it
     s = n + blowup
@@ -1327,7 +1377,7 @@ def check_stream_kernels(comps, log_sizes) -> dict:
                4 * c * M + 64 * M, M * (c // 16) * COMPRESS, True, reps=10,
                plain_reps=1,
                timed_fn=lambda: blake2s.leaves_stream(buf, chunk, c, C,
-                                                      False)))
+                                                      False), int_pipe=True))
     del buf
     for width in (C, 4 * infos[0].n_logup_cols):
         tail = width % c or c
@@ -1401,7 +1451,71 @@ def check_stream_kernels(comps, log_sizes) -> dict:
           *tape_cost(tape, L), True, reps=5, plain_reps=1)
     del mats, invv, bucket
     torch.cuda.empty_cache()
+    # K9: every streamed chunk's gather of one more proof
+    out["gather_openings_stream"] = check_stream_gathers()
     return out
+
+
+def check_stream_gathers(reps: int = 20) -> dict:
+    """K9 on the memory mode's path: one more fib 2^22 proof with
+    `merkle.gather_columns` wrapped, each of its calls (a recomputed
+    column chunk of a streamed tree at the opened positions) held to
+    the plain version on its own inputs as it returns; then a random
+    chunk of the first call's shape at its positions, timed (queued:
+    the card's time) beside the plain version and `torch.index_select`,
+    the one PyTorch call that computes this function.  Returns the timed
+    record."""
+    import torch
+    from nexus_zkvm_tpu_torch.ops import merkle
+    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
+    from nexus_zkvm_tpu_torch.utils.device import from_u32
+    orig, seen = merkle.gather_columns, []
+
+    def wrapped(src, idx):
+        got = orig(src, idx)
+        ix = (idx.cpu().numpy() if isinstance(idx, torch.Tensor)
+              else np.asarray(idx, np.int64))
+        want = merkle.gather_openings_plain([merkle._Gather(src, ix, 1)])
+        if not torch.equal(got.reshape(-1), want):
+            raise RuntimeError(f"gather_openings {tuple(src.shape)} at "
+                               f"{len(ix)} positions: kernel and plain "
+                               f"version differ")
+        seen.append((tuple(int(x) for x in src.shape), ix))
+        return got
+    merkle.gather_columns = wrapped
+    try:
+        LocalProver(fib_guest()).prove_with_input(
+            public_input=encode_u32s(FIB_STREAM_N))
+    finally:
+        merkle.gather_columns = orig
+    if not seen:
+        raise RuntimeError("the 2^22 proof gathered no streamed chunk")
+    (rows, N), ix = seen[0]
+    rng = np.random.default_rng(2032)
+    chunk = from_u32(rng.integers(0, P31, (rows, N), dtype=np.uint32), "cuda")
+    idx = torch.as_tensor(ix, device="cuda")
+    n = len(ix)
+    rec = check("gather_openings", [rows, N, n],
+                lambda: merkle.gather_columns(chunk, idx),
+                lambda: merkle.gather_openings_plain(
+                    [merkle._Gather(chunk, ix, 1)]).reshape(rows, n),
+                8 * rows * n + 8 * n, 0, True, reps=reps, plain_reps=reps,
+                queued=True)
+    rec.update(library_ms=cuda_ms(lambda: chunk.index_select(1, idx), reps,
+                                  True),
+               library_call="torch.Tensor.index_select(1, idx)",
+               host_ms=cuda_ms(lambda: merkle.gather_columns(chunk, idx),
+                               reps),
+               library_host_ms=cuda_ms(lambda: chunk.index_select(1, idx),
+                                       reps),
+               calls_checked=len(seen))
+    emit({"phase": "stream_gathers", "calls": len(seen),
+          "shapes": sorted({(r, c, len(i)) for (r, c), i in seen}),
+          **{k: rec[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                 "library_ms", "host_ms", "library_host_ms")}})
+    del chunk
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_machine_parity(n: int = FIB_PARITY_N):
@@ -1822,23 +1936,31 @@ def record_timing_calls(n: int) -> dict:
     """One fib proof at n with the package on the path, keeping the
     calls of K6 (`logup_columns`), K8 (whichever entry that package's
     prover calls: ``oods_dot_groups``, or ``oods_dot`` a gathered
-    group), K3 (`accumulate_blocks`) and K12 (`colsum_finalize`):
-    {"logup", "oods", "quotients", "finalize": [args], "k8": entry}."""
+    group), K3 (`accumulate_blocks`), K12 (`colsum_finalize`) and K9
+    (`decommit_many_fused`, and the first `gather_columns` call of the
+    memory mode's streamed chunks, with their count): {"logup", "oods",
+    "quotients", "finalize", "openings", "chunks": [args], "k8": entry,
+    "n_chunks": count}."""
     from nexus_zkvm_tpu_torch.air import tape
-    from nexus_zkvm_tpu_torch.ops import quotients
+    from nexus_zkvm_tpu_torch.ops import merkle, quotients
     from nexus_zkvm_tpu_torch.prover import stark
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     k8 = "oods_dot_groups" if hasattr(stark, "oods_dot_groups") else \
         "oods_dot"
     calls = {"logup": [], "oods": [], "quotients": [], "finalize": [],
-             "k8": k8}
+             "openings": [], "chunks": [], "k8": k8, "n_chunks": 0}
     saved = [(mod, fn, key, getattr(mod, fn)) for mod, fn, key in (
         (tape, "logup_columns", "logup"), (stark, k8, "oods"),
         (quotients, "accumulate_blocks", "quotients"),
-        (quotients, "colsum_finalize", "finalize"))]
+        (quotients, "colsum_finalize", "finalize"),
+        (merkle, "decommit_many_fused", "openings"),
+        (merkle, "gather_columns", "chunks"))]
     for mod, fn, key, orig in saved:
         def wrapped(*args, _orig=orig, _key=key):
-            calls[_key].append(args)
+            # one chunk's (16, 2^23) evaluations kept, not all of them
+            if _key != "chunks" or not calls[_key]:
+                calls[_key].append(args)
+            calls["n_chunks"] += _key == "chunks"
             return _orig(*args)
         setattr(mod, fn, wrapped)
     try:
@@ -1912,6 +2034,46 @@ def time_k3_k12(calls: dict, n: int, reps: int = 5) -> None:
     emit(rec)
 
 
+def time_k9(calls: dict, n: int, reps: int = 20) -> None:
+    """K9 with the package on the path, on the calls of one fib proof at
+    n (`record_timing_calls`): the proof's one opening gather, its
+    tables built once and the launch timed queued (the card's time);
+    the host ms (median of ``reps``, each synchronized) of building
+    those tables and of the whole `decommit_many_fused` call as the
+    prover makes it; in the memory mode the first streamed chunk's
+    gather, queued and not, and the count of such calls.  Both
+    checkouts' wrappers take these calls: two can be compared in one
+    call."""
+    import torch
+    from nexus_zkvm_tpu_torch.ops import merkle
+    (args,) = calls["openings"]
+    items = args[0]
+    pieces = [p for item in items for part in merkle._pieces(*item)
+              for p in part]
+    tables = merkle.gather_tables(pieces)
+
+    def median_ms(fn):
+        return float(np.median([host_ms(fn) for _ in range(reps)]))
+    rec = {"phase": "time_k9", "package": str(Path(merkle.__file__)
+                                             .resolve().parents[1]),
+           "n": n, "pieces": len(pieces),
+           "words": sum(p.words for p in pieces),
+           "launch_ms": cuda_ms(lambda: merkle.gather_launch(*tables), reps,
+                                True),
+           "tables_host_ms": median_ms(lambda: merkle.gather_tables(pieces)),
+           "decommit_host_ms": median_ms(
+               lambda: merkle.decommit_many_fused(items)),
+           "chunk_calls": calls["n_chunks"]}
+    if calls["chunks"]:
+        (chunk,) = calls["chunks"]
+        rec.update(chunk_shape=[*map(int, chunk[0].shape), len(chunk[1])],
+                   chunk_ms=cuda_ms(lambda: merkle.gather_columns(*chunk),
+                                    reps, True),
+                   chunk_host_ms=cuda_ms(
+                       lambda: merkle.gather_columns(*chunk), reps))
+    emit(rec)
+
+
 def gpu_name_and_limit() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1947,10 +2109,11 @@ def main() -> int:
         time_stream_kernels(*time_proofs("time_stream", FIB_STREAM_N))
         n = FIB_STREAM_N
     if timing:
-        # then K6, K8, K3 and K12 on one more proof's own calls
+        # then K6, K8, K3, K12 and K9 on one more proof's own calls
         calls = record_timing_calls(n)
         time_k6_k8(calls, n)
         time_k3_k12(calls, n)
+        time_k9(calls, n)
         return 0
     t0 = time.perf_counter()
     kernels.build()
@@ -1990,14 +2153,24 @@ def main() -> int:
         "max_abs_err": timed[name]["max_abs_err"], "ms": timed[name]["ms"],
         "plain_ms": timed[name]["plain_ms"],
         "bound_ms": timed[name]["bound_ms"],
-        "bound_by": timed[name]["bound_by"], "library_ms": None,
+        "bound_by": timed[name]["bound_by"],
+        "library_ms": timed[name].get("library_ms"),
         "shape": timed[name]["shape"],
+        **{k: timed[name][k] for k in ("int_pipe_bound_ms", "library_note",
+                                       "units") if k in timed[name]},
         **({"extend": {k: timed["circle_fft_extend"][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by")}} if name == "circle_fft" else {}),
         **({"all_groups": {k: timed["oods_dot_all"][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by")}} if name == "oods_dot" else {})}
+            "bound_by")}} if name == "oods_dot" else {}),
+        **({"streamed_chunk": {
+            "launches": stream_launches[name], "path": "machine_stream",
+            **{k: timed["gather_openings_stream"][k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_call", "host_ms",
+                "library_host_ms", "calls_checked")}}}
+           if name == "gather_openings" else {})}
         for name in names]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -38,9 +38,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "GENERATED", "build", "launch", "build_generated",
-           "generated_entries", "launch_generated", "ptxas_summary",
-           "launch_counts", "reset_launches"]
+__all__ = ["KERNELS", "ENTRIES", "GENERATED", "build", "launch",
+           "build_generated", "generated_entries", "launch_generated",
+           "ptxas_summary", "launch_counts", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -75,7 +75,13 @@ KERNELS = {
                       [_P, _P, _I, _L, _P, _P]),
     "oods_dot": ("oods", "nzt_oods_dot",
                  [_P, _I, _P, _P, _L, _L, _I, _P, _P, _L, _P]),
-    "gather_openings": ("gather", "nzt_gather_openings", [_P, _I, _P, _P]),
+    "gather_openings": ("gather", "nzt_gather_openings", [_P, _I, _I, _P]),
+}
+
+# further C entry points of a kernel's source: entry -> (the kernel whose
+# launches it counts as, argtypes)
+ENTRIES = {
+    "nzt_gather_columns": ("gather_openings", [_P, _L, _L, _L, _P, _L, _P]),
 }
 
 # generated kernel name -> argtypes of every piece's ``nzt_tape_entry``
@@ -164,21 +170,30 @@ def build() -> float:
             raise RuntimeError("\n".join(errors))
         for src in todo:
             lib = ctypes.CDLL(str(_lib_path(src)))
-            for name, (s, fn, argtypes) in KERNELS.items():
-                if s == src:
-                    f = getattr(lib, fn)
-                    f.argtypes = argtypes + [_P]
-                    f.restype = ctypes.c_int
+            entries = [(fn, argtypes) for s, fn, argtypes in KERNELS.values()
+                       if s == src]
+            entries += [(fn, argtypes) for fn, (k, argtypes) in ENTRIES.items()
+                        if KERNELS[k][0] == src]
+            for fn, argtypes in entries:
+                f = getattr(lib, fn)
+                f.argtypes = argtypes + [_P]
+                f.restype = ctypes.c_int
             _LIBS[src] = lib
     return time.perf_counter() - t0
 
 
-def launch(kernel: str, *args, device: torch.device) -> None:
+def launch(kernel: str, *args, device: torch.device,
+           entry: str | None = None) -> None:
     """Launch ``kernel`` on ``device``'s current stream, the device of
     the tensors it reads and writes (with that device current, whatever
     device the process had current); raise on a refused launch.  Pointer
-    arguments are passed as Python ints."""
+    arguments are passed as Python ints.  ``entry``: another C entry of
+    the kernel's source (:data:`ENTRIES`), counted as its launch."""
     src, fn, _argtypes = KERNELS[kernel]
+    if entry is not None:
+        if ENTRIES[entry][0] != kernel:
+            raise ValueError(f"{entry} is not an entry of {kernel}")
+        fn = entry
     if src not in _LIBS:
         build()
     with torch.cuda.device(device):

@@ -27,12 +27,12 @@ import torch
 
 from .. import kernels
 from .blake2s import hash_rows, hash_parents
-from ..utils.device import to_u32
+from ..utils.device import to_u32, upload_i64
 
 __all__ = ["MerkleTree", "commit", "commit_matrix", "tree_from_leaves",
            "MerkleDecommitment", "decommit", "decommit_many_fused",
-           "gather_columns", "gather_tables", "gather_launch",
-           "gather_openings", "gather_openings_plain",
+           "gather_columns", "gather_plan", "gather_magic", "gather_tables",
+           "gather_launch", "gather_openings", "gather_openings_plain",
            "finalize_decommitments", "verify_decommitment"]
 
 
@@ -126,7 +126,7 @@ class _Gather:
     """One piece of the opening gather: out[(r * n + i) * W + t] =
     src[r, idx[i]] (W == 1) or src[idx[i], t] (a digest layer)."""
     src: torch.Tensor          # (rows, 2^d) values or (2^d, 8) digests
-    idx: list
+    idx: np.ndarray            # (n,) int64
     width: int                 # W: 1 for values, 8 for digests
 
     @property
@@ -141,17 +141,13 @@ class _Gather:
         return ((self.rows, len(self.idx)) if self.width == 1
                 else (len(self.idx), self.width))
 
-    def descriptor(self, out_off: int, idx_off: int) -> list:
-        if self.width == 1:
-            rs, is_, ts = self.src.stride(0), self.src.stride(1), 0
-        else:
-            rs, is_, ts = 0, self.src.stride(0), self.src.stride(1)
-        return [self.src.data_ptr(), out_off, idx_off, len(self.idx),
-                self.width, self.rows, rs, is_, ts]
-
     def plain(self) -> torch.Tensor:
         ix = torch.as_tensor(self.idx, device=self.src.device)
         return self.src[:, ix] if self.width == 1 else self.src[ix]
+
+
+def _idx(positions) -> np.ndarray:
+    return np.asarray(positions, dtype=np.int64).reshape(-1)
 
 
 def _pieces(tree: MerkleTree, queries, values=None):
@@ -163,16 +159,17 @@ def _pieces(tree: MerkleTree, queries, values=None):
         if values.dim() != 2 or values.shape[1] != len(queries):
             raise ValueError(f"values {tuple(values.shape)} for "
                              f"{len(queries)} positions")
-        vals = [_Gather(values, list(range(len(queries))), 1)]
+        vals = [_Gather(values, np.arange(len(queries), dtype=np.int64),
+                        1)]
     elif tree.matrix is not None:
-        vals = [_Gather(tree.matrix, queries, 1)]
+        vals = [_Gather(tree.matrix, _idx(queries), 1)]
     elif not tree.columns:
         raise ValueError("a tree without columns opens with given values")
     else:
-        vals = [_Gather(col[None, :], _positions_at(
-                    queries, tree.max_depth, _log2(col.shape[0])), 1)
+        vals = [_Gather(col[None, :], _idx(_positions_at(
+                    queries, tree.max_depth, _log2(col.shape[0]))), 1)
                 for col in tree.columns]
-    sibs = [_Gather(tree.layers[d], s, 8)
+    sibs = [_Gather(tree.layers[d], _idx(s), 8)
             for d, s in zip(range(tree.max_depth, 0, -1),
                             open_plan(tree.max_depth, queries)) if s]
     return vals, sibs
@@ -192,31 +189,105 @@ def gather_openings_plain(pieces) -> torch.Tensor:
     return torch.cat([p.plain().reshape(-1) for p in pieces])
 
 
-def gather_tables(pieces):
-    """K9's inputs for CUDA pieces: the (n, 9) descriptor table and the
-    index list on the pieces' device, and the buffer's word count."""
-    desc, idx, off = [], [], 0
+# K9's work partition (`gather_plan`, mirrored by csrc/gather.cu): a
+# unit is at most GATHER_UNIT output words of one piece (kThreads x kPer
+# of the kernel), one block each
+GATHER_UNIT = 1024
+# descriptor fields of a piece, int64 each (the D_* of csrc/gather.cu)
+GATHER_FIELDS = ("src", "out", "idx", "n", "wlog", "rows", "rs", "is", "ts",
+                 "magic", "shift", "vec")
+# the kernel's words and indices are 31-bit
+GATHER_LIMIT = 1 << 31
+_POW2 = 1 << np.arange(32, dtype=np.int64)
+
+
+def gather_magic(n):
+    """(magic, shift) with (p * magic) >> shift == p // n for every p <
+    2^31 and 1 <= n <= 2^31 (magic < 2^32): shift = 31 + ceil(log2 n),
+    magic = ceil(2^shift / n)."""
+    n = np.asarray(n, dtype=np.int64)
+    shift = 31 + np.searchsorted(_POW2, n)
+    return ((np.int64(1) << shift) + n - 1) // n, shift
+
+
+def gather_plan(pieces, unit: int = GATHER_UNIT):
+    """K9's tables for ``pieces``, packed into one int64 array: the (G,
+    len(GATHER_FIELDS)) descriptors, a piece each in order ("out" and
+    "idx" its running offsets in the buffer and the indices; "vec" 1 for
+    a digest piece whose rows are 16-byte aligned), then the unit table,
+    (piece << 32) | first word for every ``unit`` words of each piece,
+    then every piece's indices.  Returns (packed, G, units, words).
+    Raises on sources that are not int32 matrices on one device, a
+    gather of 2^31 words or more, a width that is not a power of two up
+    to 8, or an index outside its source."""
+    f = {name: i for i, name in enumerate(GATHER_FIELDS)}
+    geo = []
     for p in pieces:
-        kernels.check_cuda_tensor(p.src, "opening source", ndim=2,
-                                  contiguous=False)
-        desc.append(p.descriptor(off, len(idx)))
-        idx += p.idx
-        off += p.words
-    dev = pieces[0].src.device
-    return (torch.tensor(desc, dtype=torch.int64).to(dev),
-            torch.tensor(idx, dtype=torch.int64).to(dev), off)
+        t = p.src
+        st = t.stride()
+        if t.dtype is not torch.int32 or len(st) != 2:
+            raise ValueError(f"opening source {t.dtype} {tuple(t.shape)}: "
+                             f"expected an int32 matrix")
+        (s0, s1), (d0, d1) = st, t.shape
+        geo.append((t.data_ptr(), t.get_device(), len(p.idx), 1, d0, s0, s1,
+                    0, d1) if p.width == 1 else
+                   (t.data_ptr(), t.get_device(), len(p.idx), p.width, 1, 0,
+                    s0, s1, d0))
+    geo = np.array(geo, dtype=np.int64).reshape(-1, 9)
+    src, on, n, W, rows, rs, is_, ts, dim = geo.T
+    if (on != on[:1]).any():
+        raise ValueError("opening sources on more than one device")
+    words = rows * n * W
+    total = int(words.sum())
+    if total >= GATHER_LIMIT:
+        raise ValueError(f"a gather of {total} words: the kernel takes "
+                         f"fewer than 2^31")
+    wlog = np.searchsorted(_POW2, W)
+    if (W > 8).any() or (_POW2[wlog] != W).any():
+        raise ValueError(f"piece widths {sorted(set(W.tolist()))}: the "
+                         f"kernel takes 1, 2, 4 or 8")
+    idx = (np.concatenate([p.idx for p in pieces]) if pieces
+           else np.zeros(0, np.int64))
+    lim = np.repeat(np.minimum(dim, GATHER_LIMIT), n)
+    if ((idx < 0) | (idx >= lim)).any():
+        raise ValueError("an opening index outside its source")
+    table = np.zeros((len(pieces), len(GATHER_FIELDS)), np.int64)
+    magic, shift = gather_magic(np.maximum(n, 1))
+    vec = (W == 8) & (ts == 1) & (src % 16 == 0) & (is_ % 4 == 0) & \
+        ((rows == 1) | (rs % 4 == 0))
+    for name, col in (("src", src), ("out", np.cumsum(words) - words),
+                      ("idx", np.cumsum(n) - n), ("n", n), ("wlog", wlog),
+                      ("rows", rows), ("rs", rs), ("is", is_), ("ts", ts),
+                      ("magic", magic), ("shift", shift), ("vec", vec)):
+        table[:, f[name]] = col
+    per = -(-words // unit)
+    first = np.arange(int(per.sum()), dtype=np.int64) - \
+        np.repeat(np.cumsum(per) - per, per)
+    units = (np.repeat(np.arange(len(pieces), dtype=np.int64), per) << 32) \
+        | (first * unit)
+    return (np.concatenate([table.reshape(-1), units, idx]), len(pieces),
+            len(units), total)
 
 
-def gather_launch(desc, idx, words: int) -> torch.Tensor:
+def gather_tables(pieces):
+    """K9's inputs for CUDA pieces: `gather_plan`'s packed tables on
+    the pieces' card in one copy (`utils.device.upload_i64`), their
+    descriptor and unit counts and the buffer's word count."""
+    src = pieces[0].src
+    kernels.check_cuda_tensor(src, "opening source", ndim=2,
+                              contiguous=False)
+    packed, G, U, words = gather_plan(pieces)
+    return upload_i64(packed, src.device), G, U, words
+
+
+def gather_launch(buf, n_desc: int, n_units: int, words: int) -> torch.Tensor:
     """Launch ``csrc/gather.cu`` (kernel K9) on the tables of
     :func:`gather_tables`: the (words,) int32 buffer."""
-    kernels.check_cuda_tensor(desc, "descriptors", ndim=2, dtype=torch.int64)
-    kernels.check_cuda_tensor(idx, "indices", ndim=1, dtype=torch.int64)
-    if desc.shape[1] != 9:
-        raise ValueError("descriptors must be (n, 9)")
-    out = torch.empty(words, dtype=torch.int32, device=desc.device)
-    kernels.launch("gather_openings", desc.data_ptr(), int(desc.shape[0]),
-                   idx.data_ptr(), out.data_ptr(), device=desc.device)
+    kernels.check_cuda_tensor(buf, "gather tables", ndim=1, dtype=torch.int64)
+    out = torch.empty(words, dtype=torch.int32, device=buf.device)
+    if n_units:
+        kernels.launch("gather_openings", buf.data_ptr(), n_desc, n_units,
+                       out.data_ptr(), device=buf.device)
     return out
 
 
@@ -232,10 +303,38 @@ def gather_openings(pieces) -> torch.Tensor:
 
 
 def gather_columns(src: torch.Tensor, idx) -> torch.Tensor:
-    """(rows, len(idx)) = src[:, idx] of a (rows, N) matrix: one K9
-    launch on CUDA, plain indexing on the CPU."""
-    return gather_openings([_Gather(src, list(idx), 1)]).reshape(
-        int(src.shape[0]), len(idx))
+    """(rows, n) = src[:, idx] of a (rows, N) matrix at n indices: a host
+    sequence, or an int64 tensor on src's device (each index below N),
+    which a caller gathering many chunks at the same positions uploads
+    once.  On CUDA one K9 launch through its single-piece entry, no
+    table copy; on the CPU plain indexing."""
+    if not src.is_cuda:
+        if src.device.type != "cpu":
+            raise ValueError(f"unsupported device {src.device}")
+        ix = _idx(idx.numpy() if isinstance(idx, torch.Tensor) else idx)
+        return gather_openings_plain([_Gather(src, ix, 1)]).reshape(
+            int(src.shape[0]), len(ix))
+    kernels.check_cuda_tensor(src, "columns", ndim=2, contiguous=False)
+    if not isinstance(idx, torch.Tensor):
+        ix = _idx(idx)
+        if ((ix < 0) | (ix >= int(src.shape[1]))).any():
+            raise ValueError("a column index outside the source")
+        idx = upload_i64(ix, src.device)
+    kernels.check_cuda_tensor(idx, "column indices", ndim=1,
+                              dtype=torch.int64)
+    if idx.device != src.device:
+        raise ValueError(f"indices on {idx.device}, columns on {src.device}")
+    rows, n = int(src.shape[0]), int(idx.shape[0])
+    if rows * n >= GATHER_LIMIT or int(src.shape[1]) > GATHER_LIMIT:
+        raise ValueError(f"a gather of ({rows}, {n}) words from "
+                         f"{tuple(src.shape)}: the kernel takes fewer than "
+                         f"2^31 words and indices")
+    out = torch.empty((rows, n), dtype=torch.int32, device=src.device)
+    if rows and n:
+        kernels.launch("gather_openings", src.data_ptr(), rows, src.stride(0),
+                       src.stride(1), idx.data_ptr(), n, out.data_ptr(),
+                       device=src.device, entry="nzt_gather_columns")
+    return out
 
 
 def decommit_many_fused(items) -> PendingOpenings:

@@ -38,7 +38,7 @@ from ..ops import blake2s, cfft, merkle
 from ..ops.circle import (bit_reverse_indices, dev_bit_reverse,
                           dev_layout_to_natural, dev_natural_to_layout)
 from ..parallel import commit as pcommit
-from ..utils.device import from_u32
+from ..utils.device import from_u32, upload_i64
 from .config import MemoryConfig
 
 __all__ = ["RoleCommitment", "commit_columns", "commit_blocks",
@@ -169,10 +169,10 @@ def opened_values_streamed(rc: RoleCommitment, s: int, positions,
     """(C, Q) values of a streamed tree at the sorted distinct
     ``positions`` (committed order), recomputed from the coefficients:
     per chunk of columns the LDE (K1) and a gather (K9) at layout
-    positions brev(p)."""
+    positions brev(p), uploaded once for all chunks."""
     batch = rc.coeff_batches[s - rc.log_blowup][1]
     pos = sorted({int(p) for p in positions})
-    idx = bit_reverse_indices(s)[pos].tolist()
+    idx = upload_i64(bit_reverse_indices(s)[pos], batch.device)
     out = []
     for lo in range(0, int(batch.shape[0]), chunk_cols):
         ev = cfft.evaluate(batch[lo:lo + chunk_cols], s)

@@ -416,8 +416,11 @@ def test_oods_dot_groups(dev, case, words):
 
 def test_gather_openings(dev):
     """Uniform trees (one of them on a transposed view, as FRI commits
-    its layers), a mixed-depth tree, many openings in one launch."""
+    its layers), a mixed-depth tree, many openings in one launch; then a
+    wide piece at a small tree (many units), digest layers 16-byte
+    aligned and not, at output offsets of 4 words and odd ones."""
     from nexus_zkvm_tpu_torch.ops import merkle
+    from nexus_zkvm_tpu_torch.ops.merkle import GATHER_FIELDS, _Gather
     t1 = merkle.commit_matrix(rand(dev, (5, 256), seed=1))
     t2 = merkle.commit_matrix(rand(dev, (64, 4), seed=2).t())
     t3 = merkle.commit([rand(dev, (1 << d,), seed=d).reshape(-1)
@@ -437,7 +440,58 @@ def test_gather_openings(dev):
                    if t.matrix is not None
                    else [c.shape[0] for c in t.columns])
         assert merkle.verify_decommitment(t.root(), lengths, q, d)
+    wide = rand(dev, (3781, 64), seed=3)
+    words = rand(dev, (8 * 40 + 1,), 1 << 32, seed=4)
+    aligned, odd = words[:320].view(40, 8), words[1:].view(40, 8)
+    pieces = [_Gather(wide, np.sort(rng.choice(64, 50, replace=False)), 1),
+              _Gather(aligned, np.array([0, 3, 39]), 8),
+              _Gather(odd, np.array([1, 2, 38]), 8),
+              _Gather(wide[:1], np.array([5]), 1),
+              _Gather(aligned, np.arange(40), 8),
+              _Gather(odd, np.arange(40), 8)]
+    packed, G = merkle.gather_plan(pieces)[:2]
+    table = packed[:G * len(GATHER_FIELDS)].reshape(G, -1)
+    vec, out = (table[:, GATHER_FIELDS.index(k)] for k in ("vec", "out"))
+    assert vec.tolist() == [0, 1, 0, 0, 1, 0]
+    assert out[1] % 4 == 2 and out[4] % 4 == 3
+    before = kernels.launch_counts()["gather_openings"]
+    got = merkle.gather_openings(pieces)
+    assert kernels.launch_counts()["gather_openings"] == before + 1
+    assert torch.equal(got, merkle.gather_openings_plain(pieces))
 
+
+@pytest.mark.parametrize("log_n", [4, 12, 23])
+def test_gather_columns(dev, log_n):
+    """A column chunk at the tree's positions through K9's single-piece
+    entry (indices on the card, or a host list uploaded), equal to
+    torch.index_select; a transposed view read in place."""
+    from nexus_zkvm_tpu_torch.ops import merkle
+    rng = np.random.default_rng(log_n)
+    src = rand(dev, (16, 1 << log_n), seed=log_n)
+    idx = np.sort(rng.integers(0, 1 << log_n, 120)).tolist()
+    ix = torch.tensor(idx, dtype=torch.int64, device=dev)
+    before = kernels.launch_counts()["gather_openings"]
+    got = merkle.gather_columns(src, ix)
+    assert kernels.launch_counts()["gather_openings"] == before + 1
+    assert torch.equal(got, src.index_select(1, ix))
+    assert torch.equal(merkle.gather_columns(src, idx), got)
+    tsrc = rand(dev, (1 << log_n, 5), seed=log_n + 1).t()
+    assert torch.equal(merkle.gather_columns(tsrc, ix),
+                       tsrc.index_select(1, ix))
+
+
+def test_gather_refuses_2_31_words(dev):
+    from nexus_zkvm_tpu_torch.ops import merkle
+    from nexus_zkvm_tpu_torch.ops.merkle import _Gather
+    src = torch.zeros((1, 1 << 16), dtype=torch.int32, device=dev) \
+        .expand(1 << 15, 1 << 16)
+    ix = torch.arange(1 << 16, device=dev)
+    before = kernels.launch_counts()["gather_openings"]
+    with pytest.raises(ValueError, match="2\\^31"):
+        merkle.gather_columns(src, ix)
+    with pytest.raises(ValueError, match="2\\^31"):
+        merkle.gather_openings([_Gather(src, np.arange(1 << 16), 1)])
+    assert kernels.launch_counts()["gather_openings"] == before
 
 
 # -- K10, K11 and K12 (the large-trace memory mode) ---------------------------

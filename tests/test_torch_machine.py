@@ -76,6 +76,26 @@ TCFG = T.PcsConfig(pow_bits=2, fri=T.FriConfig(log_blowup=1,
 # recorded from the JAX package on XLA:CPU; the slow test recomputes it
 FIB10_PROOF_BLAKE2S = \
     "2a6e5a1cfdc6a7df403c689784004ee7f063fb8dbd37736a1a3c1a3624bc8786"
+# `tests/test_machine.py`'s segmented loop (test_segmented_constraints):
+# blake2s of the reference `prove_machine(view, trace, RCFG,
+# segment_log=4)` proof (856,168 bytes), recorded the same way
+SEGMENTED_SRC = """
+        addi t0, zero, 40
+    loop:
+        addi t0, t0, -1
+        bne  t0, zero, loop
+        lw   t1, 0x84(zero)
+        sw   t0, 0(t1)
+""" + EXIT
+SEGMENTED_PROOF_BLAKE2S = \
+    "fab8c4cc264ec28196de01b162e68a7f37d2888e38bd5e40bd983d5158d3cc92"
+# blake2s of the reference `prove_machine(view, trace, RCFG)` proofs of
+# KECCAK_SRC (718,088 bytes) and of examples/guests/div_precompile.s on
+# the input (1000, 7) (630,000 bytes), recorded the same way
+KECCAK_PROOF_BLAKE2S = \
+    "3dc08e415375490790e71ce55ae1564aff1d8edb519f92fd8c185efe8de5c425"
+DIV_PRECOMPILE_PROOF_BLAKE2S = \
+    "ed00681129f79ba42f874d3f3d453e944b6c9173e10718df5ae680552ded62b5"
 
 
 def _both(src):
@@ -276,6 +296,56 @@ def test_machine_proof_equals_reference_live(fib10, fib10_proof):
     want = rproof_to_bytes(rdriver.prove_machine(rv, rt, RCFG))
     assert hashlib.blake2s(want).hexdigest() == FIB10_PROOF_BLAKE2S
     assert proof_to_bytes(fib10_proof[1]) == want
+
+
+@pytest.fixture(scope="module")
+def segmented():
+    return _both(SEGMENTED_SRC)
+
+
+@pytest.fixture(scope="module")
+def segmented_proof(segmented):
+    _r, (tv, tt) = segmented
+    return tv, tdriver.prove_machine(tv, tt, TCFG, segment_log=4,
+                                     device="cpu")
+
+
+def test_segmented_machine_proof_equals_reference_digest(segmented_proof):
+    """Segments of 2^4 rows: several CPU components, each opened."""
+    view, proof = segmented_proof
+    n_fixed = len(tdriver.build_components(view, 1)[0]) - 1
+    assert len(proof.stark.log_sizes) - n_fixed > 2
+    assert hashlib.blake2s(proof_to_bytes(proof)).hexdigest() == \
+        SEGMENTED_PROOF_BLAKE2S
+    assert tdriver.verify_machine(view, proof, TCFG, device="cpu")
+
+
+@pytest.mark.slow
+def test_segmented_machine_proof_equals_reference_live(segmented,
+                                                       segmented_proof):
+    (rv, rt), _t = segmented
+    want = rproof_to_bytes(rdriver.prove_machine(rv, rt, RCFG,
+                                                 segment_log=4))
+    assert hashlib.blake2s(want).hexdigest() == SEGMENTED_PROOF_BLAKE2S
+    assert proof_to_bytes(segmented_proof[1]) == want
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("guest", ["keccak", "div_precompile"])
+def test_guest_machine_proof_equals_reference_digest(guest):
+    from nexus_zkvm_tpu_torch.sdk import Guest, encode_u32s
+    if guest == "keccak":
+        view, trace = tk_trace(tasm.assemble(KECCAK_SRC), backend="python")
+        want = KECCAK_PROOF_BLAKE2S
+    else:
+        g = Guest.from_asm(open(chip_smoke.ROOT / "examples" / "guests"
+                                / "div_precompile.s").read())
+        view, trace = tk_trace(g.program_words, entry=g.entry,
+                               public_input=encode_u32s(1000, 7),
+                               backend="python")
+        want = DIV_PRECOMPILE_PROOF_BLAKE2S
+    proof = tdriver.prove_machine(view, trace, TCFG, device="cpu")
+    assert hashlib.blake2s(proof_to_bytes(proof)).hexdigest() == want
 
 
 def test_prove_takes_a_device_matrix():
