@@ -99,8 +99,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              its launch over all of a proof's groups, ``gather_openings``
              ``streamed_chunk``, the memory mode's gather beside
              ``torch.index_select`` (its ``library_ms``; no PyTorch call
-             gathers a whole proof's openings), and the Blake2s kernels'
-             (K2, K10) ``int_pipe_bound_ms``.
+             gathers a whole proof's openings).
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device
 the script exits with code 2 and prints no result.
@@ -111,10 +110,9 @@ Bounds: the least time the card could take, the larger of bytes moved
 limit, 4 schedulers x 32 lanes = 128 lane operations per SM per clock
 (132 SMs, 1.98 GHz), which is the table's 67 TFLOP/s float32 rate with
 an FMA counted as one operation; the INT32 pipe alone (64 lanes per SM)
-is half of it, so the bound is a floor, not a target; the Blake2s
-kernels' lines (K2, K10) add ``int_pipe_bound_ms``, the same operations
-at that half rate, since every Blake2s operation (IADD3, LOP3, SHF/PRMT)
-runs on that pipe.  K9's times are queued behind a sleep (`cuda_ms`): a
+is half of it, so the bound is a floor, not a target (nvcc issues some
+integer adds, shifts and moves on the FMA pipe as IMAD, so a kernel can
+beat the INT32 pipe's rate alone).  K9's times are queued behind a sleep (`cuda_ms`): a
 launch of a few us would otherwise time the host.  Operation counts
 follow a simple model: an M31 product (widening multiply and fold) is 6
 operations, an M31 add or subtract 3, a widening multiply-add into a
@@ -141,8 +139,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
-# the INT32 pipe alone: 64 lanes an SM a clock
-INT_PIPE_OPS_PER_S = INT32_OPS_PER_S / 2
 # cycles of `torch.cuda._sleep` that timed launches queue behind (about
 # 50 ms at 1.98 GHz), so that their events measure the card, not the
 # host's launches
@@ -374,13 +370,12 @@ FILL_ROW_OPS = 600
 
 
 def check(name, shape, kernel_fn, plain_fn, nbytes, ops, timed, reps=10,
-          plain_reps=2, timed_fn=None, queued=False, int_pipe=False):
+          plain_reps=2, timed_fn=None, queued=False):
     """Run the kernel and its plain version on the same inputs; raise
     unless their outputs are equal; time both when ``timed`` (the kernel
     through ``timed_fn`` where given: a launch that updates a buffer in
     place, with no copy to time beside it; ``queued``: behind a sleep,
-    see `cuda_ms`).  ``int_pipe``: add the operations' time at the INT32
-    pipe's rate (`int_pipe_bound_ms`)."""
+    see `cuda_ms`)."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     before = kernels.launch_counts()[name]
@@ -406,8 +401,6 @@ def check(name, shape, kernel_fn, plain_fn, nbytes, ops, timed, reps=10,
         rec.update(ms=cuda_ms(timed_fn or kernel_fn, reps, queued),
                    plain_ms=cuda_ms(plain_fn, plain_reps),
                    bound_ms=b_ms, bound_by=b_by)
-        if int_pipe:
-            rec["int_pipe_bound_ms"] = ops / INT_PIPE_OPS_PER_S * 1e3
     emit(rec)
     return rec
 
@@ -802,8 +795,9 @@ def check_recorded(calls, timed_run: bool) -> dict:
               "all_groups_ms": everything["ms"],
               "all_groups_bound_ms": everything["bound_ms"]})
     # K9: the proof's openings, one gather; its host tables (the plan
-    # packed and copied to the card) are built once and timed apart from
-    # the launch
+    # packed and copied to the card) are built and timed apart from the
+    # launch: the first build (`gather_tables_host_ms`), then the median
+    # of 21 (`gather_tables_median_ms`)
     (args,) = calls["decommit_many_fused"]
     pieces = []
     for item in args[0]:
@@ -856,8 +850,8 @@ def check_recorded(calls, timed_run: bool) -> dict:
           "oods_groups": len(groups),
           "opening_pieces": len(pieces), "opening_words": words,
           "opening_units": tables[2],
-          "gather_tables_host_ms": float(np.median(tables_ms)),
-          "gather_tables_first_ms": tables_ms[0],
+          "gather_tables_host_ms": tables_ms[0],
+          "gather_tables_median_ms": float(np.median(tables_ms)),
           "largest_pieces": [{"rows": p.rows, "positions": len(p.idx),
                               "W": p.width, "words": p.words}
                              for p in largest],
@@ -945,15 +939,14 @@ def check_prover_kernels(comps, log_sizes) -> dict:
     mat = rand((C, R))
     keep(check("blake2s_messages", [R, C], lambda: blake2s.hash_rows(mat.t()),
                lambda: blake2s.hash_rows_plain(mat.t()), 4 * C * R + 32 * R,
-               R * -(-4 * C // 64) * COMPRESS, True, reps=5, int_pipe=True))
+               R * -(-4 * C // 64) * COMPRESS, True, reps=5))
     del mat
     s0 = plan.n_comp_trace_log + blowup
     leaves = rand((1 << s0, 8), 1 << 32)
     keep(check("blake2s_parents", [1 << s0, 8],
                lambda: blake2s.hash_parents(leaves),
                lambda: blake2s.hash_rows_plain(leaves.reshape(-1, 16)),
-               48 * (1 << s0), (1 << (s0 - 1)) * COMPRESS, True,
-               int_pipe=True))
+               48 * (1 << s0), (1 << (s0 - 1)) * COMPRESS, True))
     del leaves
     # K3: the largest component's size group, as prove() builds it
     s = n + blowup
@@ -1377,7 +1370,7 @@ def check_stream_kernels(comps, log_sizes) -> dict:
                4 * c * M + 64 * M, M * (c // 16) * COMPRESS, True, reps=10,
                plain_reps=1,
                timed_fn=lambda: blake2s.leaves_stream(buf, chunk, c, C,
-                                                      False), int_pipe=True))
+                                                      False)))
     del buf
     for width in (C, 4 * infos[0].n_logup_cols):
         tail = width % c or c
@@ -2156,8 +2149,8 @@ def main() -> int:
         "bound_by": timed[name]["bound_by"],
         "library_ms": timed[name].get("library_ms"),
         "shape": timed[name]["shape"],
-        **{k: timed[name][k] for k in ("int_pipe_bound_ms", "library_note",
-                                       "units") if k in timed[name]},
+        **{k: timed[name][k] for k in ("library_note", "units")
+           if k in timed[name]},
         **({"extend": {k: timed["circle_fft_extend"][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by")}} if name == "circle_fft" else {}),

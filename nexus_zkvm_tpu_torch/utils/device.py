@@ -67,43 +67,14 @@ def dev_const(name: str, log_size: int, device, build) -> torch.Tensor:
     return v
 
 
-class _Staging:
-    """A pinned host buffer of one device's uploads, grown as needed and
-    reused only once the copy that last read it is done (its event)."""
-
-    def __init__(self):
-        self.host = None
-        self.event = None
-        self.lock = threading.Lock()
-
-
-_STAGING: dict = {}
-
-
 def upload_i64(arr, device) -> torch.Tensor:
-    """An int64 array on ``device`` in one copy.  To a CUDA device it is
-    one non-blocking copy on the current stream from that device's
-    cached pinned buffer (allocating pinned memory is slow), which the
-    next upload overwrites only after an event recorded behind this
-    copy; on the CPU the array itself."""
-    a = np.ascontiguousarray(arr, dtype=np.int64).reshape(-1)
+    """An int64 array on ``device`` in one copy: to a CUDA device one
+    non-blocking copy on the current stream from pinned memory, which
+    PyTorch's caching host allocator hands out and reuses only once that
+    copy is done; on the CPU the array itself."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int64)
+                         .reshape(-1))
     dev = torch.device(device)
     if dev.type != "cuda":
-        return torch.from_numpy(a).to(dev)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    with _LOCK:
-        st = _STAGING.setdefault(dev.index, _Staging())
-    with st.lock, torch.cuda.device(dev):
-        if st.event is not None:
-            st.event.synchronize()
-        if st.host is None or st.host.numel() < a.size:
-            st.host = torch.empty(max(2 * a.size, 1 << 16), dtype=torch.int64,
-                                  pin_memory=True)
-        st.host.numpy()[:a.size] = a
-        out = torch.empty(a.size, dtype=torch.int64, device=dev)
-        out.copy_(st.host[:a.size], non_blocking=True)
-        if st.event is None:
-            st.event = torch.cuda.Event()
-        st.event.record()
-    return out
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
