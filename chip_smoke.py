@@ -65,6 +65,30 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              equal.  Then the keccak guest (``KECCAK_SRC``, one keccak-f
              permutation) the same way (`phase_keccak_parity`): its
              keccak component's real rows through K7's pieces.
+5b. machine2 — the same fib guest and n through
+             ``machine2.prove_machine2`` on the card (default PcsConfig
+             and MemoryConfig): the families ex_alu at (51, 2^20) and
+             ex_branch at (54, 2^18) filled on the host (numpy, scope
+             ``f:machine2``), K7 on the 12 families' generated tapes; a
+             cold, a warm and a profiled prove, verify, reject a tampered
+             opening, another claim, the exit code flipped and the proof
+             under machine v1's verifier; the launches must be
+             MACHINE2_KERNELS (no K5, none of the memory mode's three);
+             rows/s beside phase 5's.  One more proof has its calls of
+             K3 and K6-K9 recorded and each run again through the kernel
+             and its plain version, as phase 2 does for machine v1
+             (`check_recorded`, phases ``machine2_*``), and K1-K4 are
+             checked at that proof's shapes (`check_prover_kernels`,
+             untimed).
+5c. machine2_parity — the fib guest at n = 10 and the keccak guest
+             through machine2 on the CPU and the card, byte-equal; the
+             constraint harness (``air.testing``) on the n = 10 machine2
+             traces on the card finds no violation.
+5d. cli    — ``python -m nexus_zkvm_tpu_torch.cli prove`` of the fib
+             guest at n = 10 on the card and with ``--cpu``, each a
+             process: byte-equal bundles, equal to the JAX package's CLI
+             bundle; ``verify`` exits 0, and 1 on a bundle with one byte
+             flipped.
 6. machine_stream — the large-trace memory mode, chosen by size with
              the defaults: the fib guest at n = 838,858 (a CPU component
              of 2^22 rows) through ``LocalProver``, a cold and a warm,
@@ -93,13 +117,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 9. kernels — one JSON line with every kernel's numbers: launches from
              the path it belongs to (phase 5, or phase 6 for the memory
              mode's three; K1 counts one launch a transform, K8 one a
-             proof), times at that path's shapes; ``circle_fft`` adds
-             ``extend``, the composition's zero-extending LDE (see
-             `check_prover_kernels`), and ``oods_dot`` ``all_groups``,
-             its launch over all of a proof's groups, ``gather_openings``
-             ``streamed_chunk``, the memory mode's gather beside
-             ``torch.index_select`` (its ``library_ms``; no PyTorch call
-             gathers a whole proof's openings).
+             proof) and from phase 5b's three proofs
+             (``machine2_launches``), times at that path's shapes;
+             ``circle_fft`` adds ``extend``, the composition's
+             zero-extending LDE (see `check_prover_kernels`), and
+             ``oods_dot`` ``all_groups``, its launch over all of a
+             proof's groups, ``gather_openings`` ``streamed_chunk``, the
+             memory mode's gather beside ``torch.index_select`` (its
+             ``library_ms``; no PyTorch call gathers a whole proof's
+             openings).
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device
 the script exits with code 2 and prints no result.
@@ -633,16 +659,16 @@ RECORDED = {
 }
 
 
-def record_main_path(n: int, device="cuda"):
-    """Prove the fib guest at ``n`` on the card with the wrappers of
-    K3 and K6-K9 wrapped: each call's arguments are kept (the composition's
-    bucket as it was before the call) and the call goes on.  Returns
-    (log sizes, {name: [args]})."""
+def record_calls(prove_fn, names=tuple(RECORDED)):
+    """Run ``prove_fn()`` with the wrappers ``names`` (of K3 and K6-K9)
+    wrapped: each call's arguments are kept (the composition's bucket as
+    it was before the call) and the call goes on.  Returns (what
+    ``prove_fn`` returned, {name: [args]})."""
     import importlib
-    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
-    calls = {name: [] for name in RECORDED}
+    calls = {name: [] for name in names}
     saved = []
-    for name, (mod, fn) in RECORDED.items():
+    for name in names:
+        mod, fn = RECORDED[name]
         m = importlib.import_module(mod)
         orig = getattr(m, fn)
 
@@ -655,11 +681,21 @@ def record_main_path(n: int, device="cuda"):
         saved.append((m, fn, orig))
         setattr(m, fn, wrapped)
     try:
-        _v, proof = LocalProver(fib_guest(), device=device) \
-            .prove_with_input(public_input=encode_u32s(n))
+        out = prove_fn()
     finally:
         for m, fn, orig in saved:
             setattr(m, fn, orig)
+    return out, calls
+
+
+def record_main_path(n: int, device="cuda"):
+    """Prove the fib guest at ``n`` on the card with the wrappers of
+    K3 and K6-K9 wrapped (`record_calls`).  Returns (log sizes, {name:
+    [args]})."""
+    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
+    (_v, proof), calls = record_calls(
+        lambda: LocalProver(fib_guest(), device=device)
+        .prove_with_input(public_input=encode_u32s(n)))
     return proof.stark.log_sizes, calls
 
 
@@ -703,18 +739,22 @@ def zero_denominators(src, meta, M: int, chunk: int):
     return out
 
 
-def check_recorded(calls, timed_run: bool) -> dict:
+def check_recorded(calls, timed_run: bool, path: str = "") -> dict:
     """Every recorded call of K3 and K6-K9 again through the kernel and
-    its plain version, uint32-exact, K6 also on operands with zero
-    denominators, K3 on its largest group with a zero V and K8 on all of
-    the proof's groups in its one launch and on each group alone; timed
-    (``timed_run``) at the largest: the CPU component's composition and
-    operands (K7) and LogUp columns (K6), K8's launch and its largest
-    group, the whole opening gather (K9); and all of the proof's K6 and
-    K3 launches in turn."""
-    import torch
-    from nexus_zkvm_tpu_torch.air import component as cmp, tape as tp, \
-        tape_cuda
+    its plain version, uint32-exact: K7 (the composition of every
+    component over its 4x domain, one window [0, N) each from
+    halo-extended blocks, and every component's LogUp operands), K6
+    (every component's LogUp columns, the largest also with zero
+    denominators), K3 on every size group (the largest also with a zero
+    V), K8 on all of the proof's groups in its one launch and on each
+    group alone, K9 on the proof's whole opening gather; timed
+    (``timed_run``) at the largest: the largest component's composition
+    and operands (K7) and LogUp columns (K6), K8's launch and its
+    largest group, the whole opening gather (K9); and all of the proof's
+    K6 and K3 launches in turn.  ``path`` prefixes the phases of the
+    summaries it emits ("machine2_" for machine2's proof)."""
+    from nexus_zkvm_tpu_torch.air import component as cmp, tape as tp
+    from nexus_zkvm_tpu_torch.air import tape_cuda
     from nexus_zkvm_tpu_torch.ops import merkle, quotients
     from nexus_zkvm_tpu_torch.prover import stark
     out = {}
@@ -723,8 +763,6 @@ def check_recorded(calls, timed_run: bool) -> dict:
         if "ms" in rec:
             out[rec["name"]] = rec
 
-    # K7, composition: every component over its 4x domain (one window
-    # [0, N) each, from halo-extended blocks)
     comps = sorted(calls["air_eval_composition"], key=lambda a: -a[4])
     for i, (tape, mats, uni, lo, L, hneg, alpha, shift, invv, bucket) in \
             enumerate(comps):
@@ -739,7 +777,6 @@ def check_recorded(calls, timed_run: bool) -> dict:
                     *tape_cost(tape, L), timed_run and i == 0, reps=5,
                     plain_reps=1)
         keep(rec)
-    # K7, operands: every component with lookups over its trace domain
     ops = sorted(calls["air_eval_operands"], key=lambda a: -a[3])
     for i, (tape, mats, uni, N) in enumerate(ops):
         keep(check("air_eval_operands", [len(tape.program), tape.n_slots, N],
@@ -747,10 +784,6 @@ def check_recorded(calls, timed_run: bool) -> dict:
                    lambda: tp.air_eval_operands_plain(tape, mats, uni, N),
                    *tape_cost(tape, N), timed_run and i == 0, reps=5,
                    plain_reps=1))
-    # K6: every component's LogUp columns, timed on the CPU component's
-    # (the largest); then its operands with zero denominators (each
-    # place of a chunk, across chunk boundaries, the last pair); then
-    # all of the proof's launches in turn
     logups = sorted(calls["logup_columns"], key=lambda a: -a[2])
     for i, (src, meta, M) in enumerate(logups):
         B = int(meta.shape[1])
@@ -762,6 +795,9 @@ def check_recorded(calls, timed_run: bool) -> dict:
                    in_bytes + 16 * B * M,
                    M * logup_ops(meta, cmp.LOGUP_CHUNK), timed_run and i == 0,
                    reps=5, plain_reps=1))
+    # K6 again: the largest component's operands with zero denominators
+    # (each place of a chunk, across chunk boundaries, the last pair);
+    # then all of the proof's launches in turn
     src, meta, M = logups[0]
     zsrc = zero_denominators(src, meta, M, cmp.LOGUP_CHUNK)
     check("logup_columns", [int(meta.shape[1]), M, 4, "zero denominators"],
@@ -769,7 +805,7 @@ def check_recorded(calls, timed_run: bool) -> dict:
           lambda: cmp.logup_columns_plain(zsrc, meta, M), 0, 0, False)
     del zsrc
     if timed_run:
-        emit({"phase": "logup_launches", "launches": len(logups),
+        emit({"phase": f"{path}logup_launches", "launches": len(logups),
               "all_launches_ms": cuda_ms(lambda: [
                   cmp.logup_columns(*a) for a in logups], 3)})
     # K8: the proof's one launch over every (role, size, offset) group,
@@ -791,7 +827,7 @@ def check_recorded(calls, timed_run: bool) -> dict:
                    plain_reps=1))
     if timed_run:
         out["oods_dot_all"] = everything
-        emit({"phase": "oods_groups", "groups": len(groups),
+        emit({"phase": f"{path}oods_groups", "groups": len(groups),
               "all_groups_ms": everything["ms"],
               "all_groups_bound_ms": everything["bound_ms"]})
     # K9: the proof's openings, one gather; its host tables (the plan
@@ -839,13 +875,13 @@ def check_recorded(calls, timed_run: bool) -> dict:
           lambda: quotients.accumulate_blocks_plain(blocks, xs, ys, zconsts,
                                                     gcs), 0, 0, False)
     if timed_run:
-        emit({"phase": "quotient_groups", "launches": len(qcalls),
+        emit({"phase": f"{path}quotient_groups", "launches": len(qcalls),
               "shapes": [[int(a[4].shape[0]), int(a[4].shape[1]),
                           int(a[1].shape[0])] for a in qcalls],
               "all_groups_ms": cuda_ms(lambda: [
                   quotients.accumulate_blocks(*a) for a in qcalls], 3)})
     del qcalls, blocks, zconsts
-    emit({"phase": "recorded", "compositions": len(comps),
+    emit({"phase": f"{path}recorded", "compositions": len(comps),
           "operand_tapes": len(ops), "logup_launches": len(logups),
           "oods_groups": len(groups),
           "opening_pieces": len(pieces), "opening_words": words,
@@ -863,9 +899,9 @@ def check_recorded(calls, timed_run: bool) -> dict:
     return out
 
 
-def check_prover_kernels(comps, log_sizes) -> dict:
-    """K1-K4, timed, at the largest shapes a machine proof of these
-    components gives them: the interaction columns of its largest
+def check_prover_kernels(comps, log_sizes, timed: bool = True) -> dict:
+    """K1-K4 at the largest shapes a machine proof of these components
+    gives them (timed when ``timed``): the interaction columns of its largest
     component (4 per LogUp batch) interpolated on its trace domain,
     evaluated on the 4x domain for the composition and hashed as leaves
     of their commitment; the first parent layer of the composition's
@@ -907,13 +943,13 @@ def check_prover_kernels(comps, log_sizes) -> dict:
     x = rand((C, N))
     keep(check("circle_ifft", [C, N], lambda: cfft.interpolate(x),
                lambda: cfft.interpolate_plain(x), 2 * 4 * C * N + 4 * N,
-               butterflies(C, n) * (2 * ADD + MUL) + C * N * MUL, True))
+               butterflies(C, n) * (2 * ADD + MUL) + C * N * MUL, timed))
     del x
     E = 1 << (n + 2)
     x = rand((C, E))
     keep(check("circle_fft", [C, E], lambda: cfft.evaluate(x),
                lambda: cfft.evaluate_plain(x), 2 * 4 * C * E + 4 * E,
-               butterflies(C, n + 2) * (2 * ADD + MUL), True))
+               butterflies(C, n + 2) * (2 * ADD + MUL), timed))
     del x
     # K1 extending: the composition's LDE of every column of the largest
     # component (main, preprocessed, interaction) from 2^n to the 4x
@@ -929,7 +965,7 @@ def check_prover_kernels(comps, log_sizes) -> dict:
                 lambda: torch.cat([cfft.evaluate_plain(cfft.extend_coeffs(
                     x[i:i + 64], n + 2)) for i in range(0, Cc, 64)]),
                 4 * Cc * (N + E) + 4 * E,
-                Cc * n * (E // 2) * (2 * ADD + MUL), True, reps=5,
+                Cc * n * (E // 2) * (2 * ADD + MUL), timed, reps=5,
                 plain_reps=1)
     out["circle_fft_extend"] = rec
     del x
@@ -939,14 +975,14 @@ def check_prover_kernels(comps, log_sizes) -> dict:
     mat = rand((C, R))
     keep(check("blake2s_messages", [R, C], lambda: blake2s.hash_rows(mat.t()),
                lambda: blake2s.hash_rows_plain(mat.t()), 4 * C * R + 32 * R,
-               R * -(-4 * C // 64) * COMPRESS, True, reps=5))
+               R * -(-4 * C // 64) * COMPRESS, timed, reps=5))
     del mat
     s0 = plan.n_comp_trace_log + blowup
     leaves = rand((1 << s0, 8), 1 << 32)
     keep(check("blake2s_parents", [1 << s0, 8],
                lambda: blake2s.hash_parents(leaves),
                lambda: blake2s.hash_rows_plain(leaves.reshape(-1, 16)),
-               48 * (1 << s0), (1 << (s0 - 1)) * COMPRESS, True))
+               48 * (1 << s0), (1 << (s0 - 1)) * COMPRESS, timed))
     del leaves
     # K3: the largest component's size group, as prove() builds it
     s = n + blowup
@@ -965,7 +1001,7 @@ def check_prover_kernels(comps, log_sizes) -> dict:
                                                    gcs),
                lambda: quotients.accumulate_blocks_plain(blocks, xs, ys,
                                                          consts, gcs),
-               *quotient_cost(rows, M, a["gcs"]), True, reps=5))
+               *quotient_cost(rows, M, a["gcs"]), timed, reps=5))
     del blocks
     # K4: the first circle fold of the composition's domain
     v = rand((1 << s0, 4))
@@ -974,7 +1010,7 @@ def check_prover_kernels(comps, log_sizes) -> dict:
     L = 1 << (s0 - 1)
     keep(check("fri_fold", [1 << s0, 4], lambda: fri.fold(v, alpha, tw),
                lambda: fri.fold_plain(v, alpha, tw), L * 52,
-               L * (QM31_MUL + 4 * MUL + 12 * ADD), True))
+               L * (QM31_MUL + 4 * MUL + 12 * ADD), timed))
     return out
 
 
@@ -1077,20 +1113,19 @@ def check_path(path: str, launches: dict, expected) -> None:
                            f"expected {sorted(ran - set(expected))}")
 
 
-def rejects_tampering(prover, view, proof) -> None:
+def rejects_tampering(verify, view, proof) -> None:
     """A tampered opening of the main trace and another program's claim
-    must both fail to verify."""
+    must both fail ``verify(view, proof)``."""
     import copy
-    from nexus_zkvm_tpu_torch.machine.driver import verify_machine
     from nexus_zkvm_tpu_torch.vm import asm, k_trace
     bad = copy.deepcopy(proof)
     dec = bad.stark.openings["main"][0][1]
     dec.column_values[0] = np.array(dec.column_values[0])
     dec.column_values[0][0] = (int(dec.column_values[0][0]) + 1) % P31
-    if prover.verify(view, bad):
+    if verify(view, bad):
         raise RuntimeError("a tampered machine proof verifies")
     view2, _t = k_trace(asm.assemble(OTHER_SRC))
-    if verify_machine(view2, proof, prover.config, device=prover.device):
+    if verify(view2, proof):
         raise RuntimeError("the proof verifies another program's claim")
 
 
@@ -1102,8 +1137,8 @@ def _route_trees(proof) -> list:
 
 def phase_machine() -> tuple:
     """The fib guest through LocalProver on the card at a 2^20-row CPU
-    component; returns the launch counts of that run and the blake2s
-    digest of the proof's bytes."""
+    component; returns the launch counts of that run, the blake2s
+    digest of the proof's bytes and the phase's record."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
@@ -1145,7 +1180,7 @@ def phase_machine() -> tuple:
         raise RuntimeError(f"CPU component at 2^{cpu_log}, not 2^{FULL_LOG}")
     if decode_u32s(view.public_output, 1)[0] != fib_u32(FIB_N):
         raise RuntimeError("wrong fib output")
-    rejects_tampering(prover, view, proof)
+    rejects_tampering(prover.verify, view, proof)
     # resident at 2^20: no streamed tree, one composition pass
     route = prof.notes
     if route["streamed"] or max(route["composition_passes"]) != 1:
@@ -1155,18 +1190,19 @@ def phase_machine() -> tuple:
         raise RuntimeError(f"K8 launched {launches['oods_dot']} times in "
                            f"3 proofs, not once a proof")
     digest = proof_digest(proof_to_bytes(proof))
-    emit({"phase": "machine", "guest": "examples/guests/fib.s", "n": FIB_N,
-          "steps": steps, "cpu_log_rows": cpu_log, "proof_blake2s": digest,
-          "log_sizes": proof.stark.log_sizes, "streamed": route["streamed"],
-          "composition_passes": max(route["composition_passes"]),
-          "verified": True,
-          "tampered_rejected": True, "other_claim_rejected": True,
-          "emulate_s": emulate_s, "prove_s": prove_s, "prove_cold_s": cold_s,
-          "prove_profiled_s": profiled_s,
-          "verify_s": verify_s, "rows_per_s": (1 << cpu_log) / prove_s,
-          "steps_per_s": steps / prove_s, "peak_bytes": peak,
-          "phase_s": prof.times, "launches": launches})
-    return launches, digest
+    rec = {"phase": "machine", "guest": "examples/guests/fib.s", "n": FIB_N,
+           "steps": steps, "cpu_log_rows": cpu_log, "proof_blake2s": digest,
+           "log_sizes": proof.stark.log_sizes, "streamed": route["streamed"],
+           "composition_passes": max(route["composition_passes"]),
+           "verified": True,
+           "tampered_rejected": True, "other_claim_rejected": True,
+           "emulate_s": emulate_s, "prove_s": prove_s, "prove_cold_s": cold_s,
+           "prove_profiled_s": profiled_s,
+           "verify_s": verify_s, "rows_per_s": (1 << cpu_log) / prove_s,
+           "steps_per_s": steps / prove_s, "peak_bytes": peak,
+           "phase_s": prof.times, "launches": launches}
+    emit(rec)
+    return launches, digest, rec
 
 
 def phase_machine_stream():
@@ -1224,7 +1260,7 @@ def phase_machine_stream():
     if warm["oods_dot"] != 1:
         raise RuntimeError(f"K8 launched {warm['oods_dot']} times in a "
                            f"proof, not once")
-    rejects_tampering(prover, view, proof)
+    rejects_tampering(prover.verify, view, proof)
     check_path("machine_stream", launches, set(launches))
     emit({"phase": "machine_stream", "guest": "examples/guests/fib.s",
           "n": FIB_STREAM_N, "steps": steps, "cpu_log_rows": cpu_log,
@@ -1559,6 +1595,253 @@ def _cpu_card_parity(guest, public: bytes) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# machine2: the per-instruction-family prover generation
+# ---------------------------------------------------------------------------
+
+# the kernels a machine2 proof launches at the default route: every one
+# but K5 (the families are filled on the host) and the memory mode's three
+MACHINE2_KERNELS = ("circle_ifft", "circle_fft", "blake2s_messages",
+                    "blake2s_parents", "deep_quotients", "fri_fold",
+                    "logup_columns", "air_eval_composition",
+                    "air_eval_operands", "oods_dot", "gather_openings")
+# the fib guest's two large families at n = FIB_N: (name, columns, log
+# rows); ADD and ADDI steps fill ex_alu, BNE and BEQ ex_branch
+MACHINE2_SHAPES = (("ex_alu", 51, FULL_LOG), ("ex_branch", 54, 18))
+# blake2s of the bundle the JAX package's CLI writes for `prove
+# examples/guests/fib.s --input 10 --cpu` (1,566,100 bytes;
+# tests/test_torch_cli.py holds the port's CPU bundle to it)
+CLI_FIB10_BUNDLE_BLAKE2S = \
+    "1ae79ea0eba5fb9725540a1506915687be79c9489f77ef96af222b88f200ba81"
+
+
+def machine2_rejects(view, proof, config) -> None:
+    """The four forgeries a machine2 proof must fail: a tampered opening
+    and another program's claim (`rejects_tampering`), the exit code
+    flipped, and the proof under machine v1's `verify_machine`."""
+    import copy
+    from nexus_zkvm_tpu_torch.machine import verify_machine
+    from nexus_zkvm_tpu_torch.machine2 import verify_machine2
+    rejects_tampering(lambda v, p: verify_machine2(v, p, config), view,
+                      proof)
+    flipped = copy.deepcopy(view)
+    flipped.exit_code ^= 1
+    if verify_machine2(flipped, proof, config):
+        raise RuntimeError("the machine2 proof verifies a flipped exit code")
+    if verify_machine(view, proof, config):
+        raise RuntimeError("machine v1's verifier accepts a machine2 proof")
+
+
+def phase_machine2(v1: dict) -> dict:
+    """The fib guest at n = FIB_N through ``machine2.prove_machine2`` on
+    the card (default PcsConfig and MemoryConfig): a cold, a warm and a
+    profiled prove (phase times; ``fills/f:machine2`` is the families'
+    host fill), verify, the four forgeries rejected, the launches of
+    those three proofs against MACHINE2_KERNELS, rows/s beside machine
+    v1's (``v1``: phase `machine`'s record).  Then one more proof with
+    its calls of K3 and K6-K9 recorded (`record_calls`): its bytes equal
+    the profiled proof's, and every call again through the kernel and
+    its plain version (`check_recorded`: uint32-equal; the largest
+    timed); and K1-K4 at that proof's shapes (`check_prover_kernels`,
+    untimed).  Returns the launch counts of the three proofs."""
+    import torch
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.machine2 import (EXEC_FAMILIES,
+                                               build_components2,
+                                               prove_machine2,
+                                               verify_machine2)
+    from nexus_zkvm_tpu_torch.prover import PcsConfig
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          decode_u32s, proof_to_bytes)
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    config = PcsConfig()
+    t0 = time.perf_counter()
+    view, trace = LocalProver(fib_guest()).trace(
+        public_input=encode_u32s(FIB_N))
+    emulate_s = time.perf_counter() - t0
+    steps = int(len(trace.steps["clk"]))
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        prove_machine2(view, trace, config)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    cold_s, prove_s = secs
+    torch.cuda.reset_peak_memory_stats()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        proof = prove_machine2(view, trace, config)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    ok = verify_machine2(view, proof, config)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        raise RuntimeError("the machine2 proof does not verify")
+    if decode_u32s(view.public_output, 1)[0] != fib_u32(FIB_N):
+        raise RuntimeError("wrong fib output")
+    comps = build_components2(view)[0]
+    logs = {c.name: n for c, n in zip(comps, proof.stark.log_sizes)}
+    widths = {c.name: c.n_main for c in comps}
+    for name, cols, log in MACHINE2_SHAPES:
+        if (widths[name], logs[name]) != (cols, log):
+            raise RuntimeError(f"{name} at ({widths[name]}, 2^{logs[name]}),"
+                               f" not ({cols}, 2^{log})")
+    machine2_rejects(view, proof, config)
+    route = prof.notes
+    if route["streamed"] or max(route["composition_passes"]) != 1:
+        raise RuntimeError(f"the machine2 proof left the resident route: "
+                           f"{route}")
+    check_path("machine2", launches, MACHINE2_KERNELS)
+    if launches["oods_dot"] != 3:
+        raise RuntimeError(f"K8 launched {launches['oods_dot']} times in "
+                           f"3 proofs, not once a proof")
+    blob = proof_to_bytes(proof)
+    family_rows = sum(1 << logs[f.name] for f in EXEC_FAMILIES)
+    emit({"phase": "machine2", "guest": "examples/guests/fib.s", "n": FIB_N,
+          "steps": steps, "log_sizes": proof.stark.log_sizes,
+          "families": {f.name: [widths[f.name], logs[f.name]]
+                       for f in EXEC_FAMILIES},
+          "proof_bytes": len(blob), "proof_blake2s": proof_digest(blob),
+          "verified": True, "rejected": ["tampered_opening", "other_claim",
+                                         "exit_code_flipped", "machine_v1"],
+          "streamed": route["streamed"],
+          "composition_passes": max(route["composition_passes"]),
+          "emulate_s": emulate_s, "prove_s": prove_s, "prove_cold_s": cold_s,
+          "prove_profiled_s": profiled_s, "verify_s": verify_s,
+          "host_fill_s": prof.times.get("fills/f:machine2"),
+          "rows_per_s": (1 << FULL_LOG) / prove_s,
+          "family_rows_per_s": family_rows / prove_s,
+          "steps_per_s": steps / prove_s, "peak_bytes": peak,
+          "machine_v1": {k: v1[k] for k in ("prove_s", "rows_per_s",
+                                            "steps_per_s", "peak_bytes")},
+          "phase_s": prof.times, "launches": launches})
+    del proof
+    torch.cuda.empty_cache()
+    proof2, calls = record_calls(
+        lambda: prove_machine2(view, trace, config))
+    del trace
+    if proof_to_bytes(proof2) != blob:
+        raise RuntimeError("two machine2 proofs of one trace differ")
+    log_sizes = proof2.stark.log_sizes
+    del proof2
+    check_recorded(calls, timed_run=True, path="machine2_")
+    del calls
+    torch.cuda.empty_cache()
+    check_prover_kernels(comps, log_sizes, timed=False)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_machine2_parity() -> None:
+    """The fib guest at n = FIB_PARITY_N and the keccak guest
+    (KECCAK_SRC: its ex_keccak family and keccak component through K7's
+    pieces) through ``prove_machine2`` on the CPU and on the card:
+    byte-equal proofs that verify, K7 launched.  Then the port's
+    constraint harness (``air.testing.assert_constraints``) on the
+    n = FIB_PARITY_N machine2 traces on the card (K7 and K6 make the
+    interaction) raises nothing."""
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.air.testing import assert_constraints
+    from nexus_zkvm_tpu_torch.machine2 import (build_machine2_traces,
+                                               prove_machine2,
+                                               verify_machine2)
+    from nexus_zkvm_tpu_torch.sdk import (Guest, LocalProver, encode_u32s,
+                                          proof_to_bytes)
+    rec = {"phase": "machine2_parity"}
+    for name, guest, public in (
+            ("fib", fib_guest(), encode_u32s(FIB_PARITY_N)),
+            ("keccak", Guest.from_asm(KECCAK_SRC), b"")):
+        view, trace = LocalProver(guest, device="cpu").trace(
+            public_input=public)
+        blobs, secs = {}, {}
+        before = kernels.launch_counts()
+        for device in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            proof = prove_machine2(view, trace, device=device)
+            secs[device] = time.perf_counter() - t0
+            blobs[device] = proof_to_bytes(proof)
+        ran = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        if blobs["cpu"] != blobs["cuda"]:
+            raise RuntimeError(f"{name}: CPU and CUDA machine2 proofs differ")
+        if not verify_machine2(view, proof):
+            raise RuntimeError(f"{name}: the machine2 proof does not verify")
+        if not ran["air_eval_composition"] or not ran["air_eval_operands"]:
+            raise RuntimeError(f"{name}: the machine2 proof skipped K7")
+        rec[name] = {"equal_bytes": True, "log_sizes": proof.stark.log_sizes,
+                     "proof_bytes": len(blobs["cuda"]),
+                     "proof_blake2s": proof_digest(blobs["cuda"]),
+                     "cpu_prove_s": secs["cpu"], "cuda_prove_s": secs["cuda"]}
+    view, trace = LocalProver(fib_guest(), device="cpu").trace(
+        public_input=encode_u32s(FIB_PARITY_N))
+    comps, log_sizes, traces = build_machine2_traces(view, trace,
+                                                     device="cuda")
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    assert_constraints(comps, log_sizes, traces, device="cuda")
+    ran = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    if not ran["air_eval_operands"] or not ran["logup_columns"]:
+        raise RuntimeError(f"the harness on the card skipped K7 or K6: {ran}")
+    rec["harness"] = {"components": len(comps), "seconds":
+                      time.perf_counter() - t0, "violations": 0,
+                      "launches": {k: ran[k] for k in (
+                          "air_eval_operands", "logup_columns")}}
+    emit(rec)
+
+
+def phase_cli() -> None:
+    """The CLI as a user runs it, each command a process: `prove
+    examples/guests/fib.s --input 10` on the card and with ``--cpu``:
+    byte-equal bundles, equal to the JAX package's CLI bundle
+    (CLI_FIB10_BUNDLE_BLAKE2S); `verify` of it exits 0 and of a copy
+    with one byte flipped exits 1."""
+    import tempfile
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "nexus_zkvm_tpu_torch.cli",
+                            *args], cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        return r, time.perf_counter() - t0
+
+    rec = {"phase": "cli"}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        blobs = {}
+        for tag, extra in (("cuda", ()), ("cpu", ("--cpu",))):
+            out = tmp / f"fib10.{tag}.bundle"
+            r, secs = cli("prove", "examples/guests/fib.s", "--input", "10",
+                          "-o", str(out), *extra)
+            if r.returncode:
+                raise RuntimeError(f"cli prove ({tag}) exited "
+                                   f"{r.returncode}: {r.stdout}{r.stderr}")
+            blobs[tag] = out.read_bytes()
+            rec[f"prove_{tag}_s"] = secs
+        if blobs["cuda"] != blobs["cpu"]:
+            raise RuntimeError("the CLI's card and CPU bundles differ")
+        if proof_digest(blobs["cuda"]) != CLI_FIB10_BUNDLE_BLAKE2S:
+            raise RuntimeError("the CLI bundle differs from the reference's")
+        r, rec["verify_s"] = cli("verify", str(tmp / "fib10.cuda.bundle"))
+        if r.returncode != 0 or "verified: True" not in r.stdout:
+            raise RuntimeError(f"cli verify exited {r.returncode}: "
+                               f"{r.stdout}{r.stderr}")
+        bad = bytearray(blobs["cuda"])
+        bad[len(bad) // 2] ^= 1
+        (tmp / "bad.bundle").write_bytes(bytes(bad))
+        r, rec["verify_flipped_s"] = cli("verify", str(tmp / "bad.bundle"))
+        if r.returncode != 1:
+            raise RuntimeError(f"cli verify of a flipped bundle exited "
+                               f"{r.returncode}: {r.stdout}{r.stderr}")
+    rec.update(bundle_bytes=len(blobs["cuda"]), equal_bytes=True,
+               bundle_blake2s=proof_digest(blobs["cuda"]),
+               verify_rc=0, flipped_rc=1)
+    emit(rec)
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the prover over a mesh; each rank is a process, started and
 # run by tests/torch_mesh.py (its `spawn` and rank programs)
 # ---------------------------------------------------------------------------
@@ -1763,10 +2046,12 @@ def phase_parallel(fib_digest: str) -> None:
               "reason": f"{cards} card: NCCL needs a card for each rank"})
 
 
-def fib_tapes():
+def fib_tapes(machine2: bool = False):
     """The fib guest's machine components (n = FIB_PARITY_N: the
     components, their tapes and so K7's sources are the same at every
-    trace size) and relations drawn from a fresh channel."""
+    trace size), with ``machine2`` the components of its machine2 proof
+    after them (the 12 families; the others are machine v1's), and
+    relations drawn from a fresh channel."""
     import nexus_zkvm_tpu_torch as T
     from nexus_zkvm_tpu_torch.air.component import component_info
     from nexus_zkvm_tpu_torch.air.lookups import draw_relations
@@ -1776,20 +2061,25 @@ def fib_tapes():
     view, _t = LocalProver(fib_guest(), device="cpu").trace(
         public_input=encode_u32s(FIB_PARITY_N))
     comps = build_components(view, 1)[0]
+    if machine2:
+        # (imported here: `--time-machine` may run a checkout without it)
+        from nexus_zkvm_tpu_torch.machine2 import EXEC_FAMILIES, \
+            build_components2
+        comps = comps + build_components2(view)[0][:len(EXEC_FAMILIES)]
     return comps, draw_relations(T.Blake2sChannel(), _relation_widths(
         [component_info(c) for c in comps]))
 
 
 def build_k7() -> None:
     """K7's generated pieces for both tapes of every component of the fib
-    proof, built in one batch (one nvcc a piece, as many at once as the
-    machine has CPUs, the longest first):
-    the seconds, the slowest piece, the CPU seconds of every nvcc, and
+    guest's machine v1 and machine2 proofs, built in one batch (one nvcc
+    a piece, as many at once as the machine has CPUs, the longest
+    first): the seconds, the slowest piece, the CPU seconds of every nvcc, and
     each piece's row operations, table words, nvcc wall and CPU seconds,
     registers and spill bytes (ptxas)."""
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.air import tape as tp, tape_cuda
-    comps, rel = fib_tapes()
+    comps, rel = fib_tapes(machine2=True)
     t0 = time.perf_counter()
     rec = tp.build_kernels(comps, [PARITY_LOG] * len(comps), rel)
     secs = time.perf_counter() - t0
@@ -2123,9 +2413,12 @@ def main() -> int:
     comps = make_components()
     phase_parity(comps)
     phase_slice(comps)
-    launches, fib_digest = phase_machine()
+    launches, fib_digest, machine_rec = phase_machine()
     phase_machine_parity()
     phase_keccak_parity()
+    m2_launches = phase_machine2(machine_rec)
+    phase_machine2_parity()
+    phase_cli()
     stream_launches, stream_comps, stream_logs = phase_machine_stream()
     phase_stream_parity()
     timed.update(check_stream_kernels(stream_comps, stream_logs))
@@ -2143,6 +2436,7 @@ def main() -> int:
         "launches": (stream_launches if name in MEMORY_MODE
                      else launches)[name],
         "path": "machine_stream" if name in MEMORY_MODE else "machine",
+        "machine2_launches": m2_launches[name],
         "max_abs_err": timed[name]["max_abs_err"], "ms": timed[name]["ms"],
         "plain_ms": timed[name]["plain_ms"],
         "bound_ms": timed[name]["bound_ms"],

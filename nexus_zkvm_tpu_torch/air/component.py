@@ -276,21 +276,29 @@ def logup_columns_plain(src, meta, M: int) -> torch.Tensor:
     (d1·d2) for pair b of the packed operands."""
     table = meta.tolist()
     B = len(table[0])
+    # the pairs' fractions, as many pairs at a time as fit 2^22 rows (so
+    # the int64 temporaries stay within a few hundred MiB), each batch's
+    # running sums carried into the next as int32 columns
+    step = max(1, (1 << 22) // M)
     cols, running = [], None
-    for b in range(B):
-        n1, d1, n2, d2 = (_operand(src, *table[k][b], M) for k in range(4))
+    for b0 in range(0, B, step):
+        n1, d1, n2, d2 = (torch.stack([
+            _operand(src, *table[k][b], M).expand(M, 4)
+            for b in range(b0, min(B, b0 + step))]) for k in range(4))
         numer = F.qm31_add(F.qm31_mul(n1, d2), F.qm31_mul(n2, d1))
-        frac = F.qm31_mul(numer, F.qm31_inv(F.qm31_mul(d1, d2)))
-        frac = frac.expand(M, 4)
+        # canonical terms over fewer than 2^31 pairs keep the sum exact
+        sums = torch.cumsum(
+            F.qm31_mul(numer, F.qm31_inv(F.qm31_mul(d1, d2))), dim=0)
         if running is not None:
-            cols.append(running.to(torch.int32))
-            frac = F.qm31_add(running, frac)
-        running = frac
-    # the row totals' prefix sum is the last column: canonical terms over
-    # at most 2^31 rows keep the int64 sum exact
-    cols.append(torch.remainder(torch.cumsum(running, dim=0), F.P)
-                .to(torch.int32))
-    return torch.stack(cols)
+            sums += running
+        sums = torch.remainder(sums, F.P)
+        running = sums[-1]
+        cols.append(sums.to(torch.int32))
+    # the last column is the row totals' prefix sum (exact over fewer
+    # than 2^31 rows)
+    out = torch.cat(cols)
+    out[-1] = torch.remainder(torch.cumsum(running, dim=0), F.P)
+    return out
 
 
 def _check_meta(meta, n_words: int, M: int) -> None:

@@ -16,11 +16,12 @@ postcard/COBS serialization (`sdk/src/stwo/seq.rs:127-130`).
 from .guest import Guest
 from .prover import LocalProver, prove, verify
 from .io import encode_u32s, decode_u32s, decode_output
+from .profile import profile
 from .serialize import (proof_to_bytes, proof_from_bytes,
                         view_to_bytes, view_from_bytes,
                         bundle_to_bytes, bundle_from_bytes)
 
-__all__ = ["Guest", "LocalProver", "prove", "verify",
+__all__ = ["Guest", "LocalProver", "prove", "verify", "profile",
            "encode_u32s", "decode_u32s", "decode_output",
            "proof_to_bytes", "proof_from_bytes",
            "view_to_bytes", "view_from_bytes",

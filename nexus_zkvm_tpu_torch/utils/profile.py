@@ -1,10 +1,20 @@
 """Host wall-clock phase timing.
 
 ``with profiled() as prof:`` activates a profiler; library code marks
-phases with ``with scope("fri"):``, a no-op when none is active.  While
-a profiler is active each scope synchronizes CUDA on entry and exit, so
-a phase's time includes the device work it issued.  ``note(key, value)``
-records what a run decided (``prof.notes``), also a no-op without one.
+phases with ``with scope("fri"):``, a no-op when none is active (but
+for the progress ticker, `utils/progress.py`, which a scope drives
+whenever it is on).  While a profiler is active each scope synchronizes
+CUDA on entry and exit, so a phase's time includes the device work it
+issued.  ``note(key, value)`` records what a run decided
+(``prof.notes``), also a no-op without one.
+
+Usage::
+
+    from nexus_zkvm_tpu_torch.utils import profiled
+
+    with profiled() as prof:
+        proof = prove_machine(view, trace, device="cuda")
+    print(prof.report())
 """
 
 from __future__ import annotations
@@ -14,7 +24,9 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["Profiler", "profiled", "scope", "note"]
+from . import progress
+
+__all__ = ["Profiler", "profiled", "scope", "note", "active_profiler"]
 
 _ACTIVE: "Profiler | None" = None
 
@@ -22,12 +34,40 @@ _ACTIVE: "Profiler | None" = None
 class Profiler:
     def __init__(self):
         self.times: dict[str, float] = {}   # "outer/inner" scope -> seconds
+        self.counts: dict[str, int] = {}    # "outer/inner" scope -> calls
         self.notes: dict[str, object] = {}
         self._stack: list[str] = []
+        self._t0 = time.perf_counter()
+
+    def total(self) -> float:
+        """Seconds since the profiler was made."""
+        return time.perf_counter() - self._t0
+
+    def report(self, min_share: float = 0.005) -> str:
+        """Indented tree of scopes: total seconds, calls, % of wall
+        (scopes under ``min_share`` of it left out)."""
+        wall = self.total()
+        lines = [f"{'scope':<44} {'total_s':>9} {'calls':>7} {'%':>6}"]
+        for key in sorted(self.times,
+                          key=lambda k: (k.count("/"), -self.times[k])):
+            share = self.times[key] / wall if wall else 0.0
+            if share < min_share:
+                continue
+            label = "  " * key.count("/") + key.rsplit("/", 1)[-1]
+            lines.append(f"{label:<44} {self.times[key]:>9.3f} "
+                         f"{self.counts[key]:>7d} {100 * share:>5.1f}%")
+        lines.append(f"{'(wall)':<44} {wall:>9.3f}")
+        return "\n".join(lines)
+
+    def phase_seconds(self) -> dict[str, float]:
+        """Top-level phase -> seconds."""
+        return {k: round(v, 3) for k, v in self.times.items()
+                if "/" not in k}
 
 
 @contextmanager
 def profiled():
+    """Activate a fresh profiler for the enclosed block."""
     global _ACTIVE
     prev, prof = _ACTIVE, Profiler()
     _ACTIVE = prof
@@ -35,6 +75,10 @@ def profiled():
         yield prof
     finally:
         _ACTIVE = prev
+
+
+def active_profiler() -> "Profiler | None":
+    return _ACTIVE
 
 
 def _sync():
@@ -45,8 +89,12 @@ def _sync():
 @contextmanager
 def scope(name: str):
     prof = _ACTIVE
+    shown = progress.phase_enter(name)
     if prof is None:
-        yield
+        try:
+            yield
+        finally:
+            progress.phase_exit(name, shown)
         return
     _sync()
     prof._stack.append(name)
@@ -57,7 +105,9 @@ def scope(name: str):
         _sync()
         key = "/".join(prof._stack)
         prof.times[key] = prof.times.get(key, 0.0) + time.perf_counter() - t0
+        prof.counts[key] = prof.counts.get(key, 0) + 1
         prof._stack.pop()
+        progress.phase_exit(name, shown)
 
 
 def note(key: str, value) -> None:
