@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-machine [CHECKOUT]
     python3 chip_smoke.py --time-stream [CHECKOUT]
+    python3 chip_smoke.py --time-mesh [CHECKOUT]
+    python3 chip_smoke.py --mesh-nccl
 
 The second form only times warm fib 2^20 machine proofs (phase 5's
 path) and kernel K7 at that proof's shapes (`time_k7`), the third warm
@@ -12,9 +14,13 @@ K11 at that proof's shapes (`time_stream_kernels`); both then time K6
 and K8 (`time_k6_k8`), K3 and K12 (`time_k3_k12`) and K9 (`time_k9`:
 the opening gather, its host tables and the whole opening call; the
 memory mode's streamed chunk gather) on one more proof's own calls
-(`record_timing_calls`).  Each runs with
+(`record_timing_calls`).  The fourth times the warm fib proofs of
+phase 8 over gloo ranks sharing the card (`time_mesh`).  Each runs with
 the package of another checkout (this one by default), so that two
-checkouts can be compared on one card: run it for each in turn.
+checkouts can be compared on one card: run it for each in turn.  The
+fifth, on a machine of two cards or more, proves the fib 2^20 guest
+over NCCL, a rank a card, on 4 ranks (with four cards) and on 2, with
+the checks of phase 8 against one process alone (`mesh_nccl`).
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -75,7 +81,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              under machine v1's verifier; the launches must be
              MACHINE2_KERNELS (no K5, none of the memory mode's three);
              rows/s beside phase 5's.  One more proof has its calls of
-             K3 and K6-K9 recorded and each run again through the kernel
+             K3, K4 and K6-K9 recorded and each run again through the kernel
              and its plain version, as phase 2 does for machine v1
              (`check_recorded`, phases ``machine2_*``), and K1-K4 are
              checked at that proof's shapes (`check_prover_kernels`,
@@ -106,14 +112,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              gather of one more 2^22 proof, then timed at that chunk's
              shape beside `torch.index_select` (`check_stream_gathers`).
 8. parallel — the prover over a mesh (``nexus_zkvm_tpu_torch.parallel``),
-             each rank a process: 4 gloo ranks sharing the card commit
-             the interaction's shape of phase 5 sharded (root equal to
-             the single process's; each rank's step times and its bound);
-             the fib guest of phase 5 on 2 gloo ranks and at a 2^19-row
-             CPU component on 4: on every rank the proof bytes equal the
-             single process's and verify.  With two cards or more, the
-             2^20 proof again over NCCL, a rank a card (see
-             `phase_parallel`).
+             each rank a process holding its row windows: 4 gloo ranks
+             sharing the card commit the interaction's shape of phase 5
+             in windows (root equal to the single process's; each rank's
+             step times and its bound); the fib guest of phase 5 on 2
+             gloo ranks and at a 2^19-row CPU component on 4: on every
+             rank the proof bytes equal the single process's and verify,
+             its peak device memory within a share of the single
+             process's, and rank 0's calls of every kernel wrapper equal
+             their plain versions at its windows, shares and chunks.
+             NCCL across cards is the mode ``--mesh-nccl`` (`mesh_nccl`).
 9. kernels — one JSON line with every kernel's numbers: launches from
              the path it belongs to (phase 5, or phase 6 for the memory
              mode's three; K1 counts one launch a transform, K8 one a
@@ -398,20 +406,23 @@ FILL_ROW_OPS = 600
 def check(name, shape, kernel_fn, plain_fn, nbytes, ops, timed, reps=10,
           plain_reps=2, timed_fn=None, queued=False):
     """Run the kernel and its plain version on the same inputs; raise
-    unless their outputs are equal; time both when ``timed`` (the kernel
-    through ``timed_fn`` where given: a launch that updates a buffer in
-    place, with no copy to time beside it; ``queued``: behind a sleep,
-    see `cuda_ms`)."""
+    unless their outputs are equal, or unless the wrapper launched its
+    kernel on CUDA inputs (on CPU ones it runs the plain version, as
+    the CPU tests of the mesh's rank programs have it); time both when
+    ``timed`` (the kernel through ``timed_fn`` where given: a launch
+    that updates a buffer in place, with no copy to time beside it;
+    ``queued``: behind a sleep, see `cuda_ms`)."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     before = kernels.launch_counts()[name]
     got = kernel_fn()
-    torch.cuda.synchronize()
-    if kernels.launch_counts()[name] == before:
-        raise RuntimeError(f"{name}: the wrapper did not launch its kernel")
-    want = plain_fn()
     got, want = (tuple(x) if isinstance(x, tuple) else (x,)
-                 for x in (got, want))
+                 for x in (got, plain_fn()))
+    if got[0].is_cuda:
+        torch.cuda.synchronize()
+        if kernels.launch_counts()[name] == before:
+            raise RuntimeError(f"{name}: the wrapper did not launch its "
+                               f"kernel")
     if len(got) != len(want) or not all(
             g.shape == w.shape and torch.equal(g, w)
             for g, w in zip(got, want)):
@@ -652,32 +663,58 @@ RECORDED = {
     "logup_columns": ("nexus_zkvm_tpu_torch.air.tape", "logup_columns"),
     "oods_dot_groups": ("nexus_zkvm_tpu_torch.prover.stark",
                         "oods_dot_groups"),
-    "decommit_many_fused": ("nexus_zkvm_tpu_torch.ops.merkle",
-                            "decommit_many_fused"),
+    "gather_openings": ("nexus_zkvm_tpu_torch.ops.merkle",
+                        "gather_openings"),
     "accumulate_blocks": ("nexus_zkvm_tpu_torch.ops.quotients",
                           "accumulate_blocks"),
+    "fold": ("nexus_zkvm_tpu_torch.ops.fri", "fold"),
+}
+# K1 and K2, whose calls a mesh proof keeps one of each shape: the
+# column shares, the composition's coefficient chunks, the row windows
+# and their subtrees (the mesh commit calls them through their modules)
+RECORDED_BY_SHAPE = {
+    "interpolate": ("nexus_zkvm_tpu_torch.ops.cfft", "interpolate"),
+    "evaluate": ("nexus_zkvm_tpu_torch.ops.cfft", "evaluate"),
+    "hash_rows": ("nexus_zkvm_tpu_torch.ops.blake2s", "hash_rows"),
+    "hash_parents": ("nexus_zkvm_tpu_torch.ops.blake2s", "hash_parents"),
 }
 
 
+def _signature(args) -> tuple:
+    """A call's shapes, strides and other arguments."""
+    return tuple((tuple(a.shape), a.stride()) if hasattr(a, "stride")
+                 else a for a in args)
+
+
 def record_calls(prove_fn, names=tuple(RECORDED)):
-    """Run ``prove_fn()`` with the wrappers ``names`` (of K3 and K6-K9)
-    wrapped: each call's arguments are kept (the composition's bucket as
-    it was before the call) and the call goes on.  Returns (what
-    ``prove_fn`` returned, {name: [args]})."""
+    """Run ``prove_fn()`` with the wrappers ``names`` (of RECORDED and
+    RECORDED_BY_SHAPE) wrapped: each call's arguments are kept (the
+    composition's bucket as it was before the call, an interpolation in
+    place its input), of RECORDED_BY_SHAPE's only the first call of each
+    signature, and the call goes on.  Returns (what ``prove_fn``
+    returned, {name: [args]})."""
     import importlib
     calls = {name: [] for name in names}
+    seen = set()
     saved = []
     for name in names:
-        mod, fn = RECORDED[name]
+        mod, fn = {**RECORDED, **RECORDED_BY_SHAPE}[name]
         m = importlib.import_module(mod)
         orig = getattr(m, fn)
 
-        def wrapped(*args, _orig=orig, _name=name):
+        def wrapped(*args, _orig=orig, _name=name, **kw):
             kept = list(args)
+            if _name in RECORDED_BY_SHAPE:
+                key = (_name, _signature(args), tuple(kw))
+                if key in seen:
+                    return _orig(*args, **kw)
+                seen.add(key)
             if _name == "air_eval_composition":
                 kept[-1] = args[-1].clone()
+            elif _name == "interpolate" and (len(args) > 1 or kw):
+                kept = [args[0].clone()]      # in place: its input
             calls[_name].append(kept)
-            return _orig(*args)
+            return _orig(*args, **kw)
         saved.append((m, fn, orig))
         setattr(m, fn, wrapped)
     try:
@@ -690,7 +727,7 @@ def record_calls(prove_fn, names=tuple(RECORDED)):
 
 def record_main_path(n: int, device="cuda"):
     """Prove the fib guest at ``n`` on the card with the wrappers of
-    K3 and K6-K9 wrapped (`record_calls`).  Returns (log sizes, {name:
+    K3, K4 and K6-K9 wrapped (`record_calls`).  Returns (log sizes, {name:
     [args]})."""
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     (_v, proof), calls = record_calls(
@@ -740,22 +777,25 @@ def zero_denominators(src, meta, M: int, chunk: int):
 
 
 def check_recorded(calls, timed_run: bool, path: str = "") -> dict:
-    """Every recorded call of K3 and K6-K9 again through the kernel and
+    """Every recorded call (`record_calls`) again through the kernel and
     its plain version, uint32-exact: K7 (the composition of every
-    component over its 4x domain, one window [0, N) each from
-    halo-extended blocks, and every component's LogUp operands), K6
-    (every component's LogUp columns, the largest also with zero
-    denominators), K3 on every size group (the largest also with a zero
-    V), K8 on all of the proof's groups in its one launch and on each
-    group alone, K9 on the proof's whole opening gather; timed
-    (``timed_run``) at the largest: the largest component's composition
-    and operands (K7) and LogUp columns (K6), K8's launch and its
-    largest group, the whole opening gather (K9); and all of the proof's
-    K6 and K3 launches in turn.  ``path`` prefixes the phases of the
-    summaries it emits ("machine2_" for machine2's proof)."""
+    component over its 4x domain from halo-extended blocks, one window
+    [0, N) each or, on a mesh rank, its window of it; and every
+    component's LogUp operands), K6 (every component's LogUp columns,
+    the largest also with zero denominators), K3 on every size group
+    (the largest also with a zero V), K8 on all of the proof's groups in
+    its one launch and on each group alone, K9 on the proof's whole
+    opening gather, K4 on every fold, and K1 and K2 on each call kept
+    (`RECORDED_BY_SHAPE`); timed (``timed_run``) at the largest: the
+    largest component's composition and operands (K7) and LogUp columns
+    (K6), K8's launch and its largest group, the whole opening gather
+    (K9); and all of the proof's K6 and K3 launches in turn.  ``path``
+    prefixes the phases of the summaries it emits ("machine2_" for
+    machine2's proof, "mesh_" for a mesh rank's)."""
+    import torch
     from nexus_zkvm_tpu_torch.air import component as cmp, tape as tp
     from nexus_zkvm_tpu_torch.air import tape_cuda
-    from nexus_zkvm_tpu_torch.ops import merkle, quotients
+    from nexus_zkvm_tpu_torch.ops import blake2s, cfft, fri, merkle, quotients
     from nexus_zkvm_tpu_torch.prover import stark
     out = {}
 
@@ -830,24 +870,25 @@ def check_recorded(calls, timed_run: bool, path: str = "") -> dict:
         emit({"phase": f"{path}oods_groups", "groups": len(groups),
               "all_groups_ms": everything["ms"],
               "all_groups_bound_ms": everything["bound_ms"]})
-    # K9: the proof's openings, one gather; its host tables (the plan
-    # packed and copied to the card) are built and timed apart from the
-    # launch: the first build (`gather_tables_host_ms`), then the median
-    # of 21 (`gather_tables_median_ms`)
-    (args,) = calls["decommit_many_fused"]
-    pieces = []
-    for item in args[0]:
-        vals, sibs = merkle._pieces(*item)
-        pieces += vals + sibs
+    # K9: the proof's openings, one gather (on a mesh rank its pieces at
+    # their places); its host tables (the plan packed and copied to the
+    # card) are built and timed apart from the launch: the first build
+    # (`gather_tables_host_ms`), then the median of 21
+    # (`gather_tables_median_ms`)
+    (args,) = calls["gather_openings"]
+    pieces, buf_words = args[0], (args[1] if len(args) > 1 else None)
     words = sum(p.words for p in pieces)
-    tables_ms = [host_ms(lambda: merkle.gather_tables(pieces))
-                 for _ in range(21)]
-    tables = merkle.gather_tables(pieces)
+    tables_ms, tables = [None], (None, None, None)
+    if pieces[0].src.is_cuda:
+        tables_ms = [host_ms(lambda: merkle.gather_tables(pieces, buf_words))
+                     for _ in range(21)]
+        tables = merkle.gather_tables(pieces, buf_words)
     rec = check("gather_openings", [len(pieces), words],
-                lambda: merkle.gather_launch(*tables),
-                lambda: merkle.gather_openings_plain(pieces),
-                8 * words + 8 * int(tables[0].numel()), 0, timed_run,
-                plain_reps=3, queued=True)
+                lambda: merkle.gather_openings(pieces, buf_words),
+                lambda: merkle.gather_openings_plain(pieces, buf_words),
+                8 * words + 8 * int(tables[0].numel()) if timed_run else 0,
+                0, timed_run, plain_reps=3, queued=True,
+                timed_fn=lambda: merkle.gather_launch(*tables))
     if timed_run:
         rec.update(units=tables[2], library_ms=None,
                    library_note="no single PyTorch call gathers a proof's "
@@ -881,13 +922,42 @@ def check_recorded(calls, timed_run: bool, path: str = "") -> dict:
               "all_groups_ms": cuda_ms(lambda: [
                   quotients.accumulate_blocks(*a) for a in qcalls], 3)})
     del qcalls, blocks, zconsts
-    emit({"phase": f"{path}recorded", "compositions": len(comps),
+    # K4: every fold of the FRI commit (the landing folds with their
+    # injected input)
+    for args in calls["fold"]:
+        check("fri_fold", [int(args[0].shape[0]), 4, len(args)],
+              lambda: fri.fold(*args), lambda: fri.fold_plain(*args),
+              0, 0, False)
+    # K1 and K2 on the calls kept of each shape; the plain transforms 64
+    # columns at a time
+    def by_cols(plain):
+        return lambda x, *a: torch.cat([plain(x[i:i + 64], *a) for i in
+                                        range(0, int(x.shape[0]), 64)])
+    plains = {
+        "interpolate": ("circle_ifft", cfft.interpolate,
+                        by_cols(cfft.interpolate_plain)),
+        "evaluate": ("circle_fft", cfft.evaluate, by_cols(
+            lambda x, log=None: cfft.evaluate_plain(cfft.extend_coeffs(
+                x, max(log or 0, int(x.shape[1]).bit_length() - 1))))),
+        "hash_rows": ("blake2s_messages", blake2s.hash_rows,
+                      blake2s.hash_rows_plain),
+        "hash_parents": ("blake2s_parents", blake2s.hash_parents,
+                         lambda x: blake2s.hash_rows_plain(x.reshape(-1, 16)))}
+    for key in RECORDED_BY_SHAPE:
+        name, kernel, plain = plains[key]
+        for args in calls.get(key, ()):
+            check(name, [list(args[0].shape), *args[1:2]],
+                  lambda: kernel(*args), lambda: plain(*args), 0, 0, False)
+    emit({"phase": f"{path}recorded",
+          "calls": {k: len(v) for k, v in calls.items()},
+          "compositions": len(comps),
           "operand_tapes": len(ops), "logup_launches": len(logups),
           "oods_groups": len(groups),
           "opening_pieces": len(pieces), "opening_words": words,
           "opening_units": tables[2],
           "gather_tables_host_ms": tables_ms[0],
-          "gather_tables_median_ms": float(np.median(tables_ms)),
+          "gather_tables_median_ms": (None if tables_ms[0] is None else
+                                      float(np.median(tables_ms))),
           "largest_pieces": [{"rows": p.rows, "positions": len(p.idx),
                               "W": p.width, "words": p.words}
                              for p in largest],
@@ -1638,7 +1708,7 @@ def phase_machine2(v1: dict) -> dict:
     host fill), verify, the four forgeries rejected, the launches of
     those three proofs against MACHINE2_KERNELS, rows/s beside machine
     v1's (``v1``: phase `machine`'s record).  Then one more proof with
-    its calls of K3 and K6-K9 recorded (`record_calls`): its bytes equal
+    its calls of K3, K4 and K6-K9 recorded (`record_calls`): its bytes equal
     the profiled proof's, and every call again through the kernel and
     its plain version (`check_recorded`: uint32-equal; the largest
     timed); and K1-K4 at that proof's shapes (`check_prover_kernels`,
@@ -1882,14 +1952,25 @@ def host_copy_gbps(device, nbytes: int = 1 << 28) -> dict:
     return rates
 
 
+# each rank's peak device memory against the single process's peak of
+# the same proof, at most (the mesh's purpose: a rank holds its windows)
+MESH_PEAK_RATIO = {2: 0.6, 4: 0.45}
+
+
 def _check_mesh_machine(path: str, n: int, recs, digest: str,
-                        log_rows: int, expected) -> None:
+                        log_rows: int, expected, single_peak: int) -> None:
     """Every rank's proof: bytes equal to the single process's (its
-    digest), equal on every rank, verified; the main, interaction and
-    composition trees committed over the mesh; the kernels launched."""
+    digest), equal on every rank, verified; nothing streamed; the main,
+    interaction and composition trees committed in row windows, and the
+    rank's window of the main group of the CPU component M/D rows; the
+    kernels launched; its peak device memory within MESH_PEAK_RATIO of
+    the single process's ``single_peak``; rank 0's calls of every
+    kernel wrapper at its shapes equal to their plain versions
+    (`RECORDED`, `RECORDED_BY_SHAPE`; torch_mesh.check_rank_kernels)."""
     s = log_rows + 1
     for rec in recs:
         where = f"{path}/rank{rec['rank']}"
+        D, r = rec["ranks"], rec["rank"]
         if rec["cpu_log_rows"] != log_rows:
             raise RuntimeError(f"{where}: CPU component at "
                                f"2^{rec['cpu_log_rows']}, not 2^{log_rows}")
@@ -1900,29 +1981,54 @@ def _check_mesh_machine(path: str, n: int, recs, digest: str,
             raise RuntimeError(f"{where}: the proof does not verify")
         got = {tuple(g) for g in rec["sharded"]}
         if not {("main", s), ("inter", s)} <= got or \
-                not any(role == "comp" for role, _s in got):
-            raise RuntimeError(f"{where}: not committed over the mesh: "
-                               f"{rec['sharded']}")
+                not any(role == "comp" for role, _s in got) or \
+                rec["streamed"]:
+            raise RuntimeError(f"{where}: not committed in windows over the "
+                               f"mesh: {rec['sharded']}, streamed "
+                               f"{rec['streamed']}")
+        w = (1 << s) // D
+        main = [g for g in rec["mesh_windows"] if g[:2] == ("main", s)]
+        if [tuple(g[2]) for g in main] != [(r * w, (r + 1) * w)] or \
+                main[0][4][1] != w:
+            raise RuntimeError(f"{where}: holds {main}, not the window "
+                               f"[{r * w}, {(r + 1) * w})")
         check_path(where, rec["launches"], expected)
+        ratio = rec["peak_bytes"] / single_peak
+        if ratio > MESH_PEAK_RATIO[D]:
+            raise RuntimeError(f"{where}: peak {rec['peak_bytes']} bytes, "
+                               f"{ratio:.3f} of the single process's "
+                               f"{single_peak} (at most "
+                               f"{MESH_PEAK_RATIO[D]})")
+        wk = rec["window_kernels"]
+        if r == 0 and (not wk or not all(
+                wk.get(k) for k in (*RECORDED, *RECORDED_BY_SHAPE))):
+            raise RuntimeError(f"{where}: a kernel wrapper not held at the "
+                               f"rank's shapes: {wk}")
         emit({"phase": "parallel", "path": path, "n": n, **{
             k: rec[k] for k in ("rank", "ranks", "backend", "cpu_log_rows",
                                 "proof_blake2s", "proof_bytes", "warm",
                                 "prove_s", "prove_cold_s", "verify_s",
                                 "peak_bytes", "sharded", "streamed",
-                                "phase_s", "launches")},
+                                "phase_s", "launches", "window_kernels")},
+              "single_process_peak_bytes": single_peak,
+              "peak_ratio": ratio,
+              "mesh_windows": [[role, s_, rows, cols]
+                               for role, s_, rows, cols, _e, _c
+                               in rec["mesh_windows"] if s_ >= s],
               "equal_to_single_process": True, "verified": True})
 
 
 def commit_bound(C: int, log_n: int, ranks: int, gbps: dict) -> dict:
-    """The least time of the sharded commit of (C, 2^log_n) on the
+    """The least time of the windowed commit of (C, 2^log_n) on the
     2^(log_n + 1) domain by ``ranks`` gloo ranks sharing one card and
     its one host link: the K1 and K2 bounds (see `bound`) on the whole
-    matrix, since the card runs every rank's share, plus every rank's
-    copies through pinned host memory at the rates ``gbps`` measured
-    with no rank running: each rank's share out (coefficients and
-    evaluations of ceil(C / ranks) columns, its subtree) and every
-    share into each rank.  gloo's exchange between the host buffers is
-    left out: it has no rate to bound it by."""
+    matrix, since the card runs every rank's share, plus the bytes the
+    all_to_all moves through pinned host memory at the rates ``gbps``
+    measured with no rank running: each rank's send buffer out (its
+    share of ceil(C / ranks) columns' evaluations, the M/ranks rows of
+    every window) and its received windows in (the same size), and the
+    subtree roots.  gloo's exchange between the host buffers is left
+    out: it has no rate to bound it by."""
     k = -(-C // ranks)
     N, M = 1 << log_n, 1 << (log_n + 1)
 
@@ -1936,8 +2042,8 @@ def commit_bound(C: int, log_n: int, ranks: int, gbps: dict) -> dict:
         "blake2s_messages": bound(4 * C * M + 32 * M,
                                   M * -(-4 * C // 64) * COMPRESS),
         "blake2s_parents": bound(96 * M, M * COMPRESS)}
-    share = 4 * k * (N + M) + 2 * 32 * (M // ranks)
-    out_bytes, in_bytes = ranks * share, ranks * ranks * share
+    share = 4 * k * M + 32
+    out_bytes, in_bytes = ranks * share, ranks * (share + 32 * ranks)
     copy_ms = (out_bytes / gbps["d2h"] + in_bytes / gbps["h2d"]) / 1e6
     return {"bound_ms": sum(ms for ms, _by in parts.values()) + copy_ms,
             "kernel_bounds_ms": {k_: ms for k_, (ms, _by) in parts.items()},
@@ -1945,32 +2051,52 @@ def commit_bound(C: int, log_n: int, ranks: int, gbps: dict) -> dict:
             "copy_gbps": gbps, "transport": "gloo through host memory"}
 
 
+def _single_proof(tm, src: str, n: int) -> dict:
+    """The fib guest at ``n`` proved by one process alone on the card, a
+    fresh one as each mesh rank is, through the ranks' own program
+    (``mesh_machine_rank`` on the local mesh: a cold proof, then the
+    warm one whose seconds and peak device memory it reports)."""
+    from nexus_zkvm_tpu_torch.sdk import encode_u32s
+    rec, = tm.spawn(tm.mesh_machine_rank, 1, src, encode_u32s(n), "cuda",
+                    None, True, False, device="cuda", timeout=300)
+    if not rec["verified"]:
+        raise RuntimeError(f"the single process's proof at n = {n} does "
+                           f"not verify")
+    return rec
+
+
 def phase_parallel(fib_digest: str) -> None:
     """The prover over a mesh (``nexus_zkvm_tpu_torch.parallel``), its
     ranks processes sharing the card over gloo (NCCL refuses two ranks on
-    one card), then, with two cards or more, over NCCL across cards:
+    one card; NCCL across cards is ``--mesh-nccl``'s, `mesh_nccl`).
+    Each rank holds its row window of every group that splits
+    (``prover/pcs.py``) and runs every phase on it:
 
-    - the sharded LDE + Merkle commit at the interaction's shape of the
+    - the windowed LDE + Merkle commit at the interaction's shape of the
       fib 2^20 proof, (244, 2^20) -> 2^21, on 4 ranks: the root equals
       the single process's; per rank the steps' ms against the one
       bound of the shape (`commit_bound`, at host-copy rates the parent
       measures before any rank starts) and the single process's ms (its
-      second, warm commit); a
-      sum and a sharded hash_rows across the ranks; the synthetic slice
-      at 2^10 proved under the mesh equal to the single process's proof;
-    - the fib guest at a 2^19-row CPU component on the same 4 ranks
-      (one proof, cold), and at a 2^20-row one on 2 ranks (a cold
-      proof, then a warm one, timed): on every rank the proof bytes
-      equal the single process's, verify, and its main, interaction and
-      composition trees were committed over the mesh; every kernel of
-      the resident path was launched on every rank."""
+      second, warm commit); a sum, a sharded hash_rows and the
+      all_to_all, disjoint sum and broadcast across the ranks; the
+      synthetic slice at 2^10 proved under the mesh equal to the single
+      process's proof;
+    - the fib guest at a 2^19-row CPU component on the same 4 ranks,
+      and at a 2^20-row one on 2 ranks (a cold proof, then a warm one,
+      timed, its peak device memory a rank): on every rank the proof
+      bytes equal the single process's, verify, nothing streamed, its
+      trees committed in windows and its peak within MESH_PEAK_RATIO of
+      the warm proof of the same n by one fresh process alone, measured
+      here (`_single_proof`);
+      every kernel of the resident path was launched on every rank;
+      rank 0's kernel calls of its cold proof equal their plain versions
+      at its shapes (`_check_mesh_machine`)."""
     import gc
     import torch
     import nexus_zkvm_tpu_torch as T
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.prover import pcs
-    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
-                                          proof_to_bytes)
+    from nexus_zkvm_tpu_torch.sdk import encode_u32s
     tm = mesh_helpers()
     # the single process's results, on the card, freed before the ranks
     device = "cuda"
@@ -1989,34 +2115,42 @@ def phase_parallel(fib_digest: str) -> None:
     slice_proof = T.prove(comps, [PARITY_LOG, TABLE_LOG],
                           make_traces(PARITY_LOG, K_SQUARES),
                           T.Blake2sChannel(), cfg, device=device)
-    _v, proof = LocalProver(fib_guest(), device=device).prove_with_input(
-        public_input=encode_u32s(FIB_MESH4_N))
-    digest19 = proof_digest(proof_to_bytes(proof))
-    del proof, _v
     gc.collect()
     torch.cuda.empty_cache()
+    src = (ROOT / "examples" / "guests" / "fib.s").read_text()
+    single = {n: _single_proof(tm, src, n) for n in (FIB_MESH4_N, FIB_N)}
+    if single[FIB_N]["proof_blake2s"] != fib_digest:
+        raise RuntimeError("the fib 2^20 proof differs from phase machine's")
+    digest19 = single[FIB_MESH4_N]["proof_blake2s"]
+    emit({"phase": "parallel_single", **{
+        f"2^{rec['cpu_log_rows']}": {"n": n, **{k: rec[k] for k in (
+            "peak_bytes", "prove_s", "prove_cold_s", "proof_blake2s")}}
+        for n, rec in single.items()}})
     cbound = commit_bound(C, log_n, MESH_RANKS, host_copy_gbps(device))
     torch.cuda.empty_cache()
     expected = set(kernels.launch_counts()) - set(MEMORY_MODE)
 
-    src = (ROOT / "examples" / "guests" / "fib.s").read_text()
     t0 = time.perf_counter()
     recs = tm.spawn(tm.checks_rank, MESH_RANKS, [
         (tm.mesh_commit_rank, (spec, log_n, 1)),
         (tm.mesh_collectives_rank, ()),
         (tm.mesh_slice_rank, (K_SQUARES, PARITY_LOG, cfg, device)),
         (tm.mesh_machine_rank, (src, encode_u32s(FIB_MESH4_N), device, None,
-                                False))], backend="gloo", device=device,
+                                True, True))], backend="gloo", device=device,
                     timeout=300)
     wall = time.perf_counter() - t0
     for commit, coll, sl, _m in recs:
         where = f"parallel_commit/rank{commit['rank']}"
-        if not np.array_equal(commit["root"], root):
+        if not np.array_equal(commit["root"], root) or \
+                not commit["window_root_equal"]:
             raise RuntimeError(f"{where}: the sharded root differs")
         if not all(commit["launches"][k] for k in tm.K1K2):
             raise RuntimeError(f"{where}: K1 or K2 not launched: "
                                f"{commit['launches']}")
-        if not sl["verified"] or not sl["sharded"] or \
+        if not all(coll[k] for k in ("all_to_all_equal", "all_reduce_equal",
+                                     "broadcast_equal", "hash_rows_equal")):
+            raise RuntimeError(f"{where}: a collective is wrong: {coll}")
+        if not sl["verified"] or not sl["sharded"] or sl["streamed"] or \
                 not tree_eq(sl["proof"], slice_proof):
             raise RuntimeError(f"{where}: the 2^10 slice under the mesh "
                                f"differs from the single process's")
@@ -2029,21 +2163,15 @@ def phase_parallel(fib_digest: str) -> None:
               "collectives": coll, "slice_equal": True,
               "slice_sharded": sl["sharded"], "spawn_wall_s": wall})
     _check_mesh_machine(f"parallel/gloo{MESH_RANKS}", FIB_MESH4_N,
-                        [m for *_r, m in recs], digest19, MESH4_LOG, expected)
+                        [m for *_r, m in recs], digest19, MESH4_LOG, expected,
+                        single[FIB_MESH4_N]["peak_bytes"])
     del recs, commit, coll, sl
 
-    runs = [("parallel/gloo2", 2, "gloo")]
-    cards = torch.cuda.device_count()
-    if cards >= 2:
-        runs.append((f"parallel/nccl{min(4, cards)}", min(4, cards), "nccl"))
-    for path, ranks, backend in runs:
-        recs = tm.spawn(tm.mesh_machine_rank, ranks, src, encode_u32s(FIB_N),
-                        device, backend=backend, device=device, timeout=300)
-        _check_mesh_machine(path, FIB_N, recs, fib_digest, FULL_LOG,
-                            expected)
-    if cards < 2:
-        emit({"phase": "parallel", "path": "parallel/nccl", "ran": False,
-              "reason": f"{cards} card: NCCL needs a card for each rank"})
+    recs = tm.spawn(tm.mesh_machine_rank, 2, src, encode_u32s(FIB_N),
+                    device, None, True, True, backend="gloo", device=device,
+                    timeout=300)
+    _check_mesh_machine("parallel/gloo2", FIB_N, recs, fib_digest, FULL_LOG,
+                        expected, single[FIB_N]["peak_bytes"])
 
 
 def fib_tapes(machine2: bool = False):
@@ -2333,6 +2461,8 @@ def time_k9(calls: dict, n: int, reps: int = 20) -> None:
     items = args[0]
     pieces = [p for item in items for part in merkle._pieces(*item)
               for p in part]
+    if hasattr(merkle, "place"):     # pieces carry their own offsets
+        merkle.place(pieces)
     tables = merkle.gather_tables(pieces)
 
     def median_ms(fn):
@@ -2357,6 +2487,63 @@ def time_k9(calls: dict, n: int, reps: int = 20) -> None:
     emit(rec)
 
 
+def time_mesh() -> None:
+    """Phase 8's gloo mesh proofs with the package on the path: the fib
+    guest at a 2^20-row CPU component on 2 ranks sharing the card and
+    at a 2^19-row one on MESH_RANKS (each rank a cold proof, then the
+    warm one timed, no kernel checks): every rank's warm seconds and
+    peak device memory, rank 0's phases and the proof's digest."""
+    import nexus_zkvm_tpu_torch as T
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.sdk import encode_u32s
+    kernels.build()
+    tm = mesh_helpers()
+    src = (ROOT / "examples" / "guests" / "fib.s").read_text()
+    _single_proof(tm, src, FIB_PARITY_N)     # K7's pieces, built once
+    for ranks, n in ((2, FIB_N), (MESH_RANKS, FIB_MESH4_N)):
+        recs = tm.spawn(tm.mesh_machine_rank, ranks, src, encode_u32s(n),
+                        "cuda", None, True, False, backend="gloo",
+                        device="cuda", timeout=300)
+        emit({"phase": "time_mesh", "package": str(Path(T.__file__)
+                                                    .resolve().parents[1]),
+              "ranks": ranks, "n": n,
+              "prove_s": [r["prove_s"] for r in recs],
+              "peak_bytes": [r["peak_bytes"] for r in recs],
+              "proof_blake2s": recs[0]["proof_blake2s"],
+              "phase_s": recs[0]["phase_s"]})
+
+
+def mesh_nccl() -> None:
+    """The fib guest at a 2^20-row CPU component over NCCL, a rank a
+    card, on 4 ranks (with four cards or more) and then on 2: every
+    rank's proof byte-equal to one fresh process's (`_single_proof`,
+    which sets the peak each rank is held to), verified, nothing
+    streamed, its trees in windows, every kernel of the resident path
+    launched, rank 0's kernel calls equal to their plain versions at
+    its shapes (`_check_mesh_machine`).  The one NCCL check of the
+    script: the default run, on one card, has no NCCL mesh."""
+    import torch
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.sdk import encode_u32s
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise RuntimeError(f"{cards} card: NCCL needs a card for each rank")
+    kernels.build()
+    tm = mesh_helpers()
+    src = (ROOT / "examples" / "guests" / "fib.s").read_text()
+    single = _single_proof(tm, src, FIB_N)
+    emit({"phase": "parallel_single", "2^20": {k: single[k] for k in (
+        "peak_bytes", "prove_s", "prove_cold_s", "proof_blake2s")}})
+    expected = set(kernels.launch_counts()) - set(MEMORY_MODE)
+    for ranks in ([4, 2] if cards >= 4 else [2]):
+        recs = tm.spawn(tm.mesh_machine_rank, ranks, src, encode_u32s(FIB_N),
+                        "cuda", None, True, True, backend="nccl",
+                        device="cuda", timeout=300)
+        _check_mesh_machine(f"parallel/nccl{ranks}", FIB_N, recs,
+                            single["proof_blake2s"], FULL_LOG, expected,
+                            single["peak_bytes"])
+
+
 def gpu_name_and_limit() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2369,8 +2556,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    timing = sys.argv[1] if sys.argv[1:2] in (["--time-machine"],
-                                              ["--time-stream"]) else None
+    timing = sys.argv[1] if sys.argv[1:2] in (
+        ["--time-machine"], ["--time-stream"], ["--time-mesh"]) else None
     if timing and len(sys.argv) > 2:
         # another checkout's package, imported in its place
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
@@ -2382,6 +2569,12 @@ def main() -> int:
         return 2
     card = gpu_name_and_limit()
     print(card, flush=True)
+    if sys.argv[1:] == ["--mesh-nccl"]:
+        mesh_nccl()
+        return 0
+    if timing == "--time-mesh":
+        time_mesh()
+        return 0
     if timing == "--time-machine":
         # fib 2^20 (resident), then K7 at that proof's shapes
         time_proofs("time_machine", FIB_N)

@@ -14,6 +14,15 @@ Same protocol as the JAX package:
 Each fold is one launch of ``csrc/fri.cu`` (the landing fold also folds
 the injected input); each committed layer is a Merkle tree over its
 (2^m, 4) rows (kernel K2).
+
+Under a mesh a layer whose rows split (``parallel.commit.shards_rows``)
+is held as the rank's committed-order row window: the pairs (2i, 2i + 1)
+never cross a window's edge, so the rank folds its window into its
+window of the next layer, and an injected input's window lines up with
+the layer it joins.  Each windowed layer's tree is committed over the
+mesh (``parallel.commit.commit_window``); the first layer too small to
+split is gathered, and the rest of the folds and the last layer run on
+every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from .field import (
 )
 from .circle import domain, bit_reverse_indices
 from . import merkle
+from ..parallel import commit as pcommit
 from ..utils.device import dev_const, to_u32
 
 __all__ = ["FriConfig", "FriProof", "fri_commit", "fri_decommit_items",
@@ -216,10 +226,10 @@ class FriProverState:
 
 
 def fri_commit(inputs: dict, channel, config: FriConfig,
-               commit_matrix=merkle.commit_matrix) -> FriProverState:
-    """Commit phase.  inputs: {circle log size -> (2^s, 4) int32 tensor}.
-    ``commit_matrix``: commits each layer's (4, 2^s) matrix to a
-    ``merkle.MerkleTree`` (the prover's mesh commit under a mesh)."""
+               mesh=None) -> FriProverState:
+    """Commit phase.  inputs: {circle log size -> (2^s, 4) int32 tensor};
+    under ``mesh``, the rank's row window of each input whose rows split
+    (``parallel.commit.window``)."""
     sizes = sorted(inputs, reverse=True)
     s0 = sizes[0]
     dev = inputs[s0].device
@@ -227,23 +237,41 @@ def fri_commit(inputs: dict, channel, config: FriConfig,
     assert sizes[-1] - 1 >= config.last_line_log, \
         "input smaller than the FRI last layer"
     sched = fold_schedule(sizes, config)
+
+    def fold_layer(v, m, alpha, tw, inj=None, inj_tw=None, w2=None):
+        """Fold the rank's rows of a 2^m-row layer (its window, or all)
+        into its rows of the next; a window whose next layer does not
+        split is gathered."""
+        lo, hi = pcommit.window(mesh, 1 << m)
+        h = slice(lo // 2, hi // 2)
+        out = fold(v, alpha, tw[h], inj, None if inj_tw is None
+                   else inj_tw[h], w2)
+        if hi - lo < 1 << m and not pcommit.shards_rows(mesh, 1 << (m - 1)):
+            out = mesh.all_gather(out)
+        return out
+
     alpha = channel.draw_felt()
-    cur = fold(inputs[s0], alpha, dev_circle_fold_twiddles(s0, dev))
+    cur = fold_layer(inputs[s0], s0, alpha, dev_circle_fold_twiddles(s0, dev))
     inner = []
     for blk in sched:
-        tree = commit_matrix(cur.t())
+        tree = (pcommit.commit_window(mesh, cur.t())
+                if pcommit.shards_rows(mesh, 1 << blk.m)
+                else merkle.commit_matrix(cur.t()))
         root = tree.root()
         channel.mix_u32s(root)
         pows = _alpha_powers(channel.draw_felt(), blk.k)
         for i in range(blk.k):
             tw = dev_line_fold_twiddles(blk.m - i, dev)
             if i == blk.k - 1 and blk.inj is not None:
-                cur = fold(cur, pows[i], tw, inputs[blk.inj],
-                           dev_circle_fold_twiddles(blk.inj, dev),
-                           np_qm31_mul(pows[i], pows[i]))
+                cur = fold_layer(cur, blk.m - i, pows[i], tw,
+                                 inputs[blk.inj],
+                                 dev_circle_fold_twiddles(blk.inj, dev),
+                                 np_qm31_mul(pows[i], pows[i]))
             else:
-                cur = fold(cur, pows[i], tw)
+                cur = fold_layer(cur, blk.m - i, pows[i], tw)
         inner.append((tree, root, blk))
+    if pcommit.shards_rows(mesh, 1 << config.last_line_log):
+        cur = mesh.all_gather(cur)
 
     coeffs_full = line_interpolate(to_u32(cur))
     coeffs = coeffs_full[: 1 << config.log_last_layer]

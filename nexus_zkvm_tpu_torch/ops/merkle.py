@@ -15,6 +15,14 @@ Openings gather on the device into one buffer for all trees (kernel K9,
 ``csrc/gather.cu``; plain indexing on the CPU) and reach the host in one
 transfer (:func:`finalize_decommitments`); the verifier is host
 numpy/hashlib.
+
+Under a mesh (``parallel/commit.py``) a rank's tree holds the row window
+``window`` of its leaves, the layers below the top over that window and
+the top ``top`` layers whole.  A position p of a 2^d-leaf tree lives on
+rank p // (2^d / D), with its sibling p ^ 1; each rank gathers the
+values and below-top siblings of the positions it owns into their
+places of the proof's buffer (rank 0 the top's siblings and every whole
+tree's words), and one disjoint sum over the ranks completes it.
 """
 
 from __future__ import annotations
@@ -44,15 +52,23 @@ def _log2(n: int) -> int:
 
 @dataclass
 class MerkleTree:
-    """layers[d] is the (2^d, 8) digest tensor at depth d."""
+    """layers[d] is the (2^d, 8) digest tensor at depth d; on a mesh
+    rank (``window`` set) the rows of its window below depth ``top``."""
     layers: list
     columns: list          # committed columns (mixed-depth trees)
-    matrix: object = None  # (C, 2^max_depth) tensor for uniform trees
-    sharded: bool = False  # committed over a mesh (parallel/commit.py)
+    matrix: object = None  # (C, 2^max_depth) tensor for uniform trees;
+                           # the (C, hi - lo) window on a mesh rank
+    window: tuple = None   # leaf rows [lo, hi) a mesh rank holds
+    top: int = 0           # depths 0..top held whole (a mesh rank)
 
     @property
     def max_depth(self) -> int:
         return len(self.layers) - 1
+
+    @property
+    def sharded(self) -> bool:
+        """Committed over a mesh, its rows in windows."""
+        return self.window is not None
 
     def root(self) -> np.ndarray:
         return to_u32(self.layers[0][0])
@@ -123,11 +139,12 @@ def open_plan(max_depth: int, positions):
 
 @dataclass
 class _Gather:
-    """One piece of the opening gather: out[(r * n + i) * W + t] =
-    src[r, idx[i]] (W == 1) or src[idx[i], t] (a digest layer)."""
+    """One piece of the opening gather: buf[out + (r * n + i) * W + t]
+    = src[r, idx[i]] (W == 1) or src[idx[i], t] (a digest layer)."""
     src: torch.Tensor          # (rows, 2^d) values or (2^d, 8) digests
     idx: np.ndarray            # (n,) int64
     width: int                 # W: 1 for values, 8 for digests
+    out: int = 0               # the piece's first word in the buffer
 
     @property
     def rows(self) -> int:
@@ -150,10 +167,25 @@ def _idx(positions) -> np.ndarray:
     return np.asarray(positions, dtype=np.int64).reshape(-1)
 
 
-def _pieces(tree: MerkleTree, queries, values=None):
-    """(values pieces, digest pieces) of one opening; ``values``: the
-    (C, Q) opened values of a tree without a matrix (a streamed one), at
-    the sorted distinct queries."""
+def place(pieces, base: int = 0) -> int:
+    """Put ``pieces`` one after another from word ``base`` of the
+    buffer (each piece's ``out``); returns the word after the last."""
+    for p in pieces:
+        p.out = base
+        base += p.words
+    return base
+
+
+def _end(pieces) -> int:
+    """The word after the last piece."""
+    return max((p.out + p.words for p in pieces), default=0)
+
+
+def _pieces(tree: MerkleTree, queries, values=None, base: int = 0):
+    """(values pieces, digest pieces) of one opening, placed one after
+    another from word ``base``; ``values``: the (C, Q) opened values of
+    a tree without a matrix (a streamed one), at the sorted distinct
+    queries."""
     queries = sorted(set(int(q) for q in queries))
     if values is not None:
         if values.dim() != 2 or values.shape[1] != len(queries):
@@ -172,6 +204,7 @@ def _pieces(tree: MerkleTree, queries, values=None):
     sibs = [_Gather(tree.layers[d], _idx(s), 8)
             for d, s in zip(range(tree.max_depth, 0, -1),
                             open_plan(tree.max_depth, queries)) if s]
+    place(vals + sibs, base)
     return vals, sibs
 
 
@@ -184,9 +217,15 @@ class PendingOpenings:
         self.layout = layout       # per opening: (value shapes, digest shapes)
 
 
-def gather_openings_plain(pieces) -> torch.Tensor:
-    """The pieces' words, concatenated (plain indexing)."""
-    return torch.cat([p.plain().reshape(-1) for p in pieces])
+def gather_openings_plain(pieces, words: int | None = None) -> torch.Tensor:
+    """A buffer of ``words`` words (by default up to the last piece's
+    end), each piece's words at its ``out`` (plain indexing), zero where
+    no piece writes."""
+    buf = torch.zeros(_end(pieces) if words is None else words,
+                      dtype=torch.int32, device=pieces[0].src.device)
+    for p in pieces:
+        buf[p.out:p.out + p.words] = p.plain().reshape(-1)
+    return buf
 
 
 # K9's work partition (`gather_plan`, mirrored by csrc/gather.cu): a
@@ -210,16 +249,18 @@ def gather_magic(n):
     return ((np.int64(1) << shift) + n - 1) // n, shift
 
 
-def gather_plan(pieces, unit: int = GATHER_UNIT):
-    """K9's tables for ``pieces``, packed into one int64 array: the (G,
-    len(GATHER_FIELDS)) descriptors, a piece each in order ("out" and
-    "idx" its running offsets in the buffer and the indices; "vec" 1 for
-    a digest piece whose rows are 16-byte aligned), then the unit table,
-    (piece << 32) | first word for every ``unit`` words of each piece,
-    then every piece's indices.  Returns (packed, G, units, words).
-    Raises on sources that are not int32 matrices on one device, a
-    gather of 2^31 words or more, a width that is not a power of two up
-    to 8, or an index outside its source."""
+def gather_plan(pieces, unit: int = GATHER_UNIT, words: int | None = None):
+    """K9's tables for ``pieces`` in a buffer of ``words`` words (by
+    default up to the last piece's end), packed into one int64 array:
+    the (G, len(GATHER_FIELDS)) descriptors, a piece each in order
+    ("out" its ``out``, "idx" the running offset of its indices; "vec"
+    1 for a digest piece whose rows are 16-byte aligned), then the unit
+    table, (piece << 32) | first word for every ``unit`` words of each
+    piece, then every piece's indices.  Returns (packed, G, units,
+    words).  Raises on sources that are not int32 matrices on one
+    device, a gather of 2^31 words or more, a width that is not a power
+    of two up to 8, an index outside its source, or pieces that overlap
+    or end past ``words``."""
     f = {name: i for i, name in enumerate(GATHER_FIELDS)}
     geo = []
     for p in pieces:
@@ -237,8 +278,14 @@ def gather_plan(pieces, unit: int = GATHER_UNIT):
     src, on, n, W, rows, rs, is_, ts, dim = geo.T
     if (on != on[:1]).any():
         raise ValueError("opening sources on more than one device")
-    words = rows * n * W
-    total = int(words.sum())
+    sizes = rows * n * W
+    out = np.array([p.out for p in pieces], dtype=np.int64)
+    total = _end(pieces) if words is None else int(words)
+    order = np.argsort(out, kind="stable")
+    if ((out < 0) | (out + sizes > total)).any() or \
+            (out[order][1:] < (out + sizes)[order][:-1]).any():
+        raise ValueError(f"pieces that overlap or lie outside the buffer "
+                         f"of {total} words")
     if total >= GATHER_LIMIT:
         raise ValueError(f"a gather of {total} words: the kernel takes "
                          f"fewer than 2^31")
@@ -255,12 +302,12 @@ def gather_plan(pieces, unit: int = GATHER_UNIT):
     magic, shift = gather_magic(np.maximum(n, 1))
     vec = (W == 8) & (ts == 1) & (src % 16 == 0) & (is_ % 4 == 0) & \
         ((rows == 1) | (rs % 4 == 0))
-    for name, col in (("src", src), ("out", np.cumsum(words) - words),
+    for name, col in (("src", src), ("out", out),
                       ("idx", np.cumsum(n) - n), ("n", n), ("wlog", wlog),
                       ("rows", rows), ("rs", rs), ("is", is_), ("ts", ts),
                       ("magic", magic), ("shift", shift), ("vec", vec)):
         table[:, f[name]] = col
-    per = -(-words // unit)
+    per = -(-sizes // unit)
     first = np.arange(int(per.sum()), dtype=np.int64) - \
         np.repeat(np.cumsum(per) - per, per)
     units = (np.repeat(np.arange(len(pieces), dtype=np.int64), per) << 32) \
@@ -269,36 +316,43 @@ def gather_plan(pieces, unit: int = GATHER_UNIT):
             len(units), total)
 
 
-def gather_tables(pieces):
+def gather_tables(pieces, words: int | None = None):
     """K9's inputs for CUDA pieces: `gather_plan`'s packed tables on
     the pieces' card in one copy (`utils.device.upload_i64`), their
-    descriptor and unit counts and the buffer's word count."""
+    descriptor and unit counts, the buffer's word count and whether the
+    pieces leave words of it unwritten."""
     src = pieces[0].src
     kernels.check_cuda_tensor(src, "opening source", ndim=2,
                               contiguous=False)
-    packed, G, U, words = gather_plan(pieces)
-    return upload_i64(packed, src.device), G, U, words
+    packed, G, U, words = gather_plan(pieces, words=words)
+    gaps = sum(p.words for p in pieces) < words
+    return upload_i64(packed, src.device), G, U, words, gaps
 
 
-def gather_launch(buf, n_desc: int, n_units: int, words: int) -> torch.Tensor:
+def gather_launch(buf, n_desc: int, n_units: int, words: int,
+                  zero: bool) -> torch.Tensor:
     """Launch ``csrc/gather.cu`` (kernel K9) on the tables of
-    :func:`gather_tables`: the (words,) int32 buffer."""
+    :func:`gather_tables`: the (words,) int32 buffer, zero first where
+    the pieces leave gaps (``zero``)."""
     kernels.check_cuda_tensor(buf, "gather tables", ndim=1, dtype=torch.int64)
-    out = torch.empty(words, dtype=torch.int32, device=buf.device)
+    out = (torch.zeros if zero else torch.empty)(
+        words, dtype=torch.int32, device=buf.device)
     if n_units:
         kernels.launch("gather_openings", buf.data_ptr(), n_desc, n_units,
                        out.data_ptr(), device=buf.device)
     return out
 
 
-def gather_openings(pieces) -> torch.Tensor:
-    """One int32 buffer of every piece's words: launches kernel K9 on
-    CUDA sources, plain indexing on CPU ones."""
+def gather_openings(pieces, words: int | None = None) -> torch.Tensor:
+    """One int32 buffer of ``words`` words (by default up to the last
+    piece's end), each piece's words at its ``out``, zero where no piece
+    writes: launches kernel K9 on CUDA sources, plain indexing on CPU
+    ones."""
     dev = pieces[0].src.device
     if pieces[0].src.is_cuda:
-        return gather_launch(*gather_tables(pieces))
+        return gather_launch(*gather_tables(pieces, words))
     if dev.type == "cpu":
-        return gather_openings_plain(pieces)
+        return gather_openings_plain(pieces, words)
     raise ValueError(f"unsupported device {dev}")
 
 
@@ -337,13 +391,71 @@ def gather_columns(src: torch.Tensor, idx) -> torch.Tensor:
     return out
 
 
-def decommit_many_fused(items) -> PendingOpenings:
+def _mesh_pieces(tree: MerkleTree, queries, rank: int, base: int):
+    """One opening on a mesh rank, its words from ``base`` of the
+    proof's buffer: (value shapes, digest shapes, the pieces this rank
+    gathers, each at its place, words).  A windowed tree: the values and
+    below-top siblings of the positions in this rank's window (a value
+    piece a column, at its run of positions); rank 0: the top's siblings,
+    and all of a whole tree."""
+    queries = sorted(set(int(q) for q in queries))
+    plan = open_plan(tree.max_depth, queries)
+    C, Q = int(tree.matrix.shape[0]), len(queries)
+    shapes = ([(C, Q)], [(len(s), 8) for s in plan if s])
+    words = C * Q + 8 * sum(len(s) for s in plan)
+    mine = []
+    if tree.window is None:
+        if rank == 0:
+            vals, sibs = _pieces(tree, queries, base=base)
+            mine = vals + sibs
+        return (*shapes, mine, words)
+    lo, hi = tree.window
+
+    def run(pos, a, b):
+        """[i0, i1) of the sorted ``pos`` that lie in [a, b)."""
+        return (int(np.searchsorted(pos, a)), int(np.searchsorted(pos, b)))
+    i0, i1 = run(queries, lo, hi)
+    if i1 > i0:
+        idx = _idx(queries[i0:i1]) - lo
+        mine += [_Gather(tree.matrix[c:c + 1], idx, 1, out=base + c * Q + i0)
+                 for c in range(C)]
+    off = base + C * Q
+    for d, s in zip(range(tree.max_depth, 0, -1), plan):
+        if not s:
+            continue
+        if d > tree.top:
+            sh = tree.max_depth - d
+            j0, j1 = run(s, lo >> sh, hi >> sh)
+            if j1 > j0:
+                mine.append(_Gather(tree.layers[d], _idx(s[j0:j1]) -
+                                    (lo >> sh), 8, out=off + 8 * j0))
+        elif rank == 0:
+            mine.append(_Gather(tree.layers[d], _idx(s), 8, out=off))
+        off += 8 * len(s)
+    return (*shapes, mine, words)
+
+
+def decommit_many_fused(items, mesh=None) -> PendingOpenings:
     """Gather the openings of many (tree, positions) pairs in one
     launch, or (tree, positions, values) for a streamed tree; finalize
-    them together with :func:`finalize_decommitments`."""
+    them together with :func:`finalize_decommitments`.  Under ``mesh``
+    (two or more ranks; no streamed tree) each rank gathers its part of
+    every opening into its places (`_mesh_pieces`) and the disjoint sum
+    over the ranks is the buffer, the same on every rank."""
+    if mesh is not None and mesh.size > 1:
+        pieces, layout, words = [], [], 0
+        for tree, queries in items:
+            vals, sibs, mine, n = _mesh_pieces(tree, queries, mesh.rank,
+                                               words)
+            pieces += mine
+            layout.append((vals, sibs))
+            words += n
+        buf = (gather_openings(pieces, words) if pieces else
+               torch.zeros(words, dtype=torch.int32, device=mesh.device))
+        return PendingOpenings(mesh.all_reduce(buf), layout)
     pieces, layout = [], []
     for item in items:
-        vals, sibs = _pieces(*item)
+        vals, sibs = _pieces(*item, base=_end(pieces))
         pieces += vals + sibs
         layout.append(([p.shape() for p in vals], [p.shape() for p in sibs]))
     return PendingOpenings(gather_openings(pieces) if pieces else None,

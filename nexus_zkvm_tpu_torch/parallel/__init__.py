@@ -7,13 +7,15 @@ CPU or for ranks that share one card):
 
 * ``distributed`` joins the group (the JAX package's environment
   contract, or torchrun's);
-* ``mesh`` is the group as a mesh with its one collective, a gather;
-* ``commit`` is the sharded LDE + Merkle commitment: each rank
-  transforms its share of the columns (kernel K1) and hashes its share
-  of the rows (K2); the evaluations and every tree layer are gathered;
-* ``context`` is the active mesh, under which ``prove`` commits its
-  resident size groups and FRI layers through ``commit``, and every
-  other phase runs on every rank: the proof equals a single process's.
+* ``mesh`` is the group as a mesh with its collectives: gather,
+  all_to_all, disjoint sum, broadcast;
+* ``commit`` is the row-windowed LDE + Merkle commitment: each rank
+  transforms its share of the columns (kernel K1), an all_to_all leaves
+  it the row window of every column, and it hashes its window (K2);
+  only the subtree roots are gathered;
+* ``context`` is the active mesh, under which ``prove`` keeps each
+  rank's window of every committed group and runs every phase on it:
+  the proof equals a single process's.
 
 Ranks are processes started by any launcher (torchrun, or
 ``torch.multiprocessing``); each calls ``init_distributed`` first.

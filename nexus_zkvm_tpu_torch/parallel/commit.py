@@ -1,45 +1,56 @@
-"""Sharded LDE + Merkle commitment over a mesh.
+"""Row-windowed LDE + Merkle commitment over a mesh.
 
 The port of the JAX package's ``parallel/commit.py`` (its ``shard_map``
-FFT and row-resharded Merkle tree).  Rank r of a mesh of D ranks, on a
-(C, 2^n) column matrix committed on the 2^s domain (M = 2^s rows):
+FFT and row-resharded Merkle tree), and the layout a rank keeps of every
+committed size group under a mesh.  Rank r of a mesh of D ranks, on a
+(C, 2^n) column matrix committed on the 2^s domain (M = 2^s rows) whose
+rows split (:func:`shards_rows`: a window of at least ``MIN_WINDOW``
+rows a rank):
 
 1. takes its share of the columns, k = ceil(C / D) of them (the last
-   shares may be shorter; they are padded to k rows for the gather, and
-   a pad row is never hashed, since that would change the root);
-2. interpolates its share (K1), evaluates it on the 2^s domain (K1) and
-   permutes the evaluations to committed (bit-reversed) order;
-3. gathers the coefficients and the committed evaluations of every rank
-   in one ``all_gather``, so every rank holds the (C, 2^n) and (C, M)
-   matrices that the replicated phases of the prover read;
-4. hashes its row window [r·M/D, (r+1)·M/D) of the evaluations (K2
-   leaves, reading the strided transpose in place);
+   shares may be shorter or empty: past C a rank sends zero rows, which
+   no rank keeps);
+2. interpolates its share (K1) when given natural-order values (these
+   coefficients are the share it keeps), evaluates it on the 2^s domain
+   (K1) and permutes the evaluations to committed (bit-reversed) order;
+3. sends window j of its share's evaluations to rank j in one
+   ``all_to_all``, so it holds the committed-order row window
+   [r·M/D, (r+1)·M/D) of all C columns;
+4. hashes its window (K2 leaves, reading the strided transpose in
+   place);
 5. climbs its subtree to one digest (K2 parents);
-6. gathers every layer of every subtree, so every rank holds the whole
-   tree layer by layer (the openings read any layer);
-7. climbs the top log2 D layers (K2 parents).
+6. gathers the D subtree roots;
+7. climbs the top log2 D layers (K2 parents), which every rank keeps.
 
-The tree equals ``merkle.commit_matrix`` on the same evaluations, layer
-for layer, so sharding never changes the transcript.  Under an active
-profile (``utils.profile``) the steps are timed as the scopes
-``mesh_lde`` (1-2), ``mesh_gather`` (3, 6), ``mesh_leaves`` (4) and
-``mesh_climb`` (5, 7).
+A rank's tree (``merkle.MerkleTree`` with a ``window``) holds the layers
+of its window below the top, and the whole top; its root equals
+``merkle.commit_matrix`` on the whole evaluations, so sharding never
+changes the transcript.  A group whose rows do not split is held whole
+by every rank.  Under an active profile (``utils.profile``) the steps
+are timed as the scopes ``mesh_lde`` (1-2), ``mesh_exchange`` (3, 6),
+``mesh_leaves`` (4) and ``mesh_climb`` (5, 7).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from ..ops import cfft, merkle
-from ..ops.blake2s import hash_parents, hash_rows
+from ..ops import blake2s, cfft, merkle
 from ..ops.circle import dev_bit_reverse, dev_layout_to_natural
 from ..utils.device import from_u32
 from ..utils.profile import scope
 from .mesh import Mesh
 
 __all__ = ["sharded_commit_columns", "sharded_lde", "commit_group",
-           "commit_matrix", "shards_rows"]
+           "commit_window", "shards_rows", "window", "share", "Share",
+           "MIN_WINDOW"]
+
+# the fewest rows of a window: a group (or FRI layer, or composition
+# domain) of fewer than MIN_WINDOW rows a rank is held whole by every rank
+MIN_WINDOW = 1 << 5
 
 
 def _log2(n: int) -> int:
@@ -49,35 +60,89 @@ def _log2(n: int) -> int:
 
 
 def shards_rows(mesh: Mesh | None, M: int) -> bool:
-    """Whether ``mesh`` splits the rows of an M-row tree: two or more
-    ranks, each with a whole power-of-two window."""
-    return mesh is not None and mesh.size > 1 and M % mesh.size == 0
+    """Whether ``mesh`` splits M rows: two or more ranks, each with a
+    whole window of at least ``MIN_WINDOW`` rows.  Every rank decides
+    the same from the shapes alone."""
+    return mesh is not None and mesh.size > 1 and M % mesh.size == 0 \
+        and M // mesh.size >= MIN_WINDOW
+
+
+def window(mesh: Mesh | None, M: int) -> tuple:
+    """The rows [lo, hi) of M that this rank holds: its window when
+    ``mesh`` splits them, else all of them."""
+    if not shards_rows(mesh, M):
+        return 0, M
+    w = M // mesh.size
+    return mesh.rank * w, (mesh.rank + 1) * w
+
+
+@dataclass(frozen=True)
+class Share:
+    """What one rank holds of a size group of C columns on M committed
+    rows: the coefficients of columns ``cols`` and the evaluations of
+    rows ``rows``.  ``size`` 1: the whole group (held by every rank)."""
+    size: int
+    rank: int
+    C: int
+    M: int
+
+    @property
+    def k(self) -> int:
+        return -(-self.C // self.size)
+
+    @property
+    def cols(self) -> tuple:
+        lo = min(self.rank * self.k, self.C)
+        return lo, min(lo + self.k, self.C)
+
+    @property
+    def rows(self) -> tuple:
+        w = self.M // self.size
+        return self.rank * w, (self.rank + 1) * w
+
+    def owner(self, j: int) -> int:
+        """The rank holding the coefficients of column j."""
+        return j // self.k
+
+
+def share(mesh: Mesh | None, C: int, M: int) -> Share:
+    """This rank's :class:`Share` of a (C, M) group under ``mesh``."""
+    if shards_rows(mesh, M):
+        return Share(mesh.size, mesh.rank, C, M)
+    return Share(1, 0, C, M)
+
+
+def _lde(mat: torch.Tensor, n: int, s: int, natural: bool):
+    """(coefficients, committed-order evaluations on 2^s) of (c, 2^n)
+    natural-order values (``natural``) or coefficients."""
+    cf = (cfft.interpolate(mat[:, dev_layout_to_natural(n, mat.device)])
+          if natural else mat)
+    ev = cfft.evaluate(cf, s)
+    return cf, ev[:, dev_bit_reverse(s, mat.device)]
 
 
 def _lde_share(mesh: Mesh, mat: torch.Tensor, n: int, s: int,
                natural: bool) -> tuple:
-    """Steps 1-2 into the flat buffer this rank sends: its k rows of
-    coefficients (when ``mat`` is natural-order values), then its k rows
-    of committed evaluations, zero past its share.  Returns (buffer,
-    row widths, k)."""
-    C = int(mat.shape[0])
-    k = -(-C // mesh.size)
-    lo = min(mesh.rank * k, C)
-    c = min(lo + k, C) - lo
-    widths = ([1 << n] if natural else []) + [1 << s]
-    send = torch.zeros(k * sum(widths), dtype=torch.int32, device=mat.device)
-    if c:
-        cf = mat[lo:lo + c]
+    """Steps 1-2: this rank's coefficients (c, 2^n) and the (D, k·w)
+    buffer it sends, row j window j of its share's committed
+    evaluations (zero past its share)."""
+    sh = Share(mesh.size, mesh.rank, int(mat.shape[0]), 1 << s)
+    lo, hi = sh.cols
+    D, w = mesh.size, (1 << s) // mesh.size
+    send = torch.zeros((D, sh.k, w), dtype=torch.int32, device=mat.device)
+    cf = mat[lo:hi]
+    if hi > lo:
         if natural:
-            cf = cfft.interpolate(
-                cf[:, dev_layout_to_natural(n, mat.device)],
-                out=send[:k << n].view(k, 1 << n)[:c])
+            cf = cfft.interpolate(cf[:, dev_layout_to_natural(n, mat.device)])
+        else:
+            cf = cf.clone()
         ev = cfft.evaluate(cf, s)
-        torch.index_select(ev, 1, dev_bit_reverse(s, mat.device),
-                           out=send[k * (widths[0] if natural else 0):]
-                           .view(k, 1 << s)[:c])
+        brev = dev_bit_reverse(s, mat.device)
+        for j in range(D):
+            torch.index_select(ev, 1, brev[j * w:(j + 1) * w],
+                               out=send[j, :hi - lo])
         del ev
-    return send, widths, k
+    return cf, send.view(D, -1)
 
 
 def commit_group(mesh: Mesh, mat: torch.Tensor, n: int, s: int,
@@ -85,63 +150,47 @@ def commit_group(mesh: Mesh, mat: torch.Tensor, n: int, s: int,
     """Commit a (C, 2^n) size group on the 2^s domain over ``mesh``
     (steps 1-7).  ``mat``: natural-order values (``natural``) or
     coefficients, the same on every rank; C need not divide by the
-    mesh's size (ranks past the last column send an empty share).
-    Returns (coefficients, committed evaluations (C, 2^s), MerkleTree);
-    the coefficients are ``mat`` itself when it holds them."""
-    C = int(mat.shape[0])
-    if (1 << s) % mesh.size:
-        raise ValueError(f"2^{s} rows do not split over {mesh.size} ranks")
-    with scope("mesh_lde"):
-        send, widths, k = _lde_share(mesh, mat, n, s, natural)
-    with scope("mesh_gather"):
-        got = mesh.gather_flat(send)
-        del send
-        outs = [torch.empty((C, w), dtype=torch.int32, device=mat.device)
-                for w in widths]
-        for r in range(mesh.size):
-            lo = r * k
-            c = min(k, C - lo)
-            if c <= 0:
-                break
-            off = 0
-            for out, w in zip(outs, widths):
-                out[lo:lo + c] = got[r, off:off + c * w].view(c, w)
-                off += k * w
-        del got
-    ev = outs[-1]
-    return (outs[0] if natural else mat), ev, commit_matrix(mesh, ev)
-
-
-def commit_matrix(mesh: Mesh | None, ev: torch.Tensor) -> merkle.MerkleTree:
-    """Steps 4-7 on a (C, M) committed-order matrix that every rank
-    holds: the tree of ``merkle.commit_matrix(ev)``, its leaves and
-    subtrees split over the ranks.  Without a mesh that splits M rows it
-    is ``merkle.commit_matrix(ev)`` itself."""
-    M = int(ev.shape[1])
+    mesh's size.  Returns (this rank's coefficients, (c, 2^n), columns
+    ``share(...).cols``; its (C, M/D) window of the committed
+    evaluations; its tree)."""
+    C, M = int(mat.shape[0]), 1 << s
     if not shards_rows(mesh, M):
-        return merkle.commit_matrix(ev)
-    D, d = mesh.size, _log2(M)
-    w = M // D
+        raise ValueError(f"2^{s} rows do not split over {mesh.size} ranks")
+    k, w = -(-C // mesh.size), M // mesh.size
+    with scope("mesh_lde"):
+        cf, send = _lde_share(mesh, mat, n, s, natural)
+    with scope("mesh_exchange"):
+        got = mesh.all_to_all(send).view(mesh.size, k, w)
+        del send
+        ev = (got.view(C, w) if k * mesh.size == C else
+              torch.cat([got[q, :min(k, C - q * k)]
+                         for q in range(mesh.size) if q * k < C]))
+        del got
+    return cf, ev, commit_window(mesh, ev)
+
+
+def commit_window(mesh: Mesh, ev: torch.Tensor) -> merkle.MerkleTree:
+    """Steps 4-7 on this rank's (C, w) window of a (C, D·w)
+    committed-order matrix (a view is read in place): the tree of the
+    whole matrix as this rank holds it."""
+    D, w = mesh.size, int(ev.shape[1])
+    d, top = _log2(D * w), _log2(D)
     with scope("mesh_leaves"):
-        sub = [hash_rows(ev[:, mesh.rank * w:(mesh.rank + 1) * w].t())]
+        sub = [blake2s.hash_rows(ev.t())]
     with scope("mesh_climb"):
         while sub[-1].shape[0] > 1:
-            sub.append(hash_parents(sub[-1]))
+            sub.append(blake2s.hash_parents(sub[-1]))
     layers: list = [None] * (d + 1)
-    with scope("mesh_gather"):
-        got = mesh.gather_flat(torch.cat([x.reshape(-1) for x in sub]))
-        off = 0
-        for j, x in enumerate(sub):
-            words = 8 * int(x.shape[0])
-            layers[d - j] = got[:, off:off + words].reshape(-1, 8) \
-                .to(ev.device).contiguous()
-            off += words
-        del got, sub
+    for j, x in enumerate(sub[:-1]):
+        layers[d - j] = x
+    with scope("mesh_exchange"):
+        layers[top] = mesh.all_gather(sub[-1]).contiguous()
     with scope("mesh_climb"):
-        for dd in range(_log2(D) - 1, -1, -1):
-            layers[dd] = hash_parents(layers[dd + 1])
+        for dd in range(top - 1, -1, -1):
+            layers[dd] = blake2s.hash_parents(layers[dd + 1])
+    lo = mesh.rank * w
     return merkle.MerkleTree(layers=layers, columns=[], matrix=ev,
-                             sharded=True)
+                             window=(lo, lo + w), top=top)
 
 
 def _columns(mesh: Mesh, columns) -> torch.Tensor:
@@ -155,20 +204,34 @@ def sharded_lde(mesh: Mesh, columns, trace_log: int,
     committed-order evaluations, each rank transforming its share of the
     columns; every rank gets the whole matrix."""
     mat = _columns(mesh, columns)
+    C = int(mat.shape[0])
+    sh = Share(mesh.size, mesh.rank, C, 1 << eval_log)
+    lo, hi = sh.cols
     with scope("mesh_lde"):
-        send, _widths, k = _lde_share(mesh, mat, trace_log, eval_log, True)
-        ev = send[k << trace_log:].view(k, 1 << eval_log)
-    with scope("mesh_gather"):
-        return mesh.all_gather(ev)[:int(mat.shape[0])]
+        ev = torch.zeros((sh.k, 1 << eval_log), dtype=torch.int32,
+                         device=mat.device)
+        if hi > lo:
+            ev[:hi - lo] = _lde(mat[lo:hi], trace_log, eval_log, True)[1]
+    with scope("mesh_exchange"):
+        return mesh.all_gather(ev)[:C]
 
 
 def sharded_commit_columns(mesh: Mesh, columns, trace_log: int,
                            log_blowup: int) -> tuple:
     """Shard-parallel commit of equal-size columns: (C, 2^trace_log)
-    natural order (numpy uint32 or an int32 tensor).  Returns
-    (committed evaluations (C, M) on the mesh's device, root (8,) numpy
-    uint32), the values of the single-process ``pcs`` commit.  M must
-    split over the mesh; C need not."""
-    _cf, ev, tree = commit_group(mesh, _columns(mesh, columns), trace_log,
-                                 trace_log + log_blowup)
-    return ev, tree.root()
+    natural order (numpy uint32 or an int32 tensor).  Returns (the whole
+    committed evaluations (C, M) on the mesh's device, root (8,) numpy
+    uint32), the values of the single-process ``pcs`` commit: the rank
+    windows gathered.  C need not divide by the mesh's size; M too
+    small to split is committed whole on every rank."""
+    mat = _columns(mesh, columns)
+    s = trace_log + log_blowup
+    if not shards_rows(mesh, 1 << s):
+        ev = _lde(mat, trace_log, s, True)[1]
+        return ev, merkle.commit_matrix(ev).root()
+    _cf, ev, tree = commit_group(mesh, mat, trace_log, s)
+    C, w = ev.shape
+    with scope("mesh_exchange"):
+        whole = mesh.gather_flat(ev.reshape(-1)).to(ev.device) \
+            .view(mesh.size, C, w).transpose(0, 1).reshape(C, -1)
+    return whole, tree.root()

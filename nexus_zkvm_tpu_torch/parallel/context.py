@@ -4,13 +4,15 @@ The JAX package places every committed column matrix with its row axis
 sharded and lets XLA's partitioner spread the whole prover over the
 mesh.  PyTorch has no partitioner, so the port's route is explicit:
 ``prover.stark.prove`` reads the active mesh once and, under a mesh of
-two or more ranks, commits every resident size group through
-``parallel/commit.py`` (each rank transforms its share of the columns
-and hashes its share of the rows; the gathered evaluations and tree
-layers reach every rank), and the FRI layer trees likewise.  Every other
-phase runs on every rank on the gathered tensors, so each rank holds
-the same proof, byte for byte the proof of a single process.  The
-verifiers never read the mesh.
+two or more ranks, streams nothing and commits every size group whose
+rows split through ``parallel/commit.py``: the rank keeps the
+coefficients of its share of the columns and the committed-order row
+window of the evaluations and tree.  The OODS samples, the composition
+(K7 on the rank's window of each 4x domain), the quotients, the FRI
+folds and the openings then run on what the rank holds, joined by a few
+collectives, so each rank holds the same proof, byte for byte the proof
+of a single process.  Emulation, fills and the interaction run on every
+rank.  The verifiers never read the mesh.
 
 Usage (every rank)::
 

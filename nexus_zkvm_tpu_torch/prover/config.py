@@ -37,7 +37,10 @@ class MemoryConfig:
       natural-order group above it is interpolated in column chunks.
     * ``comp_nat_budget``: a component whose natural-order 4x-domain
       columns (main, preprocessed, interaction, is_first) exceed it is
-      composed in row passes, each holding at most this many bytes.
+      composed in row passes, each holding at most this many bytes (on
+      a mesh rank: of its window's rows).
+
+    Under a mesh nothing streams, as in the JAX package.
 
     The defaults stream at the JAX package's thresholds (2 GiB, 256 MiB),
     so both packages take the same route at every size.  The budget keeps

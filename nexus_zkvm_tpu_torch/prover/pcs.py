@@ -19,12 +19,12 @@ columns at a time (:func:`_interpolate_big`), in place when the
 commitment does not keep the natural values.
 
 Under a mesh of two or more ranks (``mesh=``, which ``prove`` takes from
-the active mesh) a resident size group is committed through
-``parallel/commit.py``: each rank interpolates and evaluates its share
-of the columns (K1), the coefficients and evaluations are gathered, and
-each rank hashes its share of the rows (K2).  A group stays unsharded
-when it has fewer columns than ranks, when its rows do not split over
-the mesh, or when it is streamed.
+the active mesh) nothing streams, and a size group whose rows split
+(``parallel.commit.shards_rows``) is committed through
+``parallel/commit.py``: each rank keeps the coefficients of its share of
+the columns and the committed-order row window of the evaluations, and
+its tree over that window (:class:`RoleCommitment` ``shares`` says which
+columns and rows).  A smaller group is held whole by every rank.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from .config import MemoryConfig
 
 __all__ = ["RoleCommitment", "commit_columns", "commit_blocks",
            "commit_from_coeffs", "open_positions", "opened_values_streamed",
-           "lde_natural"]
+           "lde_window"]
 
 
 @dataclass
@@ -51,12 +51,16 @@ class RoleCommitment:
     role: str
     trace_logs: list          # per column, commit order within the role
     log_blowup: int
-    coeff_batches: dict       # n -> (column index list, (Cn, 2^n) tensor)
-    evals: dict               # eval_log -> (C, 2^s) committed order; None
-                              # for a streamed size
+    coeff_batches: dict       # n -> (column index list, (Cn, 2^n) tensor):
+                              # the columns this rank holds
+    evals: dict               # eval_log -> (C, 2^s) committed order (a
+                              # mesh rank: its row window); None for a
+                              # streamed size
     cols_by_size: dict        # eval_log -> [column indices]
     trees: dict               # eval_log -> MerkleTree
     natural: dict = None      # n -> (column index list, (Cn, 2^n) tensor)
+    shares: dict = None       # eval_log -> parallel.commit.Share
+    mesh: object = None       # the mesh (two or more ranks), else None
     _roots: list = field(default=None, repr=False)
 
     def sizes_desc(self):
@@ -105,26 +109,79 @@ class RoleCommitment:
     def natural_rows(self, col_idxs):
         return self._rows(self.natural, col_idxs)
 
+    def samples(self, ridx: int) -> bool:
+        """Whether this rank samples column ``ridx`` at the OODS point:
+        the owner of its coefficients in a split group, rank 0 in a
+        whole one (so a disjoint sum over the ranks holds each once)."""
+        n = self.trace_logs[ridx]
+        if self.shares[n + self.log_blowup].size == 1:
+            return self.mesh is None or self.mesh.rank == 0
+        return ridx in self.coeff_batches[n][0]
+
+    def coeff_source(self, col_idxs, chunk_cols: int):
+        """(fetch, ranges) over the coefficient rows ``col_idxs`` (one
+        size): ``fetch(lo, hi)`` gives rows col_idxs[lo:hi] on every
+        rank, for each (lo, hi) of ``ranges`` (at most ``chunk_cols``
+        rows).  A split group's rows are broadcast by their owner, so no
+        range crosses two owners' shares; a whole group's are read where
+        they lie."""
+        n = self.trace_logs[col_idxs[0]]
+        s = n + self.log_blowup
+        sh, C = self.shares[s], len(col_idxs)
+        if sh.size == 1:
+            rows = self.coeff_rows(col_idxs)[0]
+            return ((lambda lo, hi: rows[lo:hi]),
+                    [(lo, min(lo + chunk_cols, C))
+                     for lo in range(0, C, chunk_cols)])
+        pos = {ci: j for j, ci in enumerate(self.cols_by_size[s])}
+        owners = [sh.owner(pos[ci]) for ci in col_idxs]
+        ranges, lo = [], 0
+        while lo < C:
+            hi = lo + 1
+            while hi < C and hi - lo < chunk_cols and \
+                    owners[hi] == owners[lo]:
+                hi += 1
+            ranges.append((lo, hi))
+            lo = hi
+        dev = self.coeff_batches[n][1].device
+
+        def fetch(lo, hi):
+            q = owners[lo]
+            t = (self.coeff_rows(col_idxs[lo:hi])[0]
+                 if q == self.mesh.rank else
+                 torch.empty((hi - lo, 1 << n), dtype=torch.int32,
+                             device=dev))
+            return self.mesh.broadcast(t, q)
+        return fetch, ranges
+
+    def windows(self) -> list:
+        """[(eval_log, (row lo, hi), (column lo, hi), evaluations' shape,
+        coefficients' shape)]: what this rank holds of each size group,
+        descending (a streamed group's evaluations: None)."""
+        return [(s, self.shares[s].rows, self.shares[s].cols,
+                 None if self.evals[s] is None else
+                 tuple(self.evals[s].shape),
+                 tuple(self.coeff_batches[s - self.log_blowup][1].shape))
+                for s in self.sizes_desc()]
 
 
-def lde_natural(cols: torch.Tensor, ev_log: int, start: int, width: int,
-                chunk_cols: int) -> torch.Tensor:
-    """(C, width) evaluations of the (C, 2^n) coefficient rows at natural
-    rows start, start + 1, .. (mod 2^ev_log) of the 2^ev_log domain: per
-    chunk of ``chunk_cols`` columns the whole-domain LDE (K1), then a
-    gather of the rows (a window past either end of the domain wraps).
-    The output is allocated after the first chunk's LDE, so a single
-    chunk never holds its zero-extended input beside it."""
-    rows = torch.arange(start, start + width, device=cols.device) \
-        % (1 << ev_log)
-    idx = dev_natural_to_layout(ev_log, cols.device)[rows]
+def lde_window(fetch, ranges, C: int, ev_log: int, start: int, width: int,
+               device) -> torch.Tensor:
+    """(C, width) evaluations of C coefficient rows at natural rows start,
+    start + 1, .. (mod 2^ev_log) of the 2^ev_log domain: for each (lo,
+    hi) of ``ranges`` the whole-domain LDE (K1) of ``fetch(lo, hi)``,
+    rows lo..hi, then a gather of the rows (a window past either end of
+    the domain wraps).  The output is allocated after the first chunk's
+    LDE, so a single chunk never holds its zero-extended input beside
+    it."""
+    rows = torch.arange(start, start + width, device=device) % (1 << ev_log)
+    idx = dev_natural_to_layout(ev_log, device)[rows]
     out = None
-    for lo in range(0, int(cols.shape[0]), chunk_cols):
-        ev = cfft.evaluate(cols[lo:lo + chunk_cols], ev_log)
+    for lo, hi in ranges:
+        ev = cfft.evaluate(fetch(lo, hi), ev_log)
         if out is None:
-            out = torch.empty((int(cols.shape[0]), width), dtype=torch.int32,
-                              device=cols.device)
-        torch.index_select(ev, 1, idx, out=out[lo:lo + chunk_cols])
+            out = torch.empty((C, width), dtype=torch.int32, device=device)
+        torch.index_select(ev, 1, idx, out=out[lo:hi])
         del ev
     return out
 
@@ -181,14 +238,6 @@ def opened_values_streamed(rc: RoleCommitment, s: int, positions,
     return out[0] if len(out) == 1 else torch.cat(out)
 
 
-def _sharded(mesh, C: int, s: int, memory: MemoryConfig) -> bool:
-    """Whether a size group of C columns on the 2^s domain is committed
-    over ``mesh``: a column for every rank, rows that split, and no
-    streaming."""
-    return pcommit.shards_rows(mesh, 1 << s) and C >= mesh.size and \
-        not memory.streams(C * (4 << s))
-
-
 def _as_device(m, device) -> torch.Tensor:
     return (from_u32(m, device) if isinstance(m, np.ndarray)
             else m.to(device=device, dtype=torch.int32))
@@ -220,37 +269,46 @@ def _commit_group(mats: list, n: int, s: int, device, memory: MemoryConfig,
                   mesh, natural: bool = True, keep_natural: bool = False):
     """Commit one size group on the 2^s domain: its blocks ``mats``
     ((k_i, 2^n) natural-order values, or coefficients without
-    ``natural``; the list is emptied) over ``mesh`` (:func:`_sharded`),
-    streamed, or resident.  Returns (the natural matrix when
-    ``keep_natural``, coefficients, committed evaluations or None when
-    streamed, tree).  Without ``keep_natural`` a big group of tensor
-    blocks is interpolated in place."""
+    ``natural``; the list is emptied) in row windows over ``mesh``
+    (when its rows split), streamed (never under a mesh), or resident.
+    Returns (the natural matrix when ``keep_natural``, coefficients,
+    committed evaluations or None when streamed, tree, this rank's
+    ``Share``).  Without ``keep_natural`` a big group of tensor blocks
+    is interpolated in place."""
     host = all(isinstance(m, np.ndarray) for m in mats)
     mat = _stack(mats, n, device)
     nat = mat if keep_natural else None
     C = int(mat.shape[0])
-    if _sharded(mesh, C, s, memory):
-        return (nat,) + pcommit.commit_group(mesh, mat, n, s, natural)
-    if natural and memory.streams(C * (4 << n)):
+    sh = pcommit.share(mesh, C, 1 << s)
+    if sh.size > 1:
+        return (nat,) + pcommit.commit_group(mesh, mat, n, s, natural) + (sh,)
+    # nothing streams under a mesh, as in the JAX package
+    big = (mesh is None or mesh.size == 1) and memory.streams(C * (4 << s))
+    if natural and big and memory.streams(C * (4 << n)):
         mat = _interpolate_big(mat, n, in_place=not (keep_natural or host))
     elif natural:
         mat = cfft.interpolate(mat[:, dev_layout_to_natural(n, mat.device)])
-    if memory.streams(C * (4 << s)):
-        return nat, mat, None, _stream_commit(mat, s, memory.chunk_cols(s))
+    if big:
+        return (nat, mat, None, _stream_commit(mat, s, memory.chunk_cols(s)),
+                sh)
     ev = cfft.evaluate(mat, s)[:, dev_bit_reverse(s, mat.device)]
-    return nat, mat, ev, merkle.commit_matrix(ev)
+    return nat, mat, ev, merkle.commit_matrix(ev), sh
 
 
 def _role(role: str, trace_logs, log_blowup: int, groups: dict,
-          natural: dict = None) -> RoleCommitment:
-    """groups: n -> (column indices, coefficients, evaluations, tree)."""
+          natural: dict = None, mesh=None) -> RoleCommitment:
+    """groups: n -> (column indices, coefficients, evaluations, tree,
+    Share)."""
     by_s = {n + log_blowup: g for n, g in groups.items()}
     return RoleCommitment(
         role=role, trace_logs=list(trace_logs), log_blowup=log_blowup,
-        coeff_batches={n: (g[0], g[1]) for n, g in groups.items()},
+        coeff_batches={n: (g[0][slice(*g[4].cols)], g[1])
+                       for n, g in groups.items()},
         evals={s: g[2] for s, g in by_s.items()},
         cols_by_size={s: g[0] for s, g in by_s.items()},
-        trees={s: g[3] for s, g in by_s.items()}, natural=natural)
+        trees={s: g[3] for s, g in by_s.items()}, natural=natural,
+        shares={s: g[4] for s, g in by_s.items()},
+        mesh=mesh if mesh is not None and mesh.size > 1 else None)
 
 
 def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
@@ -282,7 +340,7 @@ def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
             natural[n] = (idxs_by_n[n], nat)
         groups[n] = (idxs_by_n[n], *committed)
         del nat, committed
-    return _role(role, trace_logs, log_blowup, groups, natural)
+    return _role(role, trace_logs, log_blowup, groups, natural, mesh)
 
 
 def commit_columns(role: str, columns, trace_logs, log_blowup: int, device,
@@ -307,7 +365,7 @@ def commit_from_coeffs(role: str, coeffs: torch.Tensor, trace_log: int,
                                      trace_log + log_blowup, coeffs.device,
                                      memory, mesh, natural=False)
     return _role(role, [trace_log] * C, log_blowup,
-                 {trace_log: (list(range(C)), *committed)})
+                 {trace_log: (list(range(C)), *committed)}, mesh=mesh)
 
 
 def open_positions(queries, s0: int, s: int):

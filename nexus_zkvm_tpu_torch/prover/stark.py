@@ -22,6 +22,20 @@ their quotients fold column chunks recomputed from them (K11, then
 K12), and their openings recompute the opened values.  The proof is the
 same under any ``MemoryConfig``.
 
+Under a mesh of D ranks (``parallel.use_mesh``) nothing streams, and a
+rank holds of every size group whose rows split the coefficients of its
+share of the columns and the committed-order row window of the
+evaluations (``prover/pcs.py``, ``parallel/commit.py``).  Each phase
+runs on what the rank holds: OODS samples the columns it owns, the
+pieces joined by a disjoint sum; the composition runs K7 on the rank's
+window of each 4x domain, over an LDE built a column chunk at a time
+from coefficients broadcast by their owners, and the windows are
+gathered before ``c:combine``; the quotients (K3) and the FRI folds (K4)
+run on row windows, a layer gathered once it is too small to split; the
+openings gather the positions the rank owns, joined by a disjoint sum.
+Every rank holds the same transcript and proof, byte for byte a single
+process's.
+
 The verifier is host numpy/hashlib apart from recomputing the
 preprocessed commitment, which runs on ``device``.
 """
@@ -29,7 +43,6 @@ preprocessed commitment, which runs on ``device``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 
 import numpy as np
 import torch
@@ -434,32 +447,34 @@ def _natural_rows(info) -> int:
     return info.n_main + info.n_pre + 4 * info.n_logup_cols + 1
 
 
-def _composition_coeffs(c: int, n: int, info, plan: Plan, rcs) -> dict:
-    """Load role -> the coefficient rows component c's composition reads
-    (None for a role it lacks)."""
+def _composition_cols(c: int, n: int, info, plan: Plan) -> dict:
+    """Load role -> (role, the columns of it) that component c's
+    composition reads (None for a role it lacks)."""
     return {
-        MAIN: (rcs["main"].coeff_rows(plan.comp_ridxs("main", c))[0]
-               if info.n_main else None),
-        PRE: (rcs["pre"].coeff_rows(plan.comp_ridxs("pre", c))[0]
-              if info.n_pre else None),
-        ISF: rcs["pre"].coeff_rows(
-            [plan.metas[plan.is_first_index(n)].ridx])[0],
-        INTER: (rcs["inter"].coeff_rows(plan.inter_ridxs(
-            c, info.n_logup_cols))[0] if info.n_logup_cols else None)}
+        MAIN: ("main", plan.comp_ridxs("main", c)) if info.n_main else None,
+        PRE: ("pre", plan.comp_ridxs("pre", c)) if info.n_pre else None,
+        ISF: ("pre", [plan.metas[plan.is_first_index(n)].ridx]),
+        INTER: (("inter", plan.inter_ridxs(c, info.n_logup_cols))
+                if info.n_logup_cols else None)}
 
 
 def _composition(components, infos, plan, log_sizes, relations,
                  claimed_sums, alpha, rcs, device,
-                 memory: MemoryConfig) -> torch.Tensor:
+                 memory: MemoryConfig, mesh=None) -> torch.Tensor:
     """(4, 2^comp_log) int32 composition coefficients.  Each component's
     columns are evaluated on its 4x domain in natural order, as blocks of
     rows [lo - hneg, hi + hpos) with the domain's wrap
-    (`pcs.lde_natural`), and its tape adds acc / v_n · alpha^shift over
+    (`pcs.lde_window`), and its tape adds acc / v_n · alpha^shift over
     rows [lo, hi) into the bucket of that size (K7).  A component within
     the memory budget is one window [0, N), its LDE one batch; a larger
     one runs in row passes, its LDE in column chunks, so at most
-    1/passes of its natural columns exist at once.  The pass counts are
-    noted on the active profile as ``composition_passes``."""
+    1/passes of its natural columns exist at once.  Under ``mesh`` a
+    rank composes its window of each 4x domain that splits
+    (``parallel.commit.window``), in passes by the window's bytes, its
+    LDE in column chunks whose coefficients come from their owners
+    (`RoleCommitment.coeff_source`); the buckets' windows are gathered
+    before they are combined.  The pass counts are noted on the active
+    profile as ``composition_passes``."""
     shifts = _alpha_shifts(infos)
     buckets, all_passes = {}, []
     for c, comp in enumerate(components):
@@ -469,19 +484,23 @@ def _composition(components, infos, plan, log_sizes, relations,
         if ev not in buckets:
             buckets[ev] = torch.zeros((N, 4), dtype=torch.int32,
                                       device=device)
-        passes = memory.comp_passes(_natural_rows(info), ev)
+        w0, w1 = pcommit.window(mesh, N)
+        passes = memory.comp_passes(_natural_rows(info),
+                                    (w1 - w0).bit_length() - 1)
         all_passes.append(passes)
         hneg, hpos = domain_halo(info)
-        coeffs = _composition_coeffs(c, n, info, plan, rcs)
+        chunk = memory.chunk_cols(ev) if passes > 1 or mesh else None
+        sources = {role: None if x is None else
+                   (*rcs[x[0]].coeff_source(x[1], chunk or len(x[1])),
+                    len(x[1]))
+                   for role, x in _composition_cols(c, n, info, plan).items()}
         invv = inv_vanishing_natural(n, ev, device)
-        L = N // passes
-        for lo in range(0, N, L):
+        L = (w1 - w0) // passes
+        for lo in range(w0, w1, L):
             with scope("c:lde"):
-                mats = {role: None if cf is None else pcs.lde_natural(
-                            cf, ev, lo - hneg, L + hneg + hpos,
-                            int(cf.shape[0]) if passes == 1
-                            else memory.chunk_cols(ev))
-                        for role, cf in coeffs.items()}
+                mats = {role: None if src is None else pcs.lde_window(
+                            *src, ev, lo - hneg, L + hneg + hpos, device)
+                        for role, src in sources.items()}
             with scope("c:eval"):
                 k = accumulate_composition(
                     comp, n, mats, relations, claimed_sums[c], alpha,
@@ -494,6 +513,9 @@ def _composition(components, infos, plan, log_sizes, relations,
     out = torch.zeros((4, 1 << comp_log), dtype=torch.int32, device=device)
     with scope("c:combine"):
         for ev in sorted(buckets, reverse=True):
+            w0, w1 = pcommit.window(mesh, 1 << ev)
+            if w1 - w0 < 1 << ev:
+                buckets[ev] = mesh.all_gather(buckets[ev][w0:w1])
             layout = buckets[ev][dev_layout_to_natural(ev, device)]
             cf = cfft.interpolate(layout.t().contiguous())
             out = m31_add(out, cfft.extend_coeffs(cf, comp_log)) \
@@ -543,11 +565,15 @@ def prove(components, log_sizes, main_traces, channel,
     (``streamed``: the (role, eval size) trees committed column-streamed;
     ``composition_passes``: each component's row passes; ``sharded``:
     the (role, eval size) trees, and ("fri", size) layer trees, committed
-    over the active mesh).  Under an active mesh
-    (``parallel.use_mesh``) every rank calls ``prove`` with the same
-    arguments and gets the same proof."""
+    in row windows over the active mesh; ``mesh_windows``: what this rank
+    holds of each (role, eval size) group, (role, s, (row lo, hi),
+    (column lo, hi))).  Under an active mesh (``parallel.use_mesh``)
+    every rank calls ``prove`` with the same arguments and gets the same
+    proof."""
     dev = resolve_device(device)
     mesh = active_mesh()
+    if mesh is not None and mesh.size == 1:
+        mesh = None
     infos = [component_info(c) for c in components]
     plan = build_plan(log_sizes, infos, config)
     blowup = config.fri.log_blowup
@@ -618,7 +644,7 @@ def prove(components, log_sizes, main_traces, channel,
         rcs = {"pre": rc_pre, "main": rc_main, "inter": rc_inter}
         comp_coeffs = _composition(components, infos, plan, log_sizes,
                                    relations, claimed_sums, alpha, rcs, dev,
-                                   memory)
+                                   memory, mesh)
         rcs["comp"] = pcs.commit_from_coeffs("comp", comp_coeffs,
                                              plan.n_comp_trace_log, blowup,
                                              memory, mesh)
@@ -626,6 +652,9 @@ def prove(components, log_sizes, main_traces, channel,
         rcs["comp"].mix_roots(channel)
     note("streamed", [(role, s) for role, rc in rcs.items() if rc is not None
                       for s in rc.sizes_desc() if rc.streamed(s)])
+    note("mesh_windows", [(role, *w) for role, rc in rcs.items()
+                          if rc is not None for w in rc.windows()]
+         if mesh else [])
 
     with scope("oods"):
         z = oods_point_from_felt(channel.draw_felt())
@@ -635,13 +664,26 @@ def prove(components, log_sizes, main_traces, channel,
                 groups.setdefault((m.role, m.trace_log, o), []).append((i, oi))
         sampled = [np.zeros((len(m.offsets), 4), np.uint64)
                    for m in plan.metas]
-        # every group's rows sampled where they lie, in one K8 launch
-        fetched = to_u32(oods_dot_groups([
-            (*rcs[role].coeff_row_index([plan.metas[i].ridx
-                                         for i, _ in members]),
-             _oods_basis_factors(tlog, _point_for(z, tlog, off)))
-            for (role, tlog, off), members in groups.items()])) \
-            .astype(np.uint64)
+        # every group's rows sampled where they lie, in one K8 launch;
+        # under a mesh each rank samples the columns it owns, and a
+        # disjoint sum puts every row in its place on every rank
+        todo, where, k = [], [], 0
+        for (role, tlog, off), members in groups.items():
+            mine = [j for j, (i, _oi) in enumerate(members)
+                    if rcs[role].samples(plan.metas[i].ridx)]
+            if mine:
+                todo.append((*rcs[role].coeff_row_index(
+                    [plan.metas[members[j][0]].ridx for j in mine]),
+                    _oods_basis_factors(tlog, _point_for(z, tlog, off))))
+                where += [k + j for j in mine]
+            k += len(members)
+        got = oods_dot_groups(todo) if todo else None
+        if mesh is not None:
+            buf = torch.zeros((k, 4), dtype=torch.int32, device=dev)
+            if got is not None:
+                buf[torch.as_tensor(where, device=dev)] = got
+            got = mesh.all_reduce(buf)
+        fetched = to_u32(got).astype(np.uint64)
         k = 0
         for members in groups.values():
             for i, oi in members:
@@ -672,7 +714,10 @@ def prove(components, log_sizes, main_traces, channel,
                     rcs[role].cols_by_size[s], (role, s)
             a = quotients.prep_args_full(samples_by_size[s], gamma, offset,
                                          len(plan.groups[s]))
-            xs, ys = dev_committed_points(s, dev)
+            # this rank's row window of the group (all of it when the
+            # rows do not split)
+            lo, hi = pcommit.window(mesh, 1 << s)
+            xs, ys = (t[lo:hi] for t in dev_committed_points(s, dev))
             consts, gcs = from_u32(a["consts"], dev), from_u32(a["gcs"], dev)
             if any(rcs[role].streamed(s) for role in roles):
                 fri_inputs[s] = _quotients_streamed(
@@ -684,8 +729,7 @@ def prove(components, log_sizes, main_traces, channel,
                     gcs)
             offset += quotients.n_terms(samples_by_size[s])
     with scope("fri"):
-        fri_state = fri.fri_commit(fri_inputs, channel, config.fri,
-                                   partial(pcommit.commit_matrix, mesh))
+        fri_state = fri.fri_commit(fri_inputs, channel, config.fri, mesh)
         del fri_inputs
     note("sharded", [(role, s) for role, rc in rcs.items() if rc is not None
                      for s in rc.sizes_desc() if rc.trees[s].sharded]
@@ -708,7 +752,7 @@ def prove(components, log_sizes, main_traces, channel,
                                  rc, s, pos, memory.chunk_cols(s))))
         items += fri.fri_decommit_items(fri_state, queries)
         decs = merkle.finalize_decommitments(
-            merkle.decommit_many_fused(items))
+            merkle.decommit_many_fused(items, mesh))
         openings = {role: [] for role in ROLE_ORDER}
         for (role, s), d in zip(keys, decs):
             openings[role].append((s, d))

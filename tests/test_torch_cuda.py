@@ -432,6 +432,7 @@ def test_gather_openings(dev):
     for t, q in items:
         vals, sibs = merkle._pieces(t, q)
         pieces += vals + sibs
+    merkle.place(pieces)
     assert torch.equal(merkle.gather_openings(pieces),
                        merkle.gather_openings_plain(pieces))
     decs = merkle.finalize_decommitments(merkle.decommit_many_fused(items))
@@ -449,6 +450,7 @@ def test_gather_openings(dev):
               _Gather(wide[:1], np.array([5]), 1),
               _Gather(aligned, np.arange(40), 8),
               _Gather(odd, np.arange(40), 8)]
+    merkle.place(pieces)
     packed, G = merkle.gather_plan(pieces)[:2]
     table = packed[:G * len(GATHER_FIELDS)].reshape(G, -1)
     vec, out = (table[:, GATHER_FIELDS.index(k)] for k in ("vec", "out"))
@@ -458,6 +460,47 @@ def test_gather_openings(dev):
     got = merkle.gather_openings(pieces)
     assert kernels.launch_counts()["gather_openings"] == before + 1
     assert torch.equal(got, merkle.gather_openings_plain(pieces))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_gather_openings_of_mesh_ranks(dev, D):
+    """A mesh rank's part of the openings (`merkle._mesh_pieces`: a
+    value piece a column at its run of positions, the below-top
+    siblings of its window, rank 0 the top's and a whole tree's),
+    gathered by K9 into a zeroed buffer at the pieces' offsets: the
+    sum over the ranks equals the single process's gather."""
+    from nexus_zkvm_tpu_torch.ops import merkle
+    t1 = merkle.commit_matrix(rand(dev, (5, 1 << 10), seed=11))
+    t2 = merkle.commit_matrix(rand(dev, (1 << 9, 4), seed=12).t())
+    small = merkle.commit_matrix(rand(dev, (3, 16), seed=13))
+    rng = np.random.default_rng(D)
+    items = [(t, sorted(set(rng.integers(0, 1 << t.max_depth,
+                                         20).tolist())))
+             for t in (t1, small, t2)]
+    whole = merkle.decommit_many_fused(items).buffer
+    total = torch.zeros_like(whole, dtype=torch.int64)
+    top = D.bit_length() - 1
+    for r in range(D):
+        base, mine = 0, []
+        for t, q in items:
+            if t is not small:
+                w = (1 << t.max_depth) // D
+                lo, hi = r * w, (r + 1) * w
+                t = merkle.MerkleTree(
+                    layers=[x if d <= top else x[lo >> (t.max_depth - d):
+                                                hi >> (t.max_depth - d)]
+                            for d, x in enumerate(t.layers)],
+                    columns=[], matrix=t.matrix[:, lo:hi].contiguous(),
+                    window=(lo, hi), top=top)
+            _v, _s, got, n = merkle._mesh_pieces(t, q, r, base)
+            mine += got
+            base += n
+        before = kernels.launch_counts()["gather_openings"]
+        buf = merkle.gather_openings(mine, base)
+        assert kernels.launch_counts()["gather_openings"] == before + 1
+        assert torch.equal(buf, merkle.gather_openings_plain(mine, base))
+        total += buf.to(torch.int64)
+    assert torch.equal(total, whole.to(torch.int64))
 
 
 @pytest.mark.parametrize("log_n", [4, 12, 23])

@@ -17,6 +17,8 @@ The card tests (`tests/test_torch_cuda.py`) hold the kernel to the
 same plain version.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -45,14 +47,17 @@ def _storage_words(t: torch.Tensor):
     return base.numpy().view(np.uint32), t.untyped_storage().data_ptr()
 
 
-def emulate(pieces, unit: int = GATHER_UNIT,
-            threads: int = THREADS) -> np.ndarray:
+def emulate(pieces, unit: int = GATHER_UNIT, threads: int = THREADS,
+            words: int | None = None) -> np.ndarray:
     """K9 on `gather_plan`'s tables, unit by unit and thread by thread,
     for a kernel of ``threads`` threads and ``unit`` words a block (the
-    card's 256 and GATHER_UNIT; smaller ones split small pieces)."""
+    card's 256 and GATHER_UNIT; smaller ones split small pieces), into
+    a zeroed buffer of ``words`` words (by default up to the last
+    piece's end), each piece at its ``out``: each word written at most
+    once, and every piece's words written."""
     per = unit // threads
     assert per * threads == unit and per % 4 == 0
-    packed, G, U, words = gather_plan(pieces, unit)
+    packed, G, U, words = gather_plan(pieces, unit, words)
     table = packed[:G * len(D)].reshape(G, len(D))
     units = packed[G * len(D):G * len(D) + U]
     idx = packed[G * len(D) + U:]
@@ -101,12 +106,13 @@ def emulate(pieces, unit: int = GATHER_UNIT,
                   + (e & ((1 << wlog) - 1)) * d["ts"])
             out[d["out"] + e] = flat[at]
             np.add.at(writes, d["out"] + e, 1)
-    assert (writes == 1).all()
+    assert (writes <= 1).all() and writes.sum() == sum(
+        p.words for p in pieces)
     return out
 
 
-def _plain(pieces) -> np.ndarray:
-    return to_u32(gather_openings_plain(pieces))
+def _plain(pieces, words=None) -> np.ndarray:
+    return to_u32(gather_openings_plain(pieces, words))
 
 
 def _opening_pieces(items):
@@ -114,7 +120,15 @@ def _opening_pieces(items):
     for item in items:
         vals, sibs = _pieces(*item)
         pieces += vals + sibs
+    TM.place(pieces)
     return pieces
+
+
+def _placed(pieces):
+    """Copies of ``pieces`` placed one after another from word 0."""
+    out = [dataclasses.replace(p) for p in pieces]
+    TM.place(out)
+    return out
 
 
 def _cases():
@@ -142,11 +156,12 @@ def _cases():
     # a digest layer at an odd word offset (not 16-byte aligned)
     odd = from_u32(_u32(rng, (8 * 40 + 1,)), "cpu")[1:].view(40, 8)
     unaligned = [_Gather(odd, np.array([0, 3, 39]), 8)]
-    return {"wide_small": wide, "digest_layers": digests,
-            "transposed": transposed, "mixed_tree": mixed_pieces,
-            "unit_edges": sizes, "unaligned_digests": unaligned,
-            "all": wide + digests + transposed + mixed_pieces + sizes
-            + unaligned}
+    return {name: _placed(ps) for name, ps in (
+        ("wide_small", wide), ("digest_layers", digests),
+        ("transposed", transposed), ("mixed_tree", mixed_pieces),
+        ("unit_edges", sizes), ("unaligned_digests", unaligned),
+        ("all", wide + digests + transposed + mixed_pieces + sizes
+         + unaligned))}
 
 
 CASES = _cases()
@@ -265,6 +280,7 @@ def test_emulated_kernel_equals_plain_on_drawn_pieces(specs, shape):
             flat = from_u32(_u32(rng, 8 * N + 1), "cpu")
             src = flat[seed % 2:][:8 * N].view(N, 8)
         pieces.append(_Gather(src, idx, 8 if kind == "digests" else 1))
+    TM.place(pieces)
     assert np.array_equal(emulate(pieces, *shape), _plain(pieces))
 
 
@@ -306,3 +322,76 @@ def test_decommit_wide_small_tree_matches_reference():
         n = int(t.matrix.shape[1])
         assert TM.verify_decommitment(t.root(), [n] * int(t.matrix.shape[0]),
                                       q, g)
+
+
+def test_emulated_kernel_at_explicit_offsets_equals_plain():
+    """Pieces placed at their own offsets of a larger buffer (as a mesh
+    rank places its part of every opening), in reverse order with gaps
+    of 1..7 words: every piece lands at its place, each word written
+    once, the gaps stay zero."""
+    pieces, off = [], 3
+    for p in reversed(CASES["all"]):
+        pieces.append(dataclasses.replace(p, out=off))
+        off += p.words + 1 + off % 7
+    got = emulate(pieces, words=off + 5)
+    assert np.array_equal(got, _plain(pieces, off + 5))
+    covered = np.zeros(off + 5, bool)
+    for p in pieces:
+        covered[p.out:p.out + p.words] = True
+        assert np.array_equal(got[p.out:p.out + p.words],
+                              to_u32(p.plain().reshape(-1)))
+    assert not got[~covered].any()
+    end = max(p.out + p.words for p in pieces)
+    with pytest.raises(ValueError, match="outside the buffer"):
+        gather_plan(pieces, words=end - 1)
+
+
+def rank_tree(tree, D: int, r: int):
+    """Rank r's part of a uniform tree on a mesh of D ranks, as
+    `parallel.commit.commit_window` leaves it: the window of leaves and
+    of every layer below the top log2 D, the top whole."""
+    top = D.bit_length() - 1
+    w = (1 << tree.max_depth) // D
+    lo, hi = r * w, (r + 1) * w
+    layers = [x if d <= top else
+              x[lo >> (tree.max_depth - d):hi >> (tree.max_depth - d)]
+              for d, x in enumerate(tree.layers)]
+    return TM.MerkleTree(layers=layers, columns=[],
+                         matrix=tree.matrix[:, lo:hi].contiguous(),
+                         window=(lo, hi), top=top)
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+def test_mesh_pieces_of_the_ranks_sum_to_the_whole_opening(D):
+    """Each rank's pieces of a windowed tree's openings (the values and
+    below-top siblings of its positions, rank 0 the top's siblings and
+    a whole tree's words), gathered at their offsets: the sum over the
+    ranks is the single process's buffer, word for word, and every
+    rank computes the same layout."""
+    rng = np.random.default_rng(D)
+    tree = TM.commit_matrix(from_u32(_u32(rng, (3, 1 << 9)), "cpu"))
+    fri = TM.commit_matrix(from_u32(_u32(rng, (1 << 8, 4)), "cpu").t())
+    small = TM.commit_matrix(from_u32(_u32(rng, (2, 1 << 4)), "cpu"))
+    items = [(tree, sorted(set(rng.integers(0, 1 << 9, 30).tolist()))),
+             (small, [0, 3, 9]),
+             (fri, sorted(set(rng.integers(0, 1 << 8, 12).tolist())))]
+    whole = _plain(_opening_pieces(items))
+    total, layouts = np.zeros_like(whole), []
+    for r in range(D):
+        base, mine, layout = 0, [], []
+        for t, q in items:
+            part = t if t is small else rank_tree(t, D, r)
+            vals, sibs, got, n = TM._mesh_pieces(part, q, r, base)
+            mine += got
+            layout.append((vals, sibs))
+            base += n
+        assert base == len(whole)
+        layouts.append(layout)
+        if mine:
+            total += emulate(mine, words=base)
+            assert np.array_equal(emulate(mine, words=base),
+                                  _plain(mine, base))
+    assert np.array_equal(total, whole)
+    want = [([p.shape() for p in v], [p.shape() for p in s])
+            for v, s in (_pieces(t, q) for t, q in items)]
+    assert all(lay == want for lay in layouts)

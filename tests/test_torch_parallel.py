@@ -14,11 +14,15 @@ each), started once per mesh size; each runs all of that size's checks
   commit); D = 1 is the local mesh;
 - two processes joined through the NZT_* environment sum across ranks
   and hash rows sharded by rows, as tests/test_distributed.py checks
-  the JAX runtime;
-- the e2e fixture of tests/test_stark_e2e.py proved on 4 ranks equals
-  the JAX package's proof field by field on every rank;
-- the fib n = 10 machine proof on 2 ranks has the reference's digest on
-  every rank.
+  the JAX runtime; the all_to_all, disjoint sum and broadcast of the
+  prover's mesh are right at a piece of 5 words (D = 2, 4, 8);
+- the e2e fixture of tests/test_stark_e2e.py proved on 2, 4 and 8
+  ranks equals the JAX package's proof field by field on every rank;
+- the fib n = 10 machine proof on 2 and 4 ranks has the reference's
+  digest on every rank;
+- under the mesh nothing streams, and each rank holds of every size
+  group exactly its row window and column share when the rows split
+  (``mesh_windows``), the whole group when they do not.
 
 Every comparison is exact: uint32 equality, equal proof fields, equal
 proof bytes.
@@ -35,6 +39,7 @@ from nexus_zkvm_tpu.parallel import commit as rcommit
 from nexus_zkvm_tpu.parallel import distributed as rdist
 from nexus_zkvm_tpu.prover import pcs as rpcs, prove as rprove
 from nexus_zkvm_tpu_torch import parallel as par
+from nexus_zkvm_tpu_torch.parallel import commit as pcommit
 from nexus_zkvm_tpu_torch.parallel import distributed as tdist
 from nexus_zkvm_tpu_torch.parallel.commit import sharded_lde
 from nexus_zkvm_tpu_torch.prover import pcs
@@ -77,17 +82,36 @@ def cpu_process(monkeypatch):
     return par.init_distributed(device="cpu")
 
 
+EXTRA = {2: ("collectives", "e2e", "fib10"), 4: ("collectives", "e2e", "fib10"),
+         8: ("collectives", "e2e")}
+CHECKS = {"collectives": (tm.mesh_collectives_rank, ()),
+          # at D = 2 rank 0 also holds the proof's kernel calls at its
+          # shapes to their plain versions, as the card's parallel phase
+          # does
+          "e2e": (tm.mesh_slice_rank, (1, E.LOG_SQ, tstark.TCFG, "cpu",
+                                       True)),
+          "fib10": (tm.mesh_machine_rank, (tmach.FIB10_SRC, b"", "cpu",
+                                           tmach.TCFG, False))}
+
+
 @pytest.fixture(scope="module")
 def ranks():
     """{D: per rank, the results of its checks}: the commits of every
-    width, then (D = 2) the collectives and the fib n = 10 machine
-    proof, (D = 4) the e2e fixture's proof."""
-    extra = {2: [(tm.mesh_collectives_rank, ()),
-                 (tm.mesh_machine_rank, (tmach.FIB10_SRC, b"", "cpu",
-                                         tmach.TCFG, False))],
-             4: [(tm.mesh_slice_rank, (1, E.LOG_SQ, tstark.TCFG, "cpu"))],
-             8: []}
-    return {d: _spawn(d, _commits(d) + extra[d]) for d in (2, 4, 8)}
+    width, then those of EXTRA[D] (by name: ``ranks[d][r][name]``)."""
+    out = {}
+    for d in (2, 4, 8):
+        got = _spawn(d, _commits(d) + [CHECKS[name] for name in EXTRA[d]])
+        k = len(WIDTHS[d])
+        out[d] = [dict(zip(EXTRA[d], rec[k:]), commits=rec[:k])
+                  for rec in got]
+    return out
+
+
+@pytest.fixture(scope="module")
+def e2e_reference():
+    return tstark.to_port_proof(rprove(E.COMPONENTS, E.LOG_SIZES,
+                                       E.make_traces(), RChannel(),
+                                       tstark.RCFG))
 
 
 @pytest.fixture(scope="module")
@@ -119,7 +143,7 @@ def _rank_commits(ranks, d, c):
         lde = sharded_lde(mesh, _columns(c), LOG, S)
         return [{"evals": to_u32(ev), "root": root, "lde": to_u32(lde),
                  "rank": 0}]
-    return [r[WIDTHS[d].index(c)] for r in ranks[d]]
+    return [r["commits"][WIDTHS[d].index(c)] for r in ranks[d]]
 
 
 @pytest.mark.parametrize("d,c", CASES, ids=[f"D{d}-C{c}" for d, c in CASES])
@@ -137,6 +161,7 @@ def test_sharded_commit_equals_reference(ranks, references, cpu_process,
         assert np.array_equal(rec["evals"], ev), rec["rank"]
         assert np.array_equal(rec["root"], root), rec["rank"]
         assert np.array_equal(rec["lde"], lde), rec["rank"]
+        assert rec.get("window_root_equal", True), rec["rank"]
 
 
 def test_two_processes_through_the_environment(ranks):
@@ -144,10 +169,23 @@ def test_two_processes_through_the_environment(ranks):
     NZT_PROCESS_ID: a sum across ranks and a row-sharded hash_rows equal
     the host's."""
     for r, rec in enumerate(ranks[2]):
-        coll = rec[len(WIDTHS[2])]
-        assert coll == {"sum": int(np.arange(128).sum()),
-                        "hash_rows_equal": True}, r
-        assert rec[0]["ranks"] == 2 and rec[0]["backend"] == "gloo"
+        coll = rec["collectives"]
+        assert coll["sum"] == int(np.arange(128).sum()), r
+        assert coll["hash_rows_equal"], r
+        assert rec["commits"][0]["ranks"] == 2
+        assert rec["commits"][0]["backend"] == "gloo"
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_all_to_all_reduce_and_broadcast_in_small_pieces(ranks, d):
+    """The mesh's all_to_all (rank r's piece j to rank j), disjoint sum
+    and broadcast, each message cut into pieces of 5 words, give every
+    rank the values it can compute itself."""
+    for r, rec in enumerate(ranks[d]):
+        coll = rec["collectives"]
+        assert coll["all_to_all_equal"], r
+        assert coll["all_reduce_equal"], r
+        assert coll["broadcast_equal"], r
 
 
 def test_machine_proof_on_two_ranks_has_reference_digest(ranks):
@@ -155,22 +193,100 @@ def test_machine_proof_on_two_ranks_has_reference_digest(ranks):
     reference's proof bytes, verified, with the main trees committed
     over the mesh."""
     for r, rec in enumerate(ranks[2]):
-        m = rec[-1]
+        m = rec["fib10"]
         assert m["proof_blake2s"] == tmach.FIB10_PROOF_BLAKE2S, r
         assert m["ranks_agree"] and m["verified"], r
         assert ("main", m["cpu_log_rows"] + 1) in m["sharded"], m["sharded"]
+        assert m["streamed"] == [], r
 
 
-def test_e2e_proof_on_four_ranks_equals_reference(ranks):
-    """The e2e fixture proved on a 4-rank mesh equals the JAX package's
-    proof field by field, on every rank, and verifies."""
-    ref = rprove(E.COMPONENTS, E.LOG_SIZES, E.make_traces(), RChannel(),
-                 tstark.RCFG)
+def test_window_kernel_calls_are_recorded_and_rerun(ranks):
+    """Rank 0 of the 2-rank e2e proof kept the calls of every kernel
+    wrapper of its path (chip_smoke's ``record_calls``: every call of
+    K3, K4 and K6-K9, one of each shape of K1 and K2, at the rank's
+    windows, shares and chunks) and ran each again through the wrapper
+    and the plain version, equal (``check_recorded``; on the CPU both
+    are the plain version; the card's parallel phase runs the same
+    check against the kernels)."""
+    import chip_smoke as cs
+    wk = ranks[2][0]["e2e"]["window_kernels"]
+    assert set(wk) == set(cs.RECORDED) | set(cs.RECORDED_BY_SHAPE)
+    assert all(wk.values()), wk
+    assert ranks[2][1]["e2e"]["window_kernels"] is None
+
+
+def test_machine_proof_on_four_ranks_has_reference_digest(ranks):
+    """The fib n = 10 machine proof on a 4-rank mesh: on every rank the
+    reference's proof bytes, verified, nothing streamed."""
     for r, rec in enumerate(ranks[4]):
-        sl = rec[-1]
+        m = rec["fib10"]
+        assert m["proof_blake2s"] == tmach.FIB10_PROOF_BLAKE2S, r
+        assert m["ranks_agree"] and m["verified"], r
+        assert ("main", m["cpu_log_rows"] + 1) in m["sharded"], m["sharded"]
+        assert m["streamed"] == [], r
+
+
+def _e2e_equals(ranks, d, ref):
+    for r, rec in enumerate(ranks[d]):
+        sl = rec["e2e"]
         assert sl["verified"], r
         assert sl["sharded"], r
-        assert tstark.tree_eq(tstark.to_port_proof(ref), sl["proof"]), r
+        assert sl["streamed"] == [], r
+        assert tstark.tree_eq(ref, sl["proof"]), r
+
+
+def test_e2e_proof_on_four_ranks_equals_reference(ranks, e2e_reference):
+    """The e2e fixture proved on a 4-rank mesh equals the JAX package's
+    proof field by field, on every rank, and verifies."""
+    _e2e_equals(ranks, 4, e2e_reference)
+
+
+@pytest.mark.parametrize("d", [2, 8])
+def test_e2e_proof_on_two_and_eight_ranks_equals_reference(ranks,
+                                                          e2e_reference, d):
+    """The same on 2 ranks, and on 8, where the 2^7-row groups do not
+    split and stay whole on every rank."""
+    _e2e_equals(ranks, d, e2e_reference)
+
+
+@pytest.mark.parametrize("d,proof", [(2, "e2e"), (4, "e2e"), (8, "e2e"),
+                                     (2, "fib10"), (4, "fib10")])
+def test_each_rank_holds_its_window_and_column_share(ranks, d, proof):
+    """What every rank holds of each (role, size) group: its row window
+    [r·M/D, (r+1)·M/D) of the evaluations and its share of ceil(C/D)
+    columns of the coefficients where M/D reaches MIN_WINDOW rows, the
+    whole (C, M) group and all C columns where it does not; the shapes
+    are those of the tensors the rank keeps."""
+    seen = set()
+    for r, rec in enumerate(ranks[d]):
+        got = rec[proof]["mesh_windows"]
+        assert got, r
+        for role, s, rows, cols, ev_shape, cf_shape in got:
+            M, C = 1 << s, ev_shape[0]
+            if M // d >= pcommit.MIN_WINDOW:
+                w, k = M // d, -(-C // d)
+                want_cols = (min(r * k, C), min(r * k + k, C))
+                assert rows == (r * w, (r + 1) * w), (r, role, s)
+                seen.add("split")
+            else:
+                w, want_cols = M, (0, C)
+                assert rows == (0, M), (r, role, s)
+                seen.add("whole")
+            assert cols == want_cols, (r, role, s, cols)
+            assert ev_shape == (C, w), (r, role, s)
+            assert cf_shape == (cols[1] - cols[0], M // 2), (r, role, s)
+    assert "split" in seen
+
+
+def test_one_rank_alone_joins_no_group():
+    """A spawn of one rank (as the card's parallel phase measures one
+    process alone): no process group, the local mesh, whose collectives
+    are the identity."""
+    rec, = tm.spawn(tm.mesh_collectives_rank, 1, backend="gloo",
+                    device="cpu", timeout=120)
+    assert rec["sum"] == int(np.arange(128).sum())
+    assert all(rec[k] for k in ("hash_rows_equal", "all_to_all_equal",
+                                "all_reduce_equal", "broadcast_equal"))
 
 
 def test_local_mesh_is_degenerate(cpu_process):

@@ -168,13 +168,15 @@ def test_colsum_fold_finalize_equals_reference():
 @pytest.mark.parametrize("lo,hi", [(0, 16), (48, 64), (16, 48), (0, 64)])
 def test_lde_natural_equals_reference(lo, hi):
     """Halo-extended natural blocks of rows [lo, hi) of the 2^6 domain,
-    wrapping at the domain's start and end."""
+    wrapping at the domain's start and end (`pcs.lde_window`, two
+    columns at a time)."""
     ev, halo = 6, (8, 4)
     coeffs = rand(np.random.default_rng(lo + hi), (5, 1 << 4))
     want = np.concatenate([np.asarray(b) for b in rstark._lde_nat_ext(
         jnp.asarray(coeffs), ev, halo, (lo, hi))])
-    got = pcs.lde_natural(from_u32(coeffs, "cpu"), ev, lo - halo[0],
-                          hi - lo + sum(halo), 2)
+    cols = from_u32(coeffs, "cpu")
+    got = pcs.lde_window(lambda a, b: cols[a:b], [(0, 2), (2, 4), (4, 5)],
+                         5, ev, lo - halo[0], hi - lo + sum(halo), "cpu")
     assert np.array_equal(to_u32(got), want)
 
 

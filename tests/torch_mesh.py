@@ -6,7 +6,8 @@ starts ``nprocs`` processes with ``torch.multiprocessing`` (the spawn
 method), joins each to a process group through the port's environment
 contract (``NZT_COORDINATOR`` on a free localhost port,
 ``NZT_NUM_PROCESSES``, ``NZT_PROCESS_ID``; ``init_distributed``) and
-returns ``fn(make_mesh(), *args)`` of every rank, in rank order.  ``fn``
+returns ``fn(make_mesh(), *args)`` of every rank, in rank order (one
+rank alone joins no group: its mesh is the local mesh).  ``fn``
 and its arguments must be picklable; results travel pickled.  A rank
 that raises ends the call with its traceback, and the other ranks are
 stopped.  CPU ranks run one thread each.
@@ -73,7 +74,8 @@ def _rank(r: int, env: dict, backend, device: str, results, fn, args):
     init_distributed(backend=backend, device=device)
     out = fn(make_mesh(), *args)
     results.put((r, pickle.dumps(out)))
-    dist.destroy_process_group()
+    if dist.is_initialized():          # one rank alone joins no group
+        dist.destroy_process_group()
 
 
 def checks_rank(mesh, checks) -> list:
@@ -106,35 +108,48 @@ def mesh_columns(spec, device):
 
 def mesh_commit_rank(mesh, spec, trace_log: int, log_blowup: int,
                      keep_evals: bool = False) -> dict:
-    """``sharded_commit_columns`` on this rank: one untimed run, then a
-    profiled one with its launch counts (set to 0 just before it) and
-    its steps' ms: the local K1 LDE, the gathers, the K2 leaves and the
-    K2 climb.  ``keep_evals``: the committed evaluations, and those of
-    ``sharded_lde``, come back too."""
+    """``sharded_commit_columns`` on this rank (the whole evaluations and
+    the root), then the prover's windowed commit of the same columns
+    (``parallel.commit.commit_group``, when the rows split): one
+    untimed run, then a profiled one with its launch counts (set to 0
+    just before it) and its steps' ms: the local K1 LDE, the exchange
+    (the all_to_all and the subtree roots' gather), the K2 leaves and
+    the K2 climb.  ``keep_evals``: the committed evaluations, and those
+    of ``sharded_lde``, come back too."""
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.parallel import sharded_commit_columns
+    from nexus_zkvm_tpu_torch.parallel import commit as pcommit
     from nexus_zkvm_tpu_torch.parallel.commit import sharded_lde
     from nexus_zkvm_tpu_torch.utils.device import to_u32
     from nexus_zkvm_tpu_torch.utils.profile import profiled
     cols = mesh_columns(spec, mesh.device)
-    sharded_commit_columns(mesh, cols, trace_log, log_blowup)
+    s = trace_log + log_blowup
+    ev, root = sharded_commit_columns(mesh, cols, trace_log, log_blowup)
+
+    def windowed():
+        return pcommit.commit_group(mesh, cols, trace_log, s)
+    run = windowed if pcommit.shards_rows(mesh, 1 << s) else \
+        (lambda: sharded_commit_columns(mesh, cols, trace_log, log_blowup))
+    run()
     _sync(cols.device)
     kernels.reset_launches()
     with profiled() as prof:
         t0 = time.perf_counter()
-        ev, root = sharded_commit_columns(mesh, cols, trace_log, log_blowup)
+        got = run()
         _sync(cols.device)
         ms = (time.perf_counter() - t0) * 1e3
     launches = kernels.launch_counts()
     out = {"rank": mesh.rank, "ranks": mesh.size, "backend": mesh.backend,
            "device": str(cols.device),
            "shape": [int(cols.shape[0]), 1 << trace_log], "root": root,
+           "window_root_equal": bool(np.array_equal(
+               (got[2].root() if run is windowed else got[1]), root)),
            "ms": ms, "step_ms": {k: v * 1e3 for k, v in prof.times.items()},
            "launches": {k: launches[k] for k in K1K2}}
+    del got
     if keep_evals:
         out["evals"] = to_u32(ev)
-        out["lde"] = to_u32(sharded_lde(mesh, cols, trace_log,
-                                        trace_log + log_blowup))
+        out["lde"] = to_u32(sharded_lde(mesh, cols, trace_log, s))
     return out
 
 
@@ -142,9 +157,13 @@ def mesh_collectives_rank(mesh) -> dict:
     """A sum across the ranks and a hash_rows sharded by rows (each rank
     hashes its share of 16 messages; the digests are gathered): both
     must equal the host's, as tests/test_distributed.py checks the JAX
-    package's runtime."""
+    package's runtime.  Then the prover's other collectives at a piece
+    of 5 words, so every message goes in several pieces: an all_to_all
+    of (D, 13) words, a disjoint sum and a broadcast from the last rank,
+    each against the values every rank can compute."""
     from nexus_zkvm_tpu_torch.ops.blake2s import (hash_rows,
                                                   np_batch_blake2s_words)
+    from nexus_zkvm_tpu_torch.parallel import mesh as pmesh
     from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
     msgs = np.arange(16 * 8, dtype=np.uint32).reshape(16, 8)
     w = len(msgs) // mesh.size
@@ -154,34 +173,82 @@ def mesh_collectives_rank(mesh) -> dict:
     if total != int(msgs.astype(np.uint64).sum()) or \
             not np.array_equal(digests, np_batch_blake2s_words(msgs)):
         raise RuntimeError("mesh collectives disagree with the host")
-    return {"sum": total, "hash_rows_equal": True}
+    D, r = mesh.size, mesh.rank
+    word = np.arange(13)
+    piece, pmesh._PIECE = pmesh._PIECE, 5
+    try:
+        sent = np.stack([r * 1000 + j * 100 + word for j in range(D)])
+        got = to_u32(mesh.all_to_all(from_u32(sent.astype(np.uint32),
+                                              mesh.device)))
+        want = np.stack([q * 1000 + r * 100 + word for q in range(D)])
+        part = np.zeros((D, 7), np.uint32)
+        part[r] = r + 1 + np.arange(7)
+        summed = to_u32(mesh.all_reduce(from_u32(part, mesh.device)))
+        sums = np.stack([q + 1 + np.arange(7) for q in range(D)])
+        b = from_u32(np.full(23, 7 + r, np.uint32), mesh.device)
+        cast = to_u32(mesh.broadcast(b, D - 1))
+    finally:
+        pmesh._PIECE = piece
+    return {"sum": total, "hash_rows_equal": True,
+            "all_to_all_equal": bool(np.array_equal(got, want)),
+            "all_reduce_equal": bool(np.array_equal(summed, sums)),
+            "broadcast_equal": bool((cast == 7 + D - 1).all())}
+
+
+def check_rank_kernels(prove_fn) -> tuple:
+    """Run ``prove_fn()`` with chip_smoke's kernel wrappers recorded
+    (``record_calls``: every call of K3, K4 and K6-K9, one call of each
+    shape of K1 and K2), then hold each kept call to its plain version
+    (``check_recorded``, untimed, its phases prefixed "mesh_").  Returns
+    (what ``prove_fn`` returned, {wrapper: calls held})."""
+    import chip_smoke as cs
+    out, calls = cs.record_calls(prove_fn, (*cs.RECORDED,
+                                            *cs.RECORDED_BY_SHAPE))
+    cs.check_recorded(calls, timed_run=False, path="mesh_")
+    return out, {name: len(args) for name, args in calls.items()}
 
 
 def mesh_slice_rank(mesh, k_squares: int, log_n: int, cfg,
-                    device="cuda") -> dict:
+                    device="cuda", check_kernels: bool = False) -> dict:
     """chip_smoke's synthetic fixture (``make_components``; one square is
     tests/test_stark_e2e.py's) proved under the mesh: the proof, the
-    sharded trees the prover noted, and whether it verifies."""
+    sharded trees and the windows the prover noted, and whether it
+    verifies; with ``check_kernels``, rank 0 holds the proof's kernel
+    calls at its shapes to their plain versions (`check_rank_kernels`)."""
     import chip_smoke as cs
     import nexus_zkvm_tpu_torch as T
     from nexus_zkvm_tpu_torch.parallel import use_mesh
     from nexus_zkvm_tpu_torch.utils.profile import profiled
     comps = cs.make_components(k_squares)
+
+    def prove():
+        return T.prove(comps, [log_n, cs.TABLE_LOG],
+                       cs.make_traces(log_n, k_squares), T.Blake2sChannel(),
+                       cfg, device=device)
+    window_kernels = None
     with use_mesh(mesh), profiled() as prof:
-        proof = T.prove(comps, [log_n, cs.TABLE_LOG],
-                        cs.make_traces(log_n, k_squares), T.Blake2sChannel(),
-                        cfg, device=device)
+        if check_kernels and mesh.rank == 0:
+            proof, window_kernels = check_rank_kernels(prove)
+        else:
+            proof = prove()
     return {"proof": proof, "sharded": prof.notes["sharded"],
+            "window_kernels": window_kernels,
+            "streamed": prof.notes["streamed"],
+            "mesh_windows": prof.notes["mesh_windows"],
             "verified": T.verify(comps, proof, T.Blake2sChannel(), cfg,
                                  device=device)}
 
 
 def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
-                      config=None, warm: bool = True) -> dict:
+                      config=None, warm: bool = True,
+                      check_kernels: bool = False) -> dict:
     """The guest of assembly ``src`` on ``public`` through LocalProver
-    under the mesh: a cold proof (``warm``), then a profiled one with
-    its launch counts (set to 0 just before it) and peak device memory;
-    verify; the proof digests of every rank, gathered, must agree."""
+    under the mesh: a cold proof (``warm``; with ``check_kernels``, rank
+    0 holds its kernel calls at its shapes to their plain versions,
+    `check_rank_kernels`), then a profiled one with its launch counts
+    (set to 0 just before it), its peak device memory and what the rank
+    holds of each group (``mesh_windows``); verify; the proof digests of
+    every rank, gathered, must agree."""
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.parallel import use_mesh
     from nexus_zkvm_tpu_torch.sdk import Guest, LocalProver, proof_to_bytes
@@ -189,13 +256,22 @@ def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
     from nexus_zkvm_tpu_torch.utils.profile import profiled
     cuda = torch.device(device).type == "cuda"
     prover = LocalProver(Guest.from_asm(src), config, device=device)
-    cold_s = None
+    cold_s, window_kernels = None, None
     with use_mesh(mesh):
         if warm:
-            t0 = time.perf_counter()
-            prover.prove_with_input(public_input=public)
-            _sync(device)
-            cold_s = time.perf_counter() - t0
+            def cold():
+                nonlocal cold_s
+                t0 = time.perf_counter()
+                prover.prove_with_input(public_input=public)
+                _sync(device)
+                cold_s = time.perf_counter() - t0
+            if check_kernels and mesh.rank == 0:
+                window_kernels = check_rank_kernels(cold)[1]
+            else:
+                cold()
+            # every rank starts the measured proof together
+            mesh.all_reduce(torch.zeros(1, dtype=torch.int32,
+                                        device=mesh.device))
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -222,5 +298,7 @@ def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
             "ranks_agree": every == {digest}, "verified": ok, "warm": warm,
             "prove_s": prove_s, "prove_cold_s": cold_s, "verify_s": verify_s,
             "peak_bytes": peak, "sharded": prof.notes["sharded"],
-            "streamed": prof.notes["streamed"], "phase_s": prof.times,
+            "streamed": prof.notes["streamed"],
+            "mesh_windows": prof.notes["mesh_windows"],
+            "window_kernels": window_kernels, "phase_s": prof.times,
             "launches": launches}
