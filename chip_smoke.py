@@ -740,7 +740,7 @@ def tape_cost(tape, N: int) -> tuple:
     """Bytes and operations of one K7 launch over N rows: every loaded
     column read once, the outputs written once (composition: 1 / v_n
     read, the (N, 4) bucket read and written; operands: the packed
-    buffer); per row the field operations of the tape's instructions
+    buffer of N rows); per row the field operations of the tape's instructions
     (an emit adds its constraint times a row-independent QM31 weight:
     four M31 products for an M31 constraint, a QM31 product for a QM31
     one, and a QM31 add) and the composition epilogue."""
@@ -757,7 +757,7 @@ def tape_cost(tape, N: int) -> tuple:
         per_row += 4 * MUL + QM31_MUL + 4 * ADD
         nbytes += 4 * N + 32 * N
     else:
-        nbytes += 4 * tape.n_words
+        nbytes += 4 * tape.layout(N)[2]
     return nbytes, N * per_row
 
 
@@ -781,8 +781,10 @@ def check_recorded(calls, timed_run: bool, path: str = "") -> dict:
     its plain version, uint32-exact: K7 (the composition of every
     component over its 4x domain from halo-extended blocks, one window
     [0, N) each or, on a mesh rank, its window of it; and every
-    component's LogUp operands), K6 (every component's LogUp columns,
-    the largest also with zero denominators), K3 on every size group
+    component's LogUp operands, on a mesh rank over its natural window
+    where the rows split), K6 (every component's LogUp columns, the
+    largest also with zero denominators and with a nonzero carry, on a
+    mesh rank every call with a nonzero carry), K3 on every size group
     (the largest also with a zero V), K8 on all of the proof's groups in
     its one launch and on each group alone, K9 on the proof's whole
     opening gather, K4 on every fold, and K1 and K2 on each call kept
@@ -817,28 +819,44 @@ def check_recorded(calls, timed_run: bool, path: str = "") -> dict:
                     *tape_cost(tape, L), timed_run and i == 0, reps=5,
                     plain_reps=1)
         keep(rec)
-    ops = sorted(calls["air_eval_operands"], key=lambda a: -a[3])
-    for i, (tape, mats, uni, N) in enumerate(ops):
-        keep(check("air_eval_operands", [len(tape.program), tape.n_slots, N],
-                   lambda: tp.air_eval_operands(tape, mats, uni, N),
-                   lambda: tp.air_eval_operands_plain(tape, mats, uni, N),
-                   *tape_cost(tape, N), timed_run and i == 0, reps=5,
+    # a call over a mesh rank's window carries (lo, L, hneg) after N
+    ops = sorted(calls["air_eval_operands"],
+                 key=lambda a: -(a[5] if len(a) > 4 else a[3]))
+    for i, (tape, mats, uni, N, *win) in enumerate(ops):
+        L = win[1] if win else N
+        keep(check("air_eval_operands", [len(tape.program), tape.n_slots, L],
+                   lambda: tp.air_eval_operands(tape, mats, uni, N, *win),
+                   lambda: tp.air_eval_operands_plain(tape, mats, uni, N,
+                                                      *win),
+                   *tape_cost(tape, L), timed_run and i == 0, reps=5,
                    plain_reps=1))
+    # K6 on each call as it was made (a later mesh rank's with the carry
+    # of the ranks before it), and with a nonzero carry: every call of a
+    # mesh rank's, the largest of another path's
     logups = sorted(calls["logup_columns"], key=lambda a: -a[2])
-    for i, (src, meta, M) in enumerate(logups):
+    carry_rng = np.random.default_rng(2031)
+    for i, (src, meta, M, *carry) in enumerate(logups):
         B = int(meta.shape[1])
         words = {0: 1, 1: M, 2: 4, 3: 4 * M}
         in_bytes = 4 * sum(words[m] for m in meta[..., 1].reshape(-1).tolist())
         keep(check("logup_columns", [B, M, 4],
-                   lambda: cmp.logup_columns(src, meta, M),
-                   lambda: cmp.logup_columns_plain(src, meta, M),
+                   lambda: cmp.logup_columns(src, meta, M, *carry),
+                   lambda: cmp.logup_columns_plain(src, meta, M, *carry),
                    in_bytes + 16 * B * M,
                    M * logup_ops(meta, cmp.LOGUP_CHUNK), timed_run and i == 0,
                    reps=5, plain_reps=1))
+        if path == "mesh_" or i == 0:
+            nz = torch.from_numpy(carry_rng.integers(
+                1, (1 << 31) - 1, 4, dtype=np.int64).astype(np.int32)) \
+                .to(src.device)
+            check("logup_columns", [B, M, 4, "carry"],
+                  lambda: cmp.logup_columns(src, meta, M, nz),
+                  lambda: cmp.logup_columns_plain(src, meta, M, nz),
+                  0, 0, False)
     # K6 again: the largest component's operands with zero denominators
     # (each place of a chunk, across chunk boundaries, the last pair);
     # then all of the proof's launches in turn
-    src, meta, M = logups[0]
+    src, meta, M, *_carry = logups[0]
     zsrc = zero_denominators(src, meta, M, cmp.LOGUP_CHUNK)
     check("logup_columns", [int(meta.shape[1]), M, 4, "zero denominators"],
           lambda: cmp.logup_columns(zsrc, meta, M),
@@ -1712,7 +1730,8 @@ def phase_machine2(v1: dict) -> dict:
     the profiled proof's, and every call again through the kernel and
     its plain version (`check_recorded`: uint32-equal; the largest
     timed); and K1-K4 at that proof's shapes (`check_prover_kernels`,
-    untimed).  Returns the launch counts of the three proofs."""
+    untimed).  Returns the launch counts of the three proofs and the
+    proof's digest."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.machine2 import (EXEC_FAMILIES,
@@ -1803,7 +1822,7 @@ def phase_machine2(v1: dict) -> dict:
     torch.cuda.empty_cache()
     check_prover_kernels(comps, log_sizes, timed=False)
     torch.cuda.empty_cache()
-    return launches
+    return launches, proof_digest(blob)
 
 
 def phase_machine2_parity() -> None:
@@ -1923,11 +1942,11 @@ FIB_MESH4_N = 104_850            # 524,260 steps: a 2^19-row CPU component
 MESH4_LOG = 19
 
 
-def mesh_helpers():
-    """tests/torch_mesh.py, the launcher and rank programs of the mesh
-    checks (the ranks import it by name, so its folder joins the path
-    they inherit)."""
-    tests = str(ROOT / "tests")
+def mesh_helpers(root: Path = ROOT):
+    """tests/torch_mesh.py of the checkout at ``root``, the launcher and
+    rank programs of the mesh checks (the ranks import it by name, so its
+    folder joins the path they inherit)."""
+    tests = str(root / "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
     import torch_mesh
@@ -1953,27 +1972,37 @@ def host_copy_gbps(device, nbytes: int = 1 << 28) -> dict:
 
 
 # each rank's peak device memory against the single process's peak of
-# the same proof, at most (the mesh's purpose: a rank holds its windows)
-MESH_PEAK_RATIO = {2: 0.6, 4: 0.45}
+# the same proof, at most (the mesh's purpose: a rank holds its windows):
+# the ratios measured with the interaction in windows (PERF.md §6),
+# 0.417 and 0.253, plus 0.05
+MESH_PEAK_RATIO = {2: 0.467, 4: 0.303}
 
 
 def _check_mesh_machine(path: str, n: int, recs, digest: str,
-                        log_rows: int, expected, single_peak: int) -> None:
+                        log_rows: int, expected, single_peak, halo: tuple,
+                        phase: str = "parallel") -> None:
     """Every rank's proof: bytes equal to the single process's (its
     digest), equal on every rank, verified; nothing streamed; the main,
     interaction and composition trees committed in row windows, and the
-    rank's window of the main group of the CPU component M/D rows; the
-    kernels launched; its peak device memory within MESH_PEAK_RATIO of
-    the single process's ``single_peak``; rank 0's calls of every
-    kernel wrapper at its shapes equal to their plain versions
+    rank's window of the main group of its one 2^log_rows-row component
+    (the first) M/D rows; the interaction of every component with
+    lookups generated for its natural window [r·M/D, (r+1)·M/D) where
+    the mesh splits its M rows, else for all of them, and of the natural
+    values only that window kept, with ``halo`` = (hneg, hpos) rows
+    around it at 2^log_rows (the gen tape's); exactly the kernels
+    ``expected`` launched; its peak device memory within
+    MESH_PEAK_RATIO of the single process's ``single_peak`` (when one
+    was measured; emitted with its peak by phase); rank 0's calls of
+    every kernel wrapper at its shapes equal to their plain versions
     (`RECORDED`, `RECORDED_BY_SHAPE`; torch_mesh.check_rank_kernels)."""
+    from nexus_zkvm_tpu_torch.parallel.commit import MIN_WINDOW
     s = log_rows + 1
     for rec in recs:
         where = f"{path}/rank{rec['rank']}"
-        D, r = rec["ranks"], rec["rank"]
-        if rec["cpu_log_rows"] != log_rows:
-            raise RuntimeError(f"{where}: CPU component at "
-                               f"2^{rec['cpu_log_rows']}, not 2^{log_rows}")
+        D, r, logs = rec["ranks"], rec["rank"], rec["log_sizes"]
+        if logs[0] != log_rows or logs.count(log_rows) != 1:
+            raise RuntimeError(f"{where}: components at 2^{logs}, not one "
+                               f"at 2^{log_rows} first")
         if rec["proof_blake2s"] != digest or not rec["ranks_agree"]:
             raise RuntimeError(f"{where}: the proof differs from the single "
                                f"process's")
@@ -1992,24 +2021,51 @@ def _check_mesh_machine(path: str, n: int, recs, digest: str,
                 main[0][4][1] != w:
             raise RuntimeError(f"{where}: holds {main}, not the window "
                                f"[{r * w}, {(r + 1) * w})")
+
+        def window(m):
+            return ((r * m // D, m // D) if m // D >= MIN_WINDOW
+                    else (0, m))
+        inter = [tuple(g) for g in rec["interaction_windows"]]
+        bad = [g for g in inter if (g[1], g[2] - g[1]) != window(
+            1 << logs[g[0]])]
+        if bad or not any(c == 0 for c, _lo, _hi in inter):
+            raise RuntimeError(f"{where}: interaction windows {bad} not the "
+                               f"rank's, or none of component 0: {inter}")
+        nat = rec["natural_windows"]
+        for role, n_, (lo, L, hneg), shape in nat:
+            m = 1 << n_
+            hn, hp = halo if n_ == log_rows else (hneg, shape[1] - hneg - L)
+            if (lo, L) != window(m) or hneg != hn or hp < 0 or \
+                    shape[1] != hn + L + hp or (L == m and (hneg or shape[1] != m)):
+                raise RuntimeError(f"{where}: natural {role} values at "
+                                   f"2^{n_} held as {(lo, L, hneg)}, "
+                                   f"{shape}, not the window {window(m)} "
+                                   f"with its halo")
+        if not any((g[0], g[1]) == ("main", log_rows) for g in nat):
+            raise RuntimeError(f"{where}: no natural main values at "
+                               f"2^{log_rows}: {nat}")
         check_path(where, rec["launches"], expected)
-        ratio = rec["peak_bytes"] / single_peak
-        if ratio > MESH_PEAK_RATIO[D]:
-            raise RuntimeError(f"{where}: peak {rec['peak_bytes']} bytes, "
-                               f"{ratio:.3f} of the single process's "
-                               f"{single_peak} (at most "
-                               f"{MESH_PEAK_RATIO[D]})")
+        ratio = None
+        if single_peak is not None:
+            ratio = rec["peak_bytes"] / single_peak
+            if ratio > MESH_PEAK_RATIO[D]:
+                raise RuntimeError(f"{where}: peak {rec['peak_bytes']} "
+                                   f"bytes, {ratio:.3f} of the single "
+                                   f"process's {single_peak} (at most "
+                                   f"{MESH_PEAK_RATIO[D]})")
         wk = rec["window_kernels"]
         if r == 0 and (not wk or not all(
                 wk.get(k) for k in (*RECORDED, *RECORDED_BY_SHAPE))):
             raise RuntimeError(f"{where}: a kernel wrapper not held at the "
                                f"rank's shapes: {wk}")
-        emit({"phase": "parallel", "path": path, "n": n, **{
+        emit({"phase": phase, "path": path, "n": n, **{
             k: rec[k] for k in ("rank", "ranks", "backend", "cpu_log_rows",
-                                "proof_blake2s", "proof_bytes", "warm",
-                                "prove_s", "prove_cold_s", "verify_s",
-                                "peak_bytes", "sharded", "streamed",
-                                "phase_s", "launches", "window_kernels")},
+                                "log_sizes", "proof_blake2s", "proof_bytes",
+                                "warm", "prove_s", "prove_cold_s",
+                                "cold_phase_s", "verify_s", "peak_bytes",
+                                "phase_peak_bytes", "sharded", "streamed",
+                                "interaction_windows", "phase_s",
+                                "launches", "window_kernels")},
               "single_process_peak_bytes": single_peak,
               "peak_ratio": ratio,
               "mesh_windows": [[role, s_, rows, cols]
@@ -2065,7 +2121,7 @@ def _single_proof(tm, src: str, n: int) -> dict:
     return rec
 
 
-def phase_parallel(fib_digest: str) -> None:
+def phase_parallel(fib_digest: str, m2_digest: str, m2_expected) -> None:
     """The prover over a mesh (``nexus_zkvm_tpu_torch.parallel``), its
     ranks processes sharing the card over gloo (NCCL refuses two ranks on
     one card; NCCL across cards is ``--mesh-nccl``'s, `mesh_nccl`).
@@ -2077,7 +2133,9 @@ def phase_parallel(fib_digest: str) -> None:
       the single process's; per rank the steps' ms against the one
       bound of the shape (`commit_bound`, at host-copy rates the parent
       measures before any rank starts) and the single process's ms (its
-      second, warm commit); a sum, a sharded hash_rows and the
+      second, warm commit); the same from each rank's natural row window
+      (step 0 first, as the interaction is committed): the root and ms;
+      a sum, a sharded hash_rows and the
       all_to_all, disjoint sum and broadcast across the ranks; the
       synthetic slice at 2^10 proved under the mesh equal to the single
       process's proof;
@@ -2090,14 +2148,30 @@ def phase_parallel(fib_digest: str) -> None:
       here (`_single_proof`);
       every kernel of the resident path was launched on every rank;
       rank 0's kernel calls of its cold proof equal their plain versions
-      at its shapes (`_check_mesh_machine`)."""
+      at its shapes (`_check_mesh_machine`); each rank's peak by phase;
+    - on the same 2 ranks, the fib guest at n = FIB_N through
+      ``machine2.prove_machine2`` (a cold proof, then a warm one): on
+      every rank the bytes of phase ``machine2``'s proof
+      (``m2_digest``), verified, in windows as above (its ex_alu family
+      at 2^20 rows in place of the CPU component), the kernels of
+      ``m2_expected`` launched, rank 0's calls of its cold proof equal
+      to their plain versions (phases prefixed "mesh_m2_"), its peak a
+      rank and by phase reported."""
     import gc
     import torch
     import nexus_zkvm_tpu_torch as T
     from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.air.tape import gen_tape
+    from nexus_zkvm_tpu_torch.machine2 import EXEC_FAMILIES
     from nexus_zkvm_tpu_torch.prover import pcs
     from nexus_zkvm_tpu_torch.sdk import encode_u32s
     tm = mesh_helpers()
+    # the rows around its own that the gen tape of each proof's largest
+    # component reads (the CPU component, machine2's ex_alu family)
+    comps, rel = fib_tapes(machine2=True)
+    halo_v1, halo_m2 = (gen_tape(comps[i], PARITY_LOG, rel).halo() for i in
+                        (0, len(comps) - len(EXEC_FAMILIES)))
+    del comps, rel
     # the single process's results, on the card, freed before the ranks
     device = "cuda"
     C, log_n = MESH_COMMIT
@@ -2124,7 +2198,8 @@ def phase_parallel(fib_digest: str) -> None:
     digest19 = single[FIB_MESH4_N]["proof_blake2s"]
     emit({"phase": "parallel_single", **{
         f"2^{rec['cpu_log_rows']}": {"n": n, **{k: rec[k] for k in (
-            "peak_bytes", "prove_s", "prove_cold_s", "proof_blake2s")}}
+            "peak_bytes", "phase_peak_bytes", "prove_s", "prove_cold_s",
+            "proof_blake2s")}}
         for n, rec in single.items()}})
     cbound = commit_bound(C, log_n, MESH_RANKS, host_copy_gbps(device))
     torch.cuda.empty_cache()
@@ -2142,7 +2217,8 @@ def phase_parallel(fib_digest: str) -> None:
     for commit, coll, sl, _m in recs:
         where = f"parallel_commit/rank{commit['rank']}"
         if not np.array_equal(commit["root"], root) or \
-                not commit["window_root_equal"]:
+                not commit["window_root_equal"] or \
+                not commit["windows_root_equal"]:
             raise RuntimeError(f"{where}: the sharded root differs")
         if not all(commit["launches"][k] for k in tm.K1K2):
             raise RuntimeError(f"{where}: K1 or K2 not launched: "
@@ -2159,19 +2235,32 @@ def phase_parallel(fib_digest: str) -> None:
               "shape": commit["shape"], "root_equal": True,
               "ms": commit["ms"], "single_process_ms": single_ms,
               "step_ms": commit["step_ms"],
+              "windows_ms": commit["windows_ms"],
+              "windows_step_ms": commit["windows_step_ms"],
               "launches": commit["launches"], **cbound,
               "collectives": coll, "slice_equal": True,
               "slice_sharded": sl["sharded"], "spawn_wall_s": wall})
     _check_mesh_machine(f"parallel/gloo{MESH_RANKS}", FIB_MESH4_N,
                         [m for *_r, m in recs], digest19, MESH4_LOG, expected,
-                        single[FIB_MESH4_N]["peak_bytes"])
+                        single[FIB_MESH4_N]["peak_bytes"], halo_v1)
     del recs, commit, coll, sl
 
-    recs = tm.spawn(tm.mesh_machine_rank, 2, src, encode_u32s(FIB_N),
-                    device, None, True, True, backend="gloo", device=device,
-                    timeout=300)
-    _check_mesh_machine("parallel/gloo2", FIB_N, recs, fib_digest, FULL_LOG,
-                        expected, single[FIB_N]["peak_bytes"])
+    t0 = time.perf_counter()
+    recs = tm.spawn(tm.checks_rank, 2, [
+        (tm.mesh_machine_rank, (src, encode_u32s(FIB_N), device, None, True,
+                                True)),
+        (tm.mesh_machine_rank, (src, encode_u32s(FIB_N), device, None,
+                                True, True, True))], backend="gloo",
+                    device=device, timeout=600)
+    emit({"phase": "parallel_gloo2", "spawn_wall_s":
+          time.perf_counter() - t0})
+    _check_mesh_machine("parallel/gloo2", FIB_N, [v1 for v1, _m2 in recs],
+                        fib_digest, FULL_LOG, expected,
+                        single[FIB_N]["peak_bytes"], halo_v1)
+    # no single process's machine2 peak to hold a rank's to: reported
+    _check_mesh_machine("parallel/gloo2/machine2", FIB_N,
+                        [m2 for _v1, m2 in recs], m2_digest, FULL_LOG,
+                        m2_expected, None, halo_m2, "parallel_machine2")
 
 
 def fib_tapes(machine2: bool = False):
@@ -2488,29 +2577,34 @@ def time_k9(calls: dict, n: int, reps: int = 20) -> None:
 
 
 def time_mesh() -> None:
-    """Phase 8's gloo mesh proofs with the package on the path: the fib
+    """Phase 8's gloo mesh proofs with the package on the path, through
+    the rank programs of its own checkout (tests/torch_mesh.py): the fib
     guest at a 2^20-row CPU component on 2 ranks sharing the card and
     at a 2^19-row one on MESH_RANKS (each rank a cold proof, then the
-    warm one timed, no kernel checks): every rank's warm seconds and
-    peak device memory, rank 0's phases and the proof's digest."""
+    warm one timed, no kernel checks): every rank's cold and warm
+    seconds and peak device memory, in all and by phase, rank 0's
+    phases (of the cold proof too) and the proof's digest (what the
+    checkout's rank program does not report is null)."""
     import nexus_zkvm_tpu_torch as T
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.sdk import encode_u32s
     kernels.build()
-    tm = mesh_helpers()
+    checkout = Path(T.__file__).resolve().parents[1]
+    tm = mesh_helpers(checkout)
     src = (ROOT / "examples" / "guests" / "fib.s").read_text()
     _single_proof(tm, src, FIB_PARITY_N)     # K7's pieces, built once
     for ranks, n in ((2, FIB_N), (MESH_RANKS, FIB_MESH4_N)):
         recs = tm.spawn(tm.mesh_machine_rank, ranks, src, encode_u32s(n),
                         "cuda", None, True, False, backend="gloo",
                         device="cuda", timeout=300)
-        emit({"phase": "time_mesh", "package": str(Path(T.__file__)
-                                                    .resolve().parents[1]),
+        emit({"phase": "time_mesh", "package": str(checkout),
               "ranks": ranks, "n": n,
-              "prove_s": [r["prove_s"] for r in recs],
-              "peak_bytes": [r["peak_bytes"] for r in recs],
+              **{k: [r.get(k) for r in recs] for k in (
+                  "prove_cold_s", "prove_s", "peak_bytes",
+                  "phase_peak_bytes")},
               "proof_blake2s": recs[0]["proof_blake2s"],
-              "phase_s": recs[0]["phase_s"]})
+              "phase_s": recs[0]["phase_s"],
+              "cold_phase_s": recs[0].get("cold_phase_s")})
 
 
 def mesh_nccl() -> None:
@@ -2592,6 +2686,11 @@ def main() -> int:
         time_k9(calls, n)
         return 0
     t0 = time.perf_counter()
+
+    def wall(after: str) -> None:
+        # the script's seconds so far, against its 1200 s limit
+        emit({"phase": "wall", "after": after,
+              "s": time.perf_counter() - t0})
     kernels.build()
     ptxas = {}
     for src in sorted({s for s, _f, _a in kernels.KERNELS.values()}):
@@ -2601,22 +2700,31 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "gpu": card, "ptxas": ptxas})
     build_k7()
+    wall("k7_build")
 
     timed = check_kernels(full=True)
     comps = make_components()
     phase_parity(comps)
     phase_slice(comps)
+    wall("slice")
     launches, fib_digest, machine_rec = phase_machine()
+    wall("machine")
     phase_machine_parity()
     phase_keccak_parity()
-    m2_launches = phase_machine2(machine_rec)
+    m2_launches, m2_digest = phase_machine2(machine_rec)
+    m2_expected = {k for k, v in m2_launches.items() if v} - \
+        set(MEMORY_MODE)
+    wall("machine2")
     phase_machine2_parity()
     phase_cli()
+    wall("cli")
     stream_launches, stream_comps, stream_logs = phase_machine_stream()
     phase_stream_parity()
     timed.update(check_stream_kernels(stream_comps, stream_logs))
     del stream_comps
-    phase_parallel(fib_digest)
+    wall("stream")
+    phase_parallel(fib_digest, m2_digest, m2_expected)
+    wall("parallel")
 
     names = list(kernels.launch_counts())
     unused = [k for k in names if not launches[k] and not stream_launches[k]]

@@ -270,10 +270,11 @@ def _operand(src, off: int, mode: int, M: int):
     return src[off:off + 4 * M].to(torch.int64).reshape(M, 4)
 
 
-def logup_columns_plain(src, meta, M: int) -> torch.Tensor:
+def logup_columns_plain(src, meta, M: int, carry=None) -> torch.Tensor:
     """(B, M, 4) int32: S_b = f_0 + .. + f_b for b < B - 1, then the
-    prefix sum over rows of the row totals; f_b = (n1·d2 + n2·d1) /
-    (d1·d2) for pair b of the packed operands."""
+    prefix sum over rows of the row totals, from ``carry`` (a (4,)
+    int32 QM31; None: zero); f_b = (n1·d2 + n2·d1) / (d1·d2) for pair b
+    of the packed operands."""
     table = meta.tolist()
     B = len(table[0])
     # the pairs' fractions, as many pairs at a time as fit 2^22 rows (so
@@ -297,7 +298,10 @@ def logup_columns_plain(src, meta, M: int) -> torch.Tensor:
     # the last column is the row totals' prefix sum (exact over fewer
     # than 2^31 rows)
     out = torch.cat(cols)
-    out[-1] = torch.remainder(torch.cumsum(running, dim=0), F.P)
+    prefix = torch.cumsum(running, dim=0)
+    if carry is not None:
+        prefix += carry.to(torch.int64)
+    out[-1] = torch.remainder(prefix, F.P)
     return out
 
 
@@ -327,14 +331,27 @@ def _meta_on(meta, device) -> torch.Tensor:
                      lambda: host)
 
 
-def logup_columns(src, meta, M: int) -> torch.Tensor:
+def _check_carry(carry, device) -> None:
+    if carry is not None and (carry.device != device or
+                              carry.dtype != torch.int32 or
+                              tuple(carry.shape) != (4,)):
+        raise ValueError(f"the carry must be a (4,) int32 tensor on "
+                         f"{device}")
+
+
+def logup_columns(src, meta, M: int, carry=None) -> torch.Tensor:
     """The LogUp columns of the packed pairs (see `logup_operands`; meta
-    is a host tensor, copied to the card once per table): launches
-    ``csrc/logup.cu`` on a CUDA ``src``, runs `logup_columns_plain` on a
-    CPU one."""
+    is a host tensor, copied to the card once per table), the last
+    column's prefix sum starting from ``carry`` (a (4,) int32 tensor on
+    ``src``'s device, the row totals before these M rows; None: zero):
+    launches ``csrc/logup.cu`` on a CUDA ``src``, runs
+    `logup_columns_plain` on a CPU one."""
     _check_meta(meta, src.numel(), M)
+    _check_carry(carry, src.device)
     if src.is_cuda:
         kernels.check_cuda_tensor(src, "operands", ndim=1)
+        if carry is not None:
+            kernels.check_cuda_tensor(carry, "carry", ndim=1)
         B = int(meta.shape[1])
         meta_dev = _meta_on(meta, src.device)
         out = torch.empty((B, M, 4), dtype=torch.int32, device=src.device)
@@ -342,10 +359,11 @@ def logup_columns(src, meta, M: int) -> torch.Tensor:
                               device=src.device)
         kernels.launch("logup_columns", src.data_ptr(), meta_dev.data_ptr(),
                        B, M, out.data_ptr(), scratch.data_ptr(),
+                       None if carry is None else carry.data_ptr(),
                        device=src.device)
         return out
     if src.device.type == "cpu":
-        return logup_columns_plain(src, meta, M)
+        return logup_columns_plain(src, meta, M, carry)
     raise ValueError(f"unsupported device {src.device}")
 
 

@@ -75,11 +75,14 @@ from .expr import Felt
 from .lookups import LookupElements
 
 __all__ = ["ID", "Tape", "TapeBackend", "TapeDomainContext",
-           "TapeGenContext", "domain_tape", "gen_tape", "air_eval_plain",
+           "TapeGenContext", "domain_tape", "gen_tape", "gen_halo",
+           "air_eval_plain",
            "air_eval_composition", "air_eval_composition_plain",
            "composition_uniforms", "constraint_weights",
            "air_eval_operands", "air_eval_operands_plain",
-           "generate_interaction", "accumulate_composition", "build_kernels",
+           "interaction_operands", "interaction_columns",
+           "generate_interaction",
+           "accumulate_composition", "build_kernels",
            "tape_stats"]
 
 P = F.P
@@ -317,7 +320,8 @@ class TapeBackend:
 
 class _TapeCtx(BaseContext):
     """Reads record loads; relations, claimed sum and integer params are
-    inputs."""
+    inputs (the relations' in the order of their names, so a tape and
+    its K7 source depend on their names and widths alone)."""
     STRIDE = 1                     # eval rows per trace row
 
     def __init__(self, relations, params):
@@ -328,7 +332,7 @@ class _TapeCtx(BaseContext):
                    z=_wrap(rec.input_array(("z", name), (4,))),
                    alpha_pows=_wrap(rec.input_array(("pow", name),
                                                     (r.width, 4))))
-               for name, r in relations.items()}
+               for name, r in sorted(relations.items())}
         super().__init__(be, relations=sym,
                          claimed=_wrap(rec.input_array(("claimed",), (4,))),
                          params=params)
@@ -415,15 +419,43 @@ class Tape:
     p_groups: list             # (op, lo, hi, a, b) by level
     p_size: int
     emits: np.ndarray          # (K, 4) value indices (domain)
-    stores: np.ndarray         # (S, 3) value index, word base, stride (gen)
-    meta: torch.Tensor = None  # (4, B, 2) K6 operand table (gen)
-    n_words: int = 0           # words of the packed operand buffer (gen)
-    # (S, 2) a, b with word base a * M + b, M the trace rows (gen): the
-    # same for every log size
-    store_terms: np.ndarray = None
+    # (S, 4) value index, a, b, step of each store (gen): its word base
+    # a·rows + b for a buffer of ``rows`` rows (`layout`)
+    store_terms: np.ndarray
+    modes: torch.Tensor = None  # (4, B) K6 operand modes (gen)
     name: str = ""             # the component's
     params: dict = None        # the component's, the "param" inputs' values
     _dev: dict = field(default_factory=dict, repr=False)
+
+    def layout(self, rows: int) -> tuple:
+        """A gen tape's packed operand buffer laid out for ``rows`` rows
+        (the whole trace, or a mesh rank's window of it): (stores, (S, 3)
+        value index, word base a·rows + b of ``store_terms``, step; K6's
+        (4, B, 2) host operand table; the buffer's words).  The buffer
+        holds each operand in ``meta``'s order, a column's ``rows`` or
+        4·``rows`` words, a constant's 1 or 4, so only the offsets move
+        with ``rows``; cached per row count."""
+        key = ("layout", int(rows))
+        got = self._dev.get(key)
+        if got is None:
+            t = self.store_terms
+            stores = np.stack([t[:, 0], t[:, 1] * rows + t[:, 2], t[:, 3]],
+                              axis=1)
+            modes = self.modes.reshape(-1)
+            words = torch.tensor([1, rows, 4, 4 * rows])[modes]
+            meta = torch.stack([torch.cumsum(words, 0) - words, modes],
+                               dim=-1).reshape(*self.modes.shape, 2)
+            got = self._dev.setdefault(key, (stores, meta,
+                                             int(words.sum())))
+        return got
+
+    def halo(self) -> tuple:
+        """(hneg, hpos): the rows before and after its own that a row's
+        loads read (load offsets times the stride)."""
+        offs = self.loads[:, 2] * self.stride
+        if not len(offs):
+            return 0, 0
+        return max(0, -int(offs.min())), max(0, int(offs.max()))
 
     def uniforms(self, relations, claimed) -> np.ndarray:
         """(U,) int64 uniform table for these challenges (and the params
@@ -568,8 +600,7 @@ def _kernel_program(rec: Recorder, seq, rowop, word, outputs,
 
 def _compile(rec: Recorder, kind: str, stride: int, outputs,
              n_constraints: int, name: str, params: dict, emits=None,
-             stores=None, store_terms=None, meta=None,
-             n_words: int = 0) -> Tape:
+             stores=None, modes=None) -> Tape:
     """outputs: [(kernel opcode, constraint or store index, operand node
     ids)] in order."""
     rec.trim()
@@ -626,10 +657,10 @@ def _compile(rec: Recorder, kind: str, stride: int, outputs,
         u_size=len(un), p_groups=p_groups, p_size=base + len(p_order),
         emits=(vpos[emits] if emits is not None
                else np.zeros((0, 4), np.int64)),
-        stores=(np.concatenate([vpos[stores[:, :1]], stores[:, 1:]], axis=1)
-                if stores is not None else np.zeros((0, 3), np.int64)),
-        meta=meta, n_words=n_words, store_terms=store_terms, name=name,
-        params=params)
+        store_terms=(np.concatenate([vpos[stores[:, :1]], stores[:, 1:]],
+                                    axis=1)
+                     if stores is not None else np.zeros((0, 4), np.int64)),
+        modes=modes, name=name, params=params)
 
 
 def _record_domain(component, relations) -> Tape:
@@ -651,44 +682,42 @@ def _record_domain(component, relations) -> Tape:
                     emits=emits)
 
 
-def _record_gen(component, relations, log_size: int) -> Tape:
+def _record_gen(component, relations) -> Tape:
     """The operand packing of `logup_operands` in the eager port: for k
-    in (n1, d1, n2, d2), for every pair, its piece of the buffer."""
+    in (n1, d1, n2, d2), for every pair, its piece of the buffer (at word
+    off_m·rows + off_c of a buffer of ``rows`` rows, `Tape.layout`)."""
     ctx = TapeGenContext(relations, component.params())
     component.evaluate(ctx)
     if not ctx.entries:
         return None
     rec, be = ctx.rec, ctx.be
-    M = 1 << log_size
     pairs = pair_entries(ctx.entries, be)
-    meta, stores, terms, outputs, off = [], [], [], [], 0
-    off_m, off_c = 0, 0           # off = off_m * M + off_c
+    modes, stores, outputs = [], [], []
+    off_m, off_c = 0, 0
     for k in range(4):
         for pair in pairs:
             f = pair[k // 2][k % 2]
             ids = be.ids(f.v).reshape(-1)
             row = bool(rec.row[ids].any())
             if f.kind == "m31":
-                mode, words, coords = ((M31_COL, M, [(ids[0], 0, 1)]) if row
+                mode, width, coords = ((M31_COL, 1, [(ids[0], 0, 1)]) if row
                                        else (M31_CONST, 1, [(ids[0], 0, 0)]))
             else:
-                mode, words = (QM31_COL, 4 * M) if row else (QM31_CONST, 4)
+                mode, width = (QM31_COL if row else QM31_CONST), 4
                 coords = [(ids[t], t, 4 if row else 0) for t in range(4)]
             for node, t, step in coords:
                 outputs.append((K_STORE, len(stores), (int(node),)))
-                stores.append((int(node), off + t, step))
-                terms.append((off_m, off_c + t))
-            meta.append((off, mode))
-            off += words
+                stores.append((int(node), off_m, off_c + t, step))
+            modes.append(mode)
             if row:
-                off_m += words // M
+                off_m += width
             else:
-                off_c += words
-    meta = torch.tensor(meta, dtype=torch.int64).reshape(4, len(pairs), 2)
+                off_c += width
     return _compile(rec, "gen", ctx.STRIDE, outputs, 0, component.name,
-                    component.params(), stores=np.asarray(stores, np.int64),
-                    store_terms=np.asarray(terms, np.int64).reshape(-1, 2),
-                    meta=meta, n_words=off)
+                    component.params(),
+                    stores=np.asarray(stores, np.int64).reshape(-1, 4),
+                    modes=torch.tensor(modes, dtype=torch.int64)
+                    .reshape(4, len(pairs)))
 
 
 _CACHE: dict = {}
@@ -707,6 +736,17 @@ def _cached(kind, component, log_size, relations, build):
     return tape
 
 
+def gen_halo(component, log_size: int, widths: dict) -> tuple:
+    """(hneg, hpos) of a component's gen tape (`Tape.halo`; (0, 0)
+    without lookups), before any relation is drawn: a tape depends on
+    its relations' names and widths (``widths``), not on their values,
+    so it is recorded here with stand-ins and cached for the proof."""
+    tape = gen_tape(component, log_size,
+                    {name: LookupElements.dummy(name, w)
+                     for name, w in widths.items()})
+    return (0, 0) if tape is None else tape.halo()
+
+
 def domain_tape(component, log_size: int, relations) -> Tape | None:
     """The composition tape of a component (None without constraints),
     cached per (component, log size, params)."""
@@ -717,7 +757,7 @@ def domain_tape(component, log_size: int, relations) -> Tape | None:
 def gen_tape(component, log_size: int, relations) -> Tape | None:
     """The interaction tape (None for a component without lookups)."""
     return _cached("gen", component, log_size, relations,
-                   lambda: _record_gen(component, relations, log_size))
+                   lambda: _record_gen(component, relations))
 
 
 # ---------------------------------------------------------------------------
@@ -749,11 +789,11 @@ def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
     mats: role -> (cols, W) int32 matrix (is_first as a (1, W) one), a
     load at row r reading position (r + hneg + shift) mod W: the trace's
     own columns (W = N, hneg 0: the wrap is the reference's roll), or a
-    composition window's halo-extended blocks (every load inside them).
-    uniforms: the table of :meth:`Tape.uniforms`.  A domain tape returns
-    the (N, 4) int64 canonical accumulator sum_j alpha^(K-1-j) c_j; a gen
-    tape writes the packed operand buffer ``out`` (int32) and returns
-    it."""
+    window's halo-extended blocks (every load inside them).  uniforms:
+    the table of :meth:`Tape.uniforms`.  A domain tape returns the (N, 4)
+    int64 canonical accumulator sum_j alpha^(K-1-j) c_j; a gen tape
+    writes the packed operand buffer of N rows (:meth:`Tape.layout`)
+    ``out`` (int32) and returns it."""
     dev = _first(mats).device
     W = int(_first(mats).shape[1])
     U = len(uniforms)
@@ -770,7 +810,7 @@ def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
         emits = torch.as_tensor(tape.emits, device=dev)
         acc = torch.empty((N, 4), dtype=torch.int64, device=dev)
     else:
-        st = torch.as_tensor(tape.stores, device=dev)
+        st = torch.as_tensor(tape.layout(N)[0], device=dev)
         col = st[:, 2] != 0
         st_col, st_one = st[col], st[~col]
     for r0 in range(0, N, chunk):
@@ -854,28 +894,46 @@ def _first(mats) -> torch.Tensor:
     return next(m for m in mats.values() if m is not None)
 
 
-def air_eval_operands_plain(tape, mats, uniforms, N: int) -> torch.Tensor:
+def air_eval_operands_plain(tape, mats, uniforms, N: int, lo: int = 0,
+                            L: int = None, hneg: int = 0) -> torch.Tensor:
     """K7's operands epilogue in plain torch (the tape interpreter)."""
-    out = torch.empty(tape.n_words, dtype=torch.int32,
+    L = N if L is None else L
+    out = torch.empty(tape.layout(L)[2], dtype=torch.int32,
                       device=_first(mats).device)
-    return air_eval_plain(tape, mats, uniforms, N, out=out)
+    return air_eval_plain(tape, mats, uniforms, L, out=out, hneg=hneg)
 
 
-def air_eval_operands(tape, mats, uniforms, N: int) -> torch.Tensor:
-    """The packed LogUp operands (``tape.n_words`` int32) of a gen tape
-    over N rows: launches K7 (the tape's generated pieces) on CUDA
-    matrices, runs
-    `air_eval_operands_plain` on CPU ones.  mats: load role -> (cols, N)
-    int32 (or None)."""
+def air_eval_operands(tape, mats, uniforms, N: int, lo: int = 0,
+                      L: int = None, hneg: int = 0) -> torch.Tensor:
+    """The packed LogUp operands of a gen tape over rows [lo, lo + L) of
+    its N-row trace (all of them for L None), laid out for L rows
+    (:meth:`Tape.layout`): launches K7 (the tape's generated pieces) on
+    CUDA matrices, runs `air_eval_operands_plain` on CPU ones.  mats:
+    load role -> int32 matrix (or None): the (cols, N) trace itself for
+    the whole (a load wraps), else halo-extended (cols, W) blocks whose
+    position q holds row lo - hneg + q (mod N), every load inside them,
+    as `air_eval_composition` reads them."""
     dev = _first(mats).device
-    _check_mats(mats, N, dev)
+    W = int(_first(mats).shape[1])
+    _check_mats(mats, W, dev)
+    L = N if L is None else int(L)
+    shifts = tape.loads[:, 2] * tape.stride
+    if L == N:
+        bad = lo != 0 or hneg != 0 or W != N
+    else:
+        bad = lo < 0 or L <= 0 or lo + L > N or (len(shifts) > 0 and (
+            hneg + shifts.min() < 0 or L + hneg + shifts.max() > W))
+    if bad:
+        raise ValueError(f"rows [{lo}, {lo + L}) of {N}, halo {hneg}, "
+                         f"blocks of {W}: a load falls outside")
     if _first(mats).is_cuda:
-        out = torch.empty(tape.n_words, dtype=torch.int32, device=dev)
+        out = torch.empty(tape.layout(L)[2], dtype=torch.int32, device=dev)
         tape_cuda.launch(tape, uniforms, _bases(tape, mats),
-                         (N, out.data_ptr()), dev)
+                         (W, L, hneg, N - 1 if L == N else -1,
+                          out.data_ptr()), dev)
         return out
     if dev.type == "cpu":
-        return air_eval_operands_plain(tape, mats, uniforms, N)
+        return air_eval_operands_plain(tape, mats, uniforms, N, lo, L, hneg)
     raise ValueError(f"unsupported device {dev}")
 
 
@@ -939,31 +997,65 @@ def air_eval_composition(tape, mats, uniforms, lo: int, L: int, hneg: int,
     raise ValueError(f"unsupported device {dev}")
 
 
-def _is_first_matrix(log_size: int, device) -> torch.Tensor:
-    return dev_const("component.is_first", log_size, device,
-                     lambda: preprocessed_is_first(log_size)[None, :])
+def _is_first_matrix(log_size: int, device, lo: int = 0, W: int = None,
+                     hneg: int = 0) -> torch.Tensor:
+    """is_first as a (1, 2^log_size) matrix, or as the (1, W) block of a
+    window (position q: row lo - hneg + q, mod 2^log_size)."""
+    if W is None:
+        return dev_const("component.is_first", log_size, device,
+                         lambda: preprocessed_is_first(log_size)[None, :])
+    rows = (torch.arange(W, device=device) + (lo - hneg)) % (1 << log_size)
+    return (rows == 0).to(torch.int32)[None, :]
+
+
+def interaction_operands(component, main_matrix, pre_matrix, relations,
+                         log_size: int, device, window: tuple = None):
+    """The packed LogUp operands of a component (its gen tape; kernel K7
+    on a CUDA device) from its natural-order main and preprocessed
+    matrices: the whole (C, M) trace, or for ``window`` = (lo, L, hneg)
+    halo-extended (C, W) blocks whose position q holds row lo - hneg + q
+    (mod M), every load of the tape inside them.  Returns (operands, K6's
+    operand table, rows), the buffer laid out for L rows (M for the
+    whole), or None for a component without lookups."""
+    M = 1 << log_size
+    tape = gen_tape(component, log_size, relations)
+    if tape is None:
+        return None
+    lo, L, hneg = (0, M, 0) if window is None else window
+    given = main_matrix if main_matrix is not None else pre_matrix
+    W = (None if window is None else int(given.shape[1])
+         if given is not None else hneg + L + tape.halo()[1])
+    mats = {MAIN: main_matrix, PRE: pre_matrix,
+            ISF: _is_first_matrix(log_size, device, lo, W, hneg)}
+    src = air_eval_operands(tape, mats, tape.uniforms(relations, None), M,
+                            *(() if window is None else window))
+    return src, tape.layout(L)[1], L
 
 
 def generate_interaction(component, main_matrix, pre_matrix, relations,
                          log_size: int, device):
     """The LogUp columns of a component from its natural-order (C, M)
     main and preprocessed matrices: its gen tape gives the packed pair
-    operands (kernel K7 on a CUDA device), kernel K6 the columns.
+    operands (`interaction_operands`: kernel K7 on a CUDA device),
+    kernel K6 the columns (`interaction_columns`).
 
     Returns ((B, M, 4) int32 natural-order columns, (4,) claimed sum
     tensor), or (None, None) for a component without lookups."""
-    M = 1 << log_size
     with scope("i:eval"):
-        tape = gen_tape(component, log_size, relations)
-        if tape is None:
-            return None, None
-        mats = {MAIN: main_matrix, PRE: pre_matrix,
-                ISF: _is_first_matrix(log_size, device)}
-        src = air_eval_operands(tape, mats, tape.uniforms(relations, None),
-                                M)
-    with scope("i:logup"):
-        out = logup_columns(src, tape.meta, M)
+        got = interaction_operands(component, main_matrix, pre_matrix,
+                                   relations, log_size, device)
+    if got is None:
+        return None, None
+    out = interaction_columns(got)
     return out, out[-1, -1]
+
+
+def interaction_columns(operands: tuple, carry=None) -> torch.Tensor:
+    """Kernel K6 on `interaction_operands`' result: the (B, L, 4) LogUp
+    columns, the last one's prefix sum starting from ``carry``."""
+    with scope("i:logup"):
+        return logup_columns(*operands,
+                             *(() if carry is None else (carry,)))
 
 
 def accumulate_composition(component, log_size: int, mats, relations,
@@ -1012,7 +1104,7 @@ def tape_stats(component, log_size: int, relations) -> dict:
                      "slots": tape.n_slots, "loads": len(tape.loads),
                      "uniforms": len(tape.u_table), "nodes": tape.n_nodes,
                      "outputs": (len(tape.emits) if kind == "domain"
-                                 else len(tape.stores)),
+                                 else len(tape.store_terms)),
                      "pieces": len(tape_cuda.pieces(tape))}
     return out
 

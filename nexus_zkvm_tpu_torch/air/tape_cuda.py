@@ -273,9 +273,8 @@ def _source(tape, ops, outs, cut: _Cut, index: int, count: int) -> str:
         elif code == _K_EMITQ_HI:
             lines.append(f"  EMITQ({compact[dst]}, {', '.join(a)});")
         else:
-            sa, sb = tape.store_terms[dst].tolist()
-            lines.append(f"  ST({sa}, {sb}, {int(tape.stores[dst, 2])}, "
-                         f"{a[0]});")
+            _v, sa, sb, step = tape.store_terms[dst].tolist()
+            lines.append(f"  ST({sa}, {sb}, {step}, {a[0]});")
     compose = int(tape.kind == "domain")
     head = [
         f"// K7, generated by nexus_zkvm_tpu_torch/air/tape_cuda.py from the "

@@ -31,8 +31,9 @@
 // constraint, four products; EMITQ: a QM31 one); the accumulator keeps
 // four unreduced 64-bit sums, folded (FOLD) after every third constraint
 // and reduced once in the epilogue.  A LogUp operand is stored by ST(a, b,
-// step, x) at word a * M + b + step * row of K6's packed buffer (step 0: a
-// word shared by every row, written by row 0 only).  A large tape is cut
+// step, x) at word a * M + b + step * row of K6's packed buffer, M the
+// launch's rows and row counted from its first (step 0: a word shared by
+// every row, written by row 0 only).  A large tape is cut
 // by output range into pieces, each its own kernel and library; each
 // piece recomputes the values it shares with others, and the wrapper
 // launches them in turn on one stream.
@@ -46,8 +47,13 @@
 //     The columns are halo-extended natural blocks: position q of a block
 //     holds natural row lo - hneg + q (mod N), so the thread of row lo + t
 //     reads position t + hneg + off * NZT_STRIDE with no wrap;
-//   operands (0): loads read the trace's own columns at (row + off) mod N,
-//     N a power of two (the wrap is the roll of the reference).
+//   operands (0): rows [0, L) of the trace, or of a mesh rank's window of
+//     it.  Whole (L = N): loads read the trace's own columns at (row +
+//     off) mod N, N a power of two (the wrap is the roll of the
+//     reference; mask N - 1).  A window: halo-extended blocks as above,
+//     position q holding window row q - hneg, every load inside them
+//     (mask -1: no wrap).  Either way the packed buffer is laid out for
+//     the L rows of the launch.
 //
 // What bounds it on the H100: the operations of the composition (an M31
 // product counts 6, an add 3; chip_smoke.py `tape_cost`), the bytes of
@@ -86,8 +92,8 @@ struct NztLaunch {
   const uint32_t* base[4];
   uint32_t W;
   long long lo, L, hneg;
-  long long mask;     // operands: N - 1
-  long long M;        // operands: trace rows (store words a * M + b)
+  long long mask;     // operands: N - 1 (the whole trace) or -1 (a window)
+  long long M;        // operands: the launch's rows (store words a * M + b)
   qm31 shift;
   const uint32_t* invv;
   uint32_t* bucket;
@@ -95,7 +101,7 @@ struct NztLaunch {
 };
 
 // one row: role -> its column 0 at this row's position (composition) or
-// at position 0 (operands)
+// at position hneg (operands)
 struct NztRow {
   const uint32_t* p[4];
   uint32_t W;
@@ -221,7 +227,7 @@ namespace {
 __device__ __forceinline__ void nzt_tape_row(const NztLaunch& a,
                                              long long t) {
   NztRow r;
-  const long long at = NZT_COMPOSE ? t + a.hneg : 0;
+  const long long at = NZT_COMPOSE ? t + a.hneg : a.hneg;
   for (int k = 0; k < 4; ++k) r.p[k] = a.base[k] + at;
   r.W = a.W;
   r.t = t;
@@ -289,13 +295,15 @@ extern "C" int nzt_tape_entry(const uint32_t* b0, const uint32_t* b1,
   return nzt_run(a, uni, stream);
 }
 #else
-// rows [0, N) of the trace; b0..b3 the roles' columns (rows of N words);
-// out the packed operand buffer of K6
+// rows [0, L); b0..b3 the roles' columns (rows of W words): the whole
+// trace (W = L = N, hneg 0, mask N - 1) or a window's halo-extended blocks
+// (mask -1); out K6's packed operand buffer for L rows
 extern "C" int nzt_tape_entry(const uint32_t* b0, const uint32_t* b1,
                               const uint32_t* b2, const uint32_t* b3,
-                              long long N, uint32_t* out,
+                              long long W, long long L, long long hneg,
+                              long long mask, uint32_t* out,
                               const uint32_t* uni, void* stream) {
-  NztLaunch a = {{b0, b1, b2, b3}, (uint32_t)N, 0, N, 0, N - 1, N,
+  NztLaunch a = {{b0, b1, b2, b3}, (uint32_t)W, 0, L, hneg, mask, L,
                  {0u, 0u, 0u, 0u}, nullptr, nullptr, out};
   return nzt_run(a, uni, stream);
 }

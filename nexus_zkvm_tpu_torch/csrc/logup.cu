@@ -33,9 +33,16 @@
 //   1. one thread per row: every pair's fraction, the running sum S_b
 //      stored for b < B-1, then a block-wide inclusive scan of the row
 //      totals; each block writes its total to `scratch`;
-//   2. one block scans the block totals (exclusive);
+//   2. one block scans the block totals (exclusive), starting from the
+//      carry;
 //   3. every row of the last column adds its block's offset.
 // M31 addition is exact, so the order of the scan does not matter.
+//
+// The carry (a QM31 on the card, or none: zero) is where the last
+// column's prefix sum starts: the sum of the row totals before these M
+// rows.  A mesh rank that holds rows [lo, lo + M) of a component passes
+// the totals of the ranks before it, so its rows equal those rows of the
+// whole component's column.
 //
 // Operands in M31 (modes 0 and 1) stay in M31 through the products: a
 // product with one M31 factor is 4 M31 products, not a QM31 product, and
@@ -191,10 +198,12 @@ logup_rows(const uint32_t* __restrict__ src, const long long* __restrict__ meta,
   if (threadIdx.x == 0) qm31_store(scratch + 4 * (long long)blockIdx.x, total);
 }
 
-// exclusive scan of the n block totals, in place, by one block
+// exclusive scan of the n block totals from the carry (none: zero), in
+// place, by one block
 __global__ void __launch_bounds__(kThreads)
-logup_block_offsets(uint32_t* __restrict__ scratch, long long n) {
-  qm31 carry = {0u, 0u, 0u, 0u};
+logup_block_offsets(uint32_t* __restrict__ scratch, long long n,
+                    const uint32_t* __restrict__ start) {
+  qm31 carry = start ? qm31_load(start) : qm31{0u, 0u, 0u, 0u};
   for (long long base = 0; base < n; base += kThreads) {
     const long long k = base + threadIdx.x;
     const qm31 v = k < n ? qm31_load(scratch + 4 * k) : qm31{0u, 0u, 0u, 0u};
@@ -205,11 +214,12 @@ logup_block_offsets(uint32_t* __restrict__ scratch, long long n) {
   }
 }
 
+// block 0's offset is the carry: zero, and skipped, without one
 __global__ void __launch_bounds__(kThreads)
 logup_add_offsets(uint32_t* __restrict__ last, long long M,
-                  const uint32_t* __restrict__ scratch) {
+                  const uint32_t* __restrict__ scratch, int first) {
   const long long row = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (blockIdx.x == 0 || row >= M) return;
+  if ((int)blockIdx.x < first || row >= M) return;
   const qm31 off = qm31_load(scratch + 4 * (long long)blockIdx.x);
   qm31_store(last + 4 * row, qm31_add(qm31_load(last + 4 * row), off));
 }
@@ -217,10 +227,11 @@ logup_add_offsets(uint32_t* __restrict__ last, long long M,
 }  // namespace
 
 // src/meta as above (meta on the card), out (B, M, 4), scratch
-// (ceil(M / 256), 4).
+// (ceil(M / 256), 4), carry 4 words on the card or null.
 extern "C" int nzt_logup_columns(const uint32_t* src, const long long* meta,
                                  int B, long long M, uint32_t* out,
-                                 uint32_t* scratch, void* stream) {
+                                 uint32_t* scratch, const uint32_t* carry,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
   const long long blocks = (M + kThreads - 1) / kThreads;
@@ -233,10 +244,10 @@ extern "C" int nzt_logup_columns(const uint32_t* src, const long long* meta,
   logup_rows<<<(unsigned)blocks, kThreads, smem, st>>>(src, meta, B, M, out, scratch);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  logup_block_offsets<<<1, kThreads, 0, st>>>(scratch, blocks);
+  logup_block_offsets<<<1, kThreads, 0, st>>>(scratch, blocks, carry);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   logup_add_offsets<<<(unsigned)blocks, kThreads, 0, st>>>(
-      out + (long long)(B - 1) * M * 4, M, scratch);
+      out + (long long)(B - 1) * M * 4, M, scratch, carry ? 0 : 1);
   return (int)cudaGetLastError();
 }

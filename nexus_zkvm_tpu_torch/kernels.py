@@ -72,7 +72,7 @@ KERNELS = {
                  [_P, _P, _L, _P, _U, _U, _U, _U, _P, _P, _U, _U, _U, _U]),
     "cpu_fill": ("fill", "nzt_cpu_fill", [_P, _L] + [_U] * 7 + [_P, _P]),
     "logup_columns": ("logup", "nzt_logup_columns",
-                      [_P, _P, _I, _L, _P, _P]),
+                      [_P, _P, _I, _L, _P, _P, _P]),
     "oods_dot": ("oods", "nzt_oods_dot",
                  [_P, _I, _P, _P, _L, _L, _I, _P, _P, _L, _P]),
     "gather_openings": ("gather", "nzt_gather_openings", [_P, _I, _I, _P]),
@@ -89,7 +89,7 @@ ENTRIES = {
 # last)
 GENERATED = {
     "air_eval_composition": [_P] * 4 + [_L] * 4 + [_U] * 4 + [_P, _P, _P],
-    "air_eval_operands": [_P] * 4 + [_L, _P, _P],
+    "air_eval_operands": [_P] * 4 + [_L] * 4 + [_P, _P],
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

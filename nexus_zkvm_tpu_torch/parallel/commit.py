@@ -7,6 +7,10 @@ committed size group under a mesh.  Rank r of a mesh of D ranks, on a
 rows split (:func:`shards_rows`: a window of at least ``MIN_WINDOW``
 rows a rank):
 
+0. (a group given as row windows, :func:`commit_windows`: rank r holds
+   the natural-order rows [r·2^n/D, (r+1)·2^n/D) of all C columns) sends
+   the rows of rank j's share of the columns to rank j in one
+   ``all_to_all``, so it holds all 2^n rows of its own share;
 1. takes its share of the columns, k = ceil(C / D) of them (the last
    shares may be shorter or empty: past C a rank sends zero rows, which
    no rank keeps);
@@ -27,8 +31,9 @@ of its window below the top, and the whole top; its root equals
 ``merkle.commit_matrix`` on the whole evaluations, so sharding never
 changes the transcript.  A group whose rows do not split is held whole
 by every rank.  Under an active profile (``utils.profile``) the steps
-are timed as the scopes ``mesh_lde`` (1-2), ``mesh_exchange`` (3, 6),
-``mesh_leaves`` (4) and ``mesh_climb`` (5, 7).
+are timed as the scopes ``mesh_lde`` (1-2), ``mesh_exchange`` (0, 3,
+6; step 0 also as ``mesh_exchange/mesh_share``), ``mesh_leaves`` (4)
+and ``mesh_climb`` (5, 7).
 """
 
 from __future__ import annotations
@@ -45,8 +50,8 @@ from ..utils.profile import scope
 from .mesh import Mesh
 
 __all__ = ["sharded_commit_columns", "sharded_lde", "commit_group",
-           "commit_window", "shards_rows", "window", "share", "Share",
-           "MIN_WINDOW"]
+           "commit_windows", "gather_share", "commit_window", "shards_rows",
+           "window", "share", "Share", "MIN_WINDOW"]
 
 # the fewest rows of a window: a group (or FRI layer, or composition
 # domain) of fewer than MIN_WINDOW rows a rank is held whole by every rank
@@ -121,28 +126,45 @@ def _lde(mat: torch.Tensor, n: int, s: int, natural: bool):
     return cf, ev[:, dev_bit_reverse(s, mat.device)]
 
 
-def _lde_share(mesh: Mesh, mat: torch.Tensor, n: int, s: int,
+def _lde_share(mesh: Mesh, parts: list, C: int, n: int, s: int,
                natural: bool) -> tuple:
-    """Steps 1-2: this rank's coefficients (c, 2^n) and the (D, k·w)
-    buffer it sends, row j window j of its share's committed
-    evaluations (zero past its share)."""
-    sh = Share(mesh.size, mesh.rank, int(mat.shape[0]), 1 << s)
-    lo, hi = sh.cols
-    D, w = mesh.size, (1 << s) // mesh.size
-    send = torch.zeros((D, sh.k, w), dtype=torch.int32, device=mat.device)
-    cf = mat[lo:hi]
-    if hi > lo:
-        if natural:
-            cf = cfft.interpolate(cf[:, dev_layout_to_natural(n, mat.device)])
-        else:
-            cf = cf.clone()
+    """Steps 1-2 on this rank's share (``parts``: its (c, 2^n) columns
+    of the C, natural-order values or coefficients; the list is emptied):
+    its coefficients and the (D, k·w) buffer it sends, row j window j of
+    its share's committed evaluations (zero past its share)."""
+    cf = parts.pop()
+    sh = Share(mesh.size, mesh.rank, C, 1 << s)
+    D, w, c = mesh.size, (1 << s) // mesh.size, int(cf.shape[0])
+    send = torch.zeros((D, sh.k, w), dtype=torch.int32, device=cf.device)
+    if c:
+        cf = (cfft.interpolate(cf[:, dev_layout_to_natural(n, cf.device)])
+              if natural else cf.clone())
         ev = cfft.evaluate(cf, s)
-        brev = dev_bit_reverse(s, mat.device)
+        brev = dev_bit_reverse(s, cf.device)
         for j in range(D):
             torch.index_select(ev, 1, brev[j * w:(j + 1) * w],
-                               out=send[j, :hi - lo])
+                               out=send[j, :c])
         del ev
     return cf, send.view(D, -1)
+
+
+def _commit_share(mesh: Mesh, parts: list, C: int, n: int, s: int,
+                  natural: bool) -> tuple:
+    """Steps 1-7 from this rank's share of the columns (``parts``, as
+    `_lde_share` takes it)."""
+    if not shards_rows(mesh, 1 << s):
+        raise ValueError(f"2^{s} rows do not split over {mesh.size} ranks")
+    k, w = -(-C // mesh.size), (1 << s) // mesh.size
+    with scope("mesh_lde"):
+        cf, send = _lde_share(mesh, parts, C, n, s, natural)
+    with scope("mesh_exchange"):
+        got = mesh.all_to_all(send).view(mesh.size, k, w)
+        del send
+        ev = (got.view(C, w) if k * mesh.size == C else
+              torch.cat([got[q, :min(k, C - q * k)]
+                         for q in range(mesh.size) if q * k < C]))
+        del got
+    return cf, ev, commit_window(mesh, ev)
 
 
 def commit_group(mesh: Mesh, mat: torch.Tensor, n: int, s: int,
@@ -153,20 +175,48 @@ def commit_group(mesh: Mesh, mat: torch.Tensor, n: int, s: int,
     mesh's size.  Returns (this rank's coefficients, (c, 2^n), columns
     ``share(...).cols``; its (C, M/D) window of the committed
     evaluations; its tree)."""
-    C, M = int(mat.shape[0]), 1 << s
-    if not shards_rows(mesh, M):
-        raise ValueError(f"2^{s} rows do not split over {mesh.size} ranks")
-    k, w = -(-C // mesh.size), M // mesh.size
-    with scope("mesh_lde"):
-        cf, send = _lde_share(mesh, mat, n, s, natural)
-    with scope("mesh_exchange"):
-        got = mesh.all_to_all(send).view(mesh.size, k, w)
-        del send
-        ev = (got.view(C, w) if k * mesh.size == C else
-              torch.cat([got[q, :min(k, C - q * k)]
-                         for q in range(mesh.size) if q * k < C]))
-        del got
-    return cf, ev, commit_window(mesh, ev)
+    C = int(mat.shape[0])
+    lo, hi = Share(mesh.size, mesh.rank, C, 1 << s).cols
+    return _commit_share(mesh, [mat[lo:hi]], C, n, s, natural)
+
+
+def gather_share(mesh: Mesh, windows: list) -> torch.Tensor:
+    """Step 0: this rank's (C, w) natural-order row window [r·w, (r+1)·w)
+    of a (C, D·w) matrix (``windows``: the one tensor, or its blocks of
+    consecutive columns; the list is emptied) -> the (c, D·w) natural
+    rows of its share of the columns (``Share.cols``; c may be 0), in
+    one ``all_to_all``."""
+    D = mesh.size
+    C = sum(int(b.shape[0]) for b in windows)
+    w = int(windows[0].shape[1])
+    k = -(-C // D)
+    send = torch.zeros((D * k, w), dtype=torch.int32,
+                       device=windows[0].device)
+    lo = 0
+    while windows:
+        b = windows.pop(0)
+        send[lo:lo + int(b.shape[0])] = b
+        lo += int(b.shape[0])
+        del b
+    got = mesh.all_to_all(send.view(D, -1)).view(D, k, w)
+    del send
+    lo, hi = Share(D, mesh.rank, C, 1).cols
+    return got[:, :hi - lo].permute(1, 0, 2).reshape(hi - lo, D * w)
+
+
+def commit_windows(mesh: Mesh, windows: list, n: int, s: int) -> tuple:
+    """Commit a (C, 2^n) natural-order size group on the 2^s domain over
+    ``mesh`` from each rank's (C, 2^n/D) natural-order row window
+    (``windows``, as `gather_share` takes it; step 0, then steps 1-7):
+    what `commit_group` returns for the whole matrix."""
+    C = sum(int(b.shape[0]) for b in windows)
+    if not shards_rows(mesh, 1 << n) or \
+            int(windows[0].shape[1]) * mesh.size != 1 << n:
+        raise ValueError(f"windows of {int(windows[0].shape[1])} rows "
+                         f"are not a split of 2^{n} over {mesh.size} ranks")
+    with scope("mesh_exchange"), scope("mesh_share"):
+        parts = [gather_share(mesh, windows)]
+    return _commit_share(mesh, parts, C, n, s, True)
 
 
 def commit_window(mesh: Mesh, ev: torch.Tensor) -> merkle.MerkleTree:

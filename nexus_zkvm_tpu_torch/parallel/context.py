@@ -7,12 +7,17 @@ mesh.  PyTorch has no partitioner, so the port's route is explicit:
 two or more ranks, streams nothing and commits every size group whose
 rows split through ``parallel/commit.py``: the rank keeps the
 coefficients of its share of the columns and the committed-order row
-window of the evaluations and tree.  The OODS samples, the composition
-(K7 on the rank's window of each 4x domain), the quotients, the FRI
-folds and the openings then run on what the rank holds, joined by a few
-collectives, so each rank holds the same proof, byte for byte the proof
-of a single process.  Emulation, fills and the interaction run on every
-rank.  The verifiers never read the mesh.
+window of the evaluations and tree.  Of a component whose natural rows
+split, the rank keeps only its natural-order row window of the main and
+preprocessed values (and the halo its gen tape reads) and generates the
+interaction for that window alone (K7's operands, then K6 with the
+LogUp running sum carried in from the ranks before it); the windows are
+committed through step 0 of ``parallel/commit.py``.  The OODS samples,
+the composition (K7 on the rank's window of each 4x domain), the
+quotients, the FRI folds and the openings then run on what the rank
+holds, joined by a few collectives, so each rank holds the same proof,
+byte for byte the proof of a single process.  Emulation and fills run
+whole on every rank.  The verifiers never read the mesh.
 
 Usage (every rank)::
 

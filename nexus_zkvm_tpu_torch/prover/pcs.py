@@ -24,7 +24,12 @@ the active mesh) nothing streams, and a size group whose rows split
 ``parallel/commit.py``: each rank keeps the coefficients of its share of
 the columns and the committed-order row window of the evaluations, and
 its tree over that window (:class:`RoleCommitment` ``shares`` says which
-columns and rows).  A smaller group is held whole by every rank.
+columns and rows).  A smaller group is held whole by every rank.  Where
+its 2^n natural rows split too, a rank keeps of the natural values only
+its natural-order row window and the halo around it that the
+interaction reads (``natural_spans``), and the interaction's groups
+arrive as those windows (``row_windows``): step 0 of
+``parallel/commit.py`` gives each rank its share of the columns.
 """
 
 from __future__ import annotations
@@ -58,7 +63,11 @@ class RoleCommitment:
                               # streamed size
     cols_by_size: dict        # eval_log -> [column indices]
     trees: dict               # eval_log -> MerkleTree
-    natural: dict = None      # n -> (column index list, (Cn, 2^n) tensor)
+    natural: dict = None      # n -> (column index list, (Cn, 2^n) tensor,
+                              # or a split group's (Cn, W) window block)
+    natural_spans: dict = None  # n -> (lo, L, hneg) of a split group: its
+                              # block's position q holds natural row
+                              # lo - hneg + q (mod 2^n)
     shares: dict = None       # eval_log -> parallel.commit.Share
     mesh: object = None       # the mesh (two or more ranks), else None
     _roots: list = field(default=None, repr=False)
@@ -107,7 +116,15 @@ class RoleCommitment:
         return self._row_index(self.coeff_batches, col_idxs)[:2]
 
     def natural_rows(self, col_idxs):
+        """(rows, n): the natural values of ``col_idxs`` (one size n),
+        all 2^n rows, or the window block of a split group
+        (`natural_span`)."""
         return self._rows(self.natural, col_idxs)
+
+    def natural_span(self, n: int):
+        """(lo, L, hneg) of the natural window a rank keeps of size n's
+        group, None when it keeps all of it."""
+        return (self.natural_spans or {}).get(n)
 
     def samples(self, ridx: int) -> bool:
         """Whether this rank samples column ``ridx`` at the OODS point:
@@ -243,8 +260,8 @@ def _as_device(m, device) -> torch.Tensor:
             else m.to(device=device, dtype=torch.int32))
 
 
-def _stack(mats: list, n: int, device) -> torch.Tensor:
-    """One (C, 2^n) device matrix of a size group's blocks; ``mats`` is
+def _stack(mats: list, width: int, device) -> torch.Tensor:
+    """One (C, width) device matrix of a size group's blocks; ``mats`` is
     emptied, so the matrix holds the only references."""
     if all(isinstance(m, np.ndarray) for m in mats):
         dev = from_u32(np.concatenate(mats) if len(mats) > 1 else mats[0],
@@ -254,7 +271,7 @@ def _stack(mats: list, n: int, device) -> torch.Tensor:
     else:
         # one buffer for the group, each block freed as it lands
         C = sum(int(m.shape[0]) for m in mats)
-        dev = torch.empty((C, 1 << n), dtype=torch.int32, device=device)
+        dev = torch.empty((C, width), dtype=torch.int32, device=device)
         lo = 0
         for i in range(len(mats)):
             k = int(mats[i].shape[0])
@@ -265,23 +282,49 @@ def _stack(mats: list, n: int, device) -> torch.Tensor:
     return dev
 
 
+def _natural_window(mesh, mat: torch.Tensor, n: int, halo: tuple):
+    """A contiguous copy of this rank's natural window of a (C, 2^n)
+    group and ``halo`` = (hneg, hpos) rows around it (the domain wraps),
+    and its (lo, L, hneg)."""
+    lo, hi = pcommit.window(mesh, 1 << n)
+    hneg, hpos = halo
+    rows = torch.arange(lo - hneg, hi + hpos, device=mat.device) % (1 << n)
+    return torch.index_select(mat, 1, rows), (lo, hi - lo, hneg)
+
+
 def _commit_group(mats: list, n: int, s: int, device, memory: MemoryConfig,
-                  mesh, natural: bool = True, keep_natural: bool = False):
+                  mesh, natural: bool = True, keep_natural: bool = False,
+                  halo: tuple = (0, 0), row_windows: bool = False):
     """Commit one size group on the 2^s domain: its blocks ``mats``
     ((k_i, 2^n) natural-order values, or coefficients without
     ``natural``; the list is emptied) in row windows over ``mesh``
     (when its rows split), streamed (never under a mesh), or resident.
-    Returns (the natural matrix when ``keep_natural``, coefficients,
-    committed evaluations or None when streamed, tree, this rank's
-    ``Share``).  Without ``keep_natural`` a big group of tensor blocks
-    is interpolated in place."""
+    ``row_windows``: where ``mesh`` splits the 2^n natural rows, the
+    blocks are this rank's natural window of them (step 0 of
+    ``parallel/commit.py``).  Returns (the natural values when
+    ``keep_natural``: all of them, or where the 2^n rows split this
+    rank's window with ``halo`` = (hneg, hpos) rows around it, then its
+    (lo, L, hneg), else None; coefficients; committed evaluations or
+    None when streamed; tree; this rank's ``Share``).  Without
+    ``keep_natural`` a big group of tensor blocks is interpolated in
+    place."""
+    split_n = pcommit.shards_rows(mesh, 1 << n)
+    if row_windows and split_n:
+        C = sum(int(m.shape[0]) for m in mats)
+        sh = pcommit.share(mesh, C, 1 << s)
+        return (None, None) + pcommit.commit_windows(mesh, mats, n, s) + \
+            (sh,)
     host = all(isinstance(m, np.ndarray) for m in mats)
-    mat = _stack(mats, n, device)
-    nat = mat if keep_natural else None
+    mat = _stack(mats, 1 << n, device)
+    nat, span = (None, None)
+    if keep_natural:
+        nat, span = (_natural_window(mesh, mat, n, halo) if split_n
+                     else (mat, None))
     C = int(mat.shape[0])
     sh = pcommit.share(mesh, C, 1 << s)
     if sh.size > 1:
-        return (nat,) + pcommit.commit_group(mesh, mat, n, s, natural) + (sh,)
+        return (nat, span) + pcommit.commit_group(mesh, mat, n, s, natural) \
+            + (sh,)
     # nothing streams under a mesh, as in the JAX package
     big = (mesh is None or mesh.size == 1) and memory.streams(C * (4 << s))
     if natural and big and memory.streams(C * (4 << n)):
@@ -289,14 +332,15 @@ def _commit_group(mats: list, n: int, s: int, device, memory: MemoryConfig,
     elif natural:
         mat = cfft.interpolate(mat[:, dev_layout_to_natural(n, mat.device)])
     if big:
-        return (nat, mat, None, _stream_commit(mat, s, memory.chunk_cols(s)),
-                sh)
+        return (nat, span, mat, None,
+                _stream_commit(mat, s, memory.chunk_cols(s)), sh)
     ev = cfft.evaluate(mat, s)[:, dev_bit_reverse(s, mat.device)]
-    return nat, mat, ev, merkle.commit_matrix(ev), sh
+    return nat, span, mat, ev, merkle.commit_matrix(ev), sh
 
 
 def _role(role: str, trace_logs, log_blowup: int, groups: dict,
-          natural: dict = None, mesh=None) -> RoleCommitment:
+          natural: dict = None, mesh=None,
+          natural_spans: dict = None) -> RoleCommitment:
     """groups: n -> (column indices, coefficients, evaluations, tree,
     Share)."""
     by_s = {n + log_blowup: g for n, g in groups.items()}
@@ -307,6 +351,7 @@ def _role(role: str, trace_logs, log_blowup: int, groups: dict,
         evals={s: g[2] for s, g in by_s.items()},
         cols_by_size={s: g[0] for s, g in by_s.items()},
         trees={s: g[3] for s, g in by_s.items()}, natural=natural,
+        natural_spans=natural_spans,
         shares={s: g[4] for s, g in by_s.items()},
         mesh=mesh if mesh is not None and mesh.size > 1 else None)
 
@@ -314,13 +359,19 @@ def _role(role: str, trace_logs, log_blowup: int, groups: dict,
 def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
                   keep_natural: bool = True,
                   memory: MemoryConfig = MemoryConfig(),
-                  mesh=None) -> RoleCommitment:
+                  mesh=None, halo: dict = None,
+                  row_windows: bool = False) -> RoleCommitment:
     """Commit pre-stacked column blocks: blocks[i] is a (k_i, 2^n_i)
     numpy uint32 array or int32 tensor of consecutive columns.  A list
     of blocks is emptied (the size groups hold the only references);
     without ``keep_natural`` a big size group of tensor blocks is
     interpolated in place, in memory the commitment owns from then on.
-    ``mesh``: the groups it can split are committed over it."""
+    ``mesh``: the groups it can split are committed over it; with
+    ``keep_natural``, of a group whose 2^n natural rows it splits a rank
+    keeps its window and ``halo[n]`` = (hneg, hpos) rows around it
+    (default none), the whole matrix freed once committed;
+    ``row_windows``: the blocks of such a size are (k_i, 2^n/D) windows
+    (`_commit_group`)."""
     by_n, idxs_by_n, trace_logs = {}, {}, []
     for b, n in zip(blocks, block_logs):
         k = int(b.shape[0])
@@ -331,28 +382,31 @@ def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
     b = None
     if isinstance(blocks, list):
         blocks.clear()
-    groups, natural = {}, {}
+    groups, natural, spans = {}, {}, {}
     for n, mats in by_n.items():
-        nat, *committed = _commit_group(mats, n, n + log_blowup, device,
-                                        memory, mesh,
-                                        keep_natural=keep_natural)
+        nat, span, *committed = _commit_group(
+            mats, n, n + log_blowup, device, memory, mesh,
+            keep_natural=keep_natural, halo=(halo or {}).get(n, (0, 0)),
+            row_windows=row_windows)
         if keep_natural:
             natural[n] = (idxs_by_n[n], nat)
+        if span is not None:
+            spans[n] = span
         groups[n] = (idxs_by_n[n], *committed)
         del nat, committed
-    return _role(role, trace_logs, log_blowup, groups, natural, mesh)
+    return _role(role, trace_logs, log_blowup, groups, natural, mesh, spans)
 
 
 def commit_columns(role: str, columns, trace_logs, log_blowup: int, device,
                    keep_natural: bool = True,
                    memory: MemoryConfig = MemoryConfig(),
-                   mesh=None) -> RoleCommitment:
+                   mesh=None, halo: dict = None) -> RoleCommitment:
     """columns: natural-order numpy uint32 arrays of sizes
     2^trace_logs[i], committed in this order."""
     return commit_blocks(role, [np.asarray(c, np.uint32)[None, :]
                                 for c in columns],
                          list(trace_logs), log_blowup, device, keep_natural,
-                         memory, mesh)
+                         memory, mesh, halo)
 
 
 def commit_from_coeffs(role: str, coeffs: torch.Tensor, trace_log: int,
@@ -361,9 +415,9 @@ def commit_from_coeffs(role: str, coeffs: torch.Tensor, trace_log: int,
                        mesh=None) -> RoleCommitment:
     """Commit a (C, 2^trace_log) coefficient matrix (one size group)."""
     C = int(coeffs.shape[0])
-    _nat, *committed = _commit_group([coeffs], trace_log,
-                                     trace_log + log_blowup, coeffs.device,
-                                     memory, mesh, natural=False)
+    _nat, _span, *committed = _commit_group(
+        [coeffs], trace_log, trace_log + log_blowup, coeffs.device, memory,
+        mesh, natural=False)
     return _role(role, [trace_log] * C, log_blowup,
                  {trace_log: (list(range(C)), *committed)}, mesh=mesh)
 

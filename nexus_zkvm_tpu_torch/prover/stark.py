@@ -26,7 +26,11 @@ Under a mesh of D ranks (``parallel.use_mesh``) nothing streams, and a
 rank holds of every size group whose rows split the coefficients of its
 share of the columns and the committed-order row window of the
 evaluations (``prover/pcs.py``, ``parallel/commit.py``).  Each phase
-runs on what the rank holds: OODS samples the columns it owns, the
+runs on what the rank holds: the interaction on its natural-order row
+window of each component whose rows split (the LogUp running sum
+carried across ranks by one all_gather of the windows' totals, the
+windows committed through step 0 of the windowed commit); OODS samples
+the columns it owns, the
 pieces joined by a disjoint sum; the composition runs K7 on the rank's
 window of each 4x domain, over an LDE built a column chunk at a time
 from coefficients broadcast by their owners, and the windows are
@@ -50,7 +54,7 @@ import torch
 from .. import kernels
 from ..ops import cfft, fri, merkle, quotients
 from ..ops.field import (
-    m31_add, m31_mul, m31_fold_sum, qm31_mul, np_m31_inv,
+    P, m31_add, m31_mul, m31_fold_sum, qm31_mul, np_m31_inv,
     np_qm31, np_qm31_add, np_qm31_sub, np_qm31_mul,
     np_qm31_inv, np_qm31_pow,
 )
@@ -63,7 +67,8 @@ from ..air.component import (
     component_info, run_constraints, PointEvalContext,
     preprocessed_is_first, domain_halo, MAIN, PRE, INTER, ISF,
 )
-from ..air.tape import (generate_interaction, accumulate_composition,
+from ..air.tape import (gen_halo, generate_interaction, interaction_operands,
+                        interaction_columns, accumulate_composition,
                         build_kernels)
 from ..air.lookups import draw_relations
 from ..parallel import commit as pcommit
@@ -424,20 +429,71 @@ class Proof:
 # Prove
 # ---------------------------------------------------------------------------
 
+def _gen_halos(components, infos, log_sizes) -> dict:
+    """n -> (hneg, hpos): the most rows around its own that a gen tape
+    of a component of 2^n rows reads, over those components."""
+    widths = _relation_widths(infos)
+    out = {}
+    for comp, n in zip(components, log_sizes):
+        hneg, hpos = gen_halo(comp, n, widths)
+        a, b = out.get(n, (0, 0))
+        out[n] = (max(a, hneg), max(b, hpos))
+    return out
+
+
 def _interactions(components, infos, plan, log_sizes, relations, rc_pre,
-                  rc_main, device):
-    """Per component: its natural-order rows -> LogUp columns."""
-    outs, claimed = [], []
+                  rc_main, device, mesh=None):
+    """Per component: its natural-order rows -> LogUp columns, and the
+    claimed sums.  Where ``mesh`` splits a component's rows a rank
+    generates only its natural window [lo, lo + L) (the operands, K7,
+    from the window blocks the commitments kept; the columns, K6): the
+    windows' totals (each last column's last row) of every such
+    component go through one all_gather; rank r's columns are then made
+    again from the same operands with the carry of the totals of the
+    ranks before it, and a claimed sum is the sum of its D totals.  Each
+    component's (row lo, row hi) is noted as ``interaction_windows``
+    (components without lookups left out)."""
+    outs, claimed, windows = [], [], []
+    split = []                # (component, its operands on ranks r > 0)
+    zero = torch.zeros(4, dtype=torch.int32, device=device)
     for c, comp in enumerate(components):
         n = log_sizes[c]
         main = (rc_main.natural_rows(plan.comp_ridxs("main", c))[0]
                 if infos[c].n_main else None)
         pre = (rc_pre.natural_rows(plan.comp_ridxs("pre", c))[0]
                if infos[c].n_pre else None)
-        cols, cs = generate_interaction(comp, main, pre, relations, n, device)
+        span = rc_pre.natural_span(n)
+        if span is None:
+            cols, cs = generate_interaction(comp, main, pre, relations, n,
+                                            device)
+        else:
+            with scope("i:eval"):
+                got = interaction_operands(comp, main, pre, relations, n,
+                                           device, span)
+            cols = cs = None
+            if got is not None:
+                cols = interaction_columns(got)
+                split.append((c, got if mesh.rank else None))
+            del got
+        del main, pre
+        if cols is not None:
+            lo, L = (0, 1 << n) if span is None else span[:2]
+            windows.append((c, lo, lo + L))
         outs.append(cols)
-        claimed.append(torch.zeros(4, dtype=torch.int32, device=device)
-                       if cs is None else cs)
+        claimed.append(zero if cs is None else cs)
+    if split:
+        with scope("i:carry"):
+            totals = to_u32(mesh.all_gather(torch.stack(
+                [outs[c][-1, -1] for c, _got in split])[None]))
+            sums = np.cumsum(totals.astype(np.int64), axis=0) % P
+        for j, (c, got) in enumerate(split):
+            claimed[c] = from_u32(sums[-1, j].astype(np.uint32), device)
+            if mesh.rank:
+                outs[c] = None
+                outs[c] = interaction_columns(got, from_u32(
+                    sums[mesh.rank - 1, j].astype(np.uint32), device))
+            split[j] = got = None
+    note("interaction_windows", windows)
     return outs, to_u32(torch.stack(claimed)).astype(np.uint64)
 
 
@@ -567,7 +623,11 @@ def prove(components, log_sizes, main_traces, channel,
     the (role, eval size) trees, and ("fri", size) layer trees, committed
     in row windows over the active mesh; ``mesh_windows``: what this rank
     holds of each (role, eval size) group, (role, s, (row lo, hi),
-    (column lo, hi))).  Under an active mesh (``parallel.use_mesh``)
+    (column lo, hi)); ``interaction_windows``: the natural rows
+    (component, row lo, row hi) of each component's interaction this
+    rank made; ``natural_windows``: the natural values it kept for them,
+    (role, n, (row lo, rows, hneg), shape)).  Under an active mesh
+    (``parallel.use_mesh``)
     every rank calls ``prove`` with the same arguments and gets the same
     proof."""
     dev = resolve_device(device)
@@ -580,10 +640,13 @@ def prove(components, log_sizes, main_traces, channel,
     s0 = plan.n_comp_trace_log + blowup
     channel.mix_u32s(np.asarray(log_sizes, np.uint32))
 
+    # under a mesh the natural values are kept as row windows with the
+    # halo the interaction's operands read
+    halo = _gen_halos(components, infos, log_sizes) if mesh else None
     with scope("commit:pre"):
         pre_cols, pre_logs = _pre_columns(components, log_sizes, plan)
         rc_pre = pcs.commit_columns("pre", pre_cols, pre_logs, blowup, dev,
-                                    memory=memory, mesh=mesh)
+                                    memory=memory, mesh=mesh, halo=halo)
         rc_pre.mix_roots(channel)
 
     with scope("commit:main"):
@@ -606,7 +669,7 @@ def prove(components, log_sizes, main_traces, channel,
                 main_traces[c] = None
         tr = None
         rc_main = pcs.commit_blocks("main", blocks, block_logs, blowup, dev,
-                                    memory=memory, mesh=mesh)
+                                    memory=memory, mesh=mesh, halo=halo)
         rc_main.mix_roots(channel)
 
     relations = draw_relations(channel, _relation_widths(infos))
@@ -618,13 +681,18 @@ def prove(components, log_sizes, main_traces, channel,
     with scope("interaction"):
         inter_cols, claimed = _interactions(components, infos, plan,
                                             log_sizes, relations, rc_pre,
-                                            rc_main, dev)
+                                            rc_main, dev, mesh)
         claimed_sums = list(claimed)
         channel.mix_felts(claimed.astype(np.uint32))
+        note("natural_windows", [
+            (role, n, rc.natural_span(n) or (0, 1 << n, 0), tuple(t.shape))
+            for role, rc in (("pre", rc_pre), ("main", rc_main))
+            for n, (_idxs, t) in rc.natural.items()])
         rc_main.natural = rc_pre.natural = None
     with scope("commit:inter"):
-        # each component's (B, M, 4) columns are freed as their (4B, M)
-        # copy is made, and the commitment takes the copies over
+        # each component's (B, L, 4) columns are freed as their (4B, L)
+        # copy is made, and the commitment takes the copies over (a
+        # rank's window where the mesh splits the rows: L = M/D)
         blocks, block_logs = [], []
         for c in range(len(inter_cols)):
             arr, inter_cols[c] = inter_cols[c], None
@@ -634,7 +702,7 @@ def prove(components, log_sizes, main_traces, channel,
         arr = inter_cols = None
         rc_inter = (pcs.commit_blocks("inter", blocks, block_logs, blowup,
                                       dev, keep_natural=False, memory=memory,
-                                      mesh=mesh)
+                                      mesh=mesh, row_windows=True)
                     if blocks else None)
         if rc_inter is not None:
             rc_inter.mix_roots(channel)

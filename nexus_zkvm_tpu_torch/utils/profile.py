@@ -6,7 +6,11 @@ for the progress ticker, `utils/progress.py`, which a scope drives
 whenever it is on).  While a profiler is active each scope synchronizes
 CUDA on entry and exit, so a phase's time includes the device work it
 issued.  ``note(key, value)`` records what a run decided
-(``prof.notes``), also a no-op without one.
+(``prof.notes``), also a no-op without one.  ``profiled(memory=True)``
+also keeps each top-level phase's peak device memory (``prof.peaks``,
+bytes; the card's peak counter is reset as each top-level scope
+starts and ends, so ``"(between)"`` holds the most reached outside
+them).
 
 Usage::
 
@@ -36,6 +40,8 @@ class Profiler:
         self.times: dict[str, float] = {}   # "outer/inner" scope -> seconds
         self.counts: dict[str, int] = {}    # "outer/inner" scope -> calls
         self.notes: dict[str, object] = {}
+        self.peaks: dict[str, int] = {}     # top-level scope -> bytes
+        self.memory = False
         self._stack: list[str] = []
         self._t0 = time.perf_counter()
 
@@ -66,10 +72,12 @@ class Profiler:
 
 
 @contextmanager
-def profiled():
-    """Activate a fresh profiler for the enclosed block."""
+def profiled(memory: bool = False):
+    """Activate a fresh profiler for the enclosed block (``memory``: with
+    each top-level phase's peak device memory)."""
     global _ACTIVE
     prev, prof = _ACTIVE, Profiler()
+    prof.memory = memory and torch.cuda.is_available()
     _ACTIVE = prof
     try:
         yield prof
@@ -97,17 +105,29 @@ def scope(name: str):
             progress.phase_exit(name, shown)
         return
     _sync()
+    top = prof.memory and not prof._stack
+    if top:
+        _peak(prof, "(between)")
+        torch.cuda.reset_peak_memory_stats()
     prof._stack.append(name)
     t0 = time.perf_counter()
     try:
         yield
     finally:
         _sync()
+        if top:
+            _peak(prof, name)
+            torch.cuda.reset_peak_memory_stats()
         key = "/".join(prof._stack)
         prof.times[key] = prof.times.get(key, 0.0) + time.perf_counter() - t0
         prof.counts[key] = prof.counts.get(key, 0) + 1
         prof._stack.pop()
         progress.phase_exit(name, shown)
+
+
+def _peak(prof: Profiler, key: str) -> None:
+    prof.peaks[key] = max(prof.peaks.get(key, 0),
+                          torch.cuda.max_memory_allocated())
 
 
 def note(key: str, value) -> None:

@@ -191,6 +191,10 @@ def test_logup_columns(dev, B, M):
     meta = torch.tensor(meta, dtype=torch.int64).reshape(4, B, 2)
     assert torch.equal(logup_columns(src, meta, M),
                        logup_columns_plain(src, meta, M))
+    # a mesh rank's carry: the last column's prefix sum starts from it
+    carry = from_u32(rng.integers(0, P, 4, dtype=np.uint32), dev)
+    assert torch.equal(logup_columns(src, meta, M, carry),
+                       logup_columns_plain(src, meta, M, carry))
 
 
 @pytest.mark.parametrize("mode", range(4))
@@ -325,6 +329,16 @@ def test_air_eval_operands(dev, log_size):
         uni = tape.uniforms(rel, None)
         assert torch.equal(air_eval_operands(tape, mats, uni, N),
                            air_eval_operands_plain(tape, mats, uni, N)), \
+            comp.name
+        # a mesh rank's window: rows [N/4, N/2) from the blocks' first
+        # N/4 + halo columns, the buffer laid out for N/4 rows
+        hneg, hpos = tape.halo()
+        L = N // 4
+        win = {r: None if m is None else m[:, :hneg + L + hpos].contiguous()
+               for r, m in mats.items()}
+        assert torch.equal(
+            air_eval_operands(tape, win, uni, N, L, L, hneg),
+            air_eval_operands_plain(tape, win, uni, N, L, L, hneg)), \
             comp.name
 
 

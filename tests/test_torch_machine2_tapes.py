@@ -63,7 +63,7 @@ def test_family_tape_shape(families, name):
     assert st["domain"]["outputs"] == info.n_constraints
     assert st["domain"]["pieces"] == st["gen"]["pieces"] == 1
     tape = gen_tape(comp, LOG, rel)
-    assert int(tape.meta.shape[1]) == info.n_logup_cols
+    assert int(tape.modes.shape[1]) == info.n_logup_cols
     assert info.n_main == comp.SCHEMA.n_cols
 
 
@@ -87,25 +87,37 @@ def test_generated_family_composition_equals_plain(families, host_libs,
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("window", ["whole", "window"])
 @pytest.mark.parametrize("name", NAMES)
-def test_generated_family_operands_equal_plain(families, host_libs, name):
+def test_generated_family_operands_equal_plain(families, host_libs, name,
+                                               window):
+    """A family's LogUp operands through its generated text, over the
+    whole trace and over its second quarter as a mesh rank's window
+    (halo-extended blocks of random rows, the buffer laid out for the
+    window's rows), against the plain interpreter."""
     comps, rel = families
     comp = comps[name]
     tape = gen_tape(comp, LOG, rel)
     info = component_info(comp)
-    rng = np.random.default_rng(100 + NAMES.index(name))
+    rng = np.random.default_rng(100 + NAMES.index(name)
+                                + 50 * (window == "window"))
     M = 1 << LOG
-    mats = {MAIN: _u32(rng, (info.n_main, M)), PRE: None,
-            ISF: _u32(rng, (1, M))}
+    lo, L, (hneg, hpos) = ((0, M, (0, 0)) if window == "whole" else
+                           (M // 4, M // 4, tape.halo()))
+    W = hneg + L + hpos
+    mats = {MAIN: _u32(rng, (info.n_main, W)), PRE: None,
+            ISF: _u32(rng, (1, W))}
     uni = tape.uniforms(rel, None)
     bases = [_ptr(mats[MAIN] if mats.get(r) is None else mats[r])
              for r in range(4)]
-    out = np.full(tape.n_words, 0xDEADBEEF, np.uint32)
+    out = np.full(tape.layout(L)[2], 0xDEADBEEF, np.uint32)
     for fn, piece in zip(host_libs[(name, "gen")], tape_cuda.pieces(tape)):
         words = np.ascontiguousarray(
             np.asarray(uni, np.int64)[piece.table].astype(np.uint32))
-        assert fn(*bases, M, _ptr(out), _ptr(words), None) == 0
+        assert fn(*bases, W, L, hneg, M - 1 if L == M else -1, _ptr(out),
+                  _ptr(words), None) == 0
     want = to_u32(air_eval_operands_plain(
         tape, {r: None if m is None else from_u32(m, "cpu")
-               for r, m in mats.items()}, uni, M))
+               for r, m in mats.items()}, uni, M,
+        *(() if L == M else (lo, L, hneg))))
     assert np.array_equal(out, want)

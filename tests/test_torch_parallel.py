@@ -19,10 +19,19 @@ each), started once per mesh size; each runs all of that size's checks
 - the e2e fixture of tests/test_stark_e2e.py proved on 2, 4 and 8
   ranks equals the JAX package's proof field by field on every rank;
 - the fib n = 10 machine proof on 2 and 4 ranks has the reference's
-  digest on every rank;
+  digest on every rank, and so has the machine2 proof of
+  tests/test_torch_machine2_proof.py's fib program on 2;
 - under the mesh nothing streams, and each rank holds of every size
   group exactly its row window and column share when the rows split
-  (``mesh_windows``), the whole group when they do not.
+  (``mesh_windows``), the whole group when they do not;
+- each rank generates the interaction only for its natural row window
+  of every component whose rows split, the whole for the rest
+  (``interaction_windows``), and keeps of the natural main and
+  preprocessed values only that window and the halo its gen tapes read
+  (``natural_windows``);
+- step 0 of the windowed commit (each rank given only its natural row
+  window, ``commit_windows``) gives the whole matrix's root at C = 244,
+  5 and 1 (and at the sharded commit's widths).
 
 Every comparison is exact: uint32 equality, equal proof fields, equal
 proof bytes.
@@ -46,6 +55,7 @@ from nexus_zkvm_tpu_torch.prover import pcs
 from nexus_zkvm_tpu_torch.utils.device import to_u32
 import test_stark_e2e as E
 import test_torch_machine as tmach
+import test_torch_machine2_proof as tm2
 import test_torch_stark as tstark
 import torch_mesh as tm
 
@@ -53,6 +63,9 @@ LOG, BLOWUP = 8, 1
 S = LOG + BLOWUP
 WIDTHS = {1: (16, 13), 2: (16, 13), 4: (16, 13), 8: (16, 13, 5)}
 CASES = [(d, c) for d, cs in WIDTHS.items() for c in cs]
+# step 0 of the windowed commit: the interaction's width at fib 2^20, a
+# width no D divides, and one column (the other ranks' shares empty)
+STEP0 = (244, 5, 1)
 
 
 def _columns(C):
@@ -63,7 +76,8 @@ def _columns(C):
 
 def _commits(d):
     return [(tm.mesh_commit_rank, (_columns(c), LOG, BLOWUP, True))
-            for c in WIDTHS[d]]
+            for c in WIDTHS[d]] + \
+        [(tm.mesh_step0_rank, (c, LOG, 7)) for c in STEP0]
 
 
 def _spawn(d, checks):
@@ -82,8 +96,8 @@ def cpu_process(monkeypatch):
     return par.init_distributed(device="cpu")
 
 
-EXTRA = {2: ("collectives", "e2e", "fib10"), 4: ("collectives", "e2e", "fib10"),
-         8: ("collectives", "e2e")}
+EXTRA = {2: ("collectives", "e2e", "fib10", "machine2"),
+         4: ("collectives", "e2e", "fib10"), 8: ("collectives", "e2e")}
 CHECKS = {"collectives": (tm.mesh_collectives_rank, ()),
           # at D = 2 rank 0 also holds the proof's kernel calls at its
           # shapes to their plain versions, as the card's parallel phase
@@ -91,19 +105,22 @@ CHECKS = {"collectives": (tm.mesh_collectives_rank, ()),
           "e2e": (tm.mesh_slice_rank, (1, E.LOG_SQ, tstark.TCFG, "cpu",
                                        True)),
           "fib10": (tm.mesh_machine_rank, (tmach.FIB10_SRC, b"", "cpu",
-                                           tmach.TCFG, False))}
+                                           tmach.TCFG, False)),
+          "machine2": (tm.mesh_machine_rank, (tm2.FIB_SRC, b"", "cpu",
+                                              tm2.TCFG, False, False, True))}
 
 
 @pytest.fixture(scope="module")
 def ranks():
     """{D: per rank, the results of its checks}: the commits of every
-    width, then those of EXTRA[D] (by name: ``ranks[d][r][name]``)."""
+    width and step 0's, then those of EXTRA[D] (by name:
+    ``ranks[d][r][name]``)."""
     out = {}
     for d in (2, 4, 8):
         got = _spawn(d, _commits(d) + [CHECKS[name] for name in EXTRA[d]])
-        k = len(WIDTHS[d])
-        out[d] = [dict(zip(EXTRA[d], rec[k:]), commits=rec[:k])
-                  for rec in got]
+        k, k0 = len(WIDTHS[d]), len(WIDTHS[d]) + len(STEP0)
+        out[d] = [dict(zip(EXTRA[d], rec[k0:]), commits=rec[:k],
+                       step0=rec[k:k0]) for rec in got]
     return out
 
 
@@ -162,6 +179,9 @@ def test_sharded_commit_equals_reference(ranks, references, cpu_process,
         assert np.array_equal(rec["root"], root), rec["rank"]
         assert np.array_equal(rec["lde"], lde), rec["rank"]
         assert rec.get("window_root_equal", True), rec["rank"]
+        assert rec.get("windows_root_equal", True), rec["rank"]
+    if d > 1:
+        assert all("windows_root_equal" in r for r in recs)
 
 
 def test_two_processes_through_the_environment(ranks):
@@ -276,6 +296,92 @@ def test_each_rank_holds_its_window_and_column_share(ranks, d, proof):
             assert ev_shape == (C, w), (r, role, s)
             assert cf_shape == (cols[1] - cols[0], M // 2), (r, role, s)
     assert "split" in seen
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+@pytest.mark.parametrize("c", STEP0)
+def test_step0_commit_from_windows_equals_whole_root(ranks, d, c):
+    """Each rank given only its natural row window of (C, 2^8) columns:
+    one all_to_all to its share of the columns, then the windowed commit;
+    the root is the single-process commit's of the whole matrix, and the
+    rank holds its share's coefficients (none past C) and its row window
+    of the evaluations."""
+    k = -(-c // d)
+    for r, rec in enumerate(ranks[d]):
+        got = rec["step0"][STEP0.index(c)]
+        assert (got["rank"], got["C"]) == (r, c)
+        assert got["root_equal"], r
+        share = min(r * k + k, c) - min(r * k, c)
+        assert got["coeffs"] == (share, 1 << LOG), r
+        assert got["evals"] == (c, (1 << S) // d), r
+
+
+def _gen_halos(proof, d):
+    """n -> (hneg, hpos) of the components the proof's ranks ran."""
+    if proof == "e2e":
+        import chip_smoke as cs
+        comps = cs.make_components(1)
+        logs = [E.LOG_SQ, cs.TABLE_LOG]
+    else:
+        from nexus_zkvm_tpu_torch.sdk import Guest, LocalProver
+        from nexus_zkvm_tpu_torch.machine.driver import build_machine_traces
+        from nexus_zkvm_tpu_torch.machine2 import build_machine2_traces
+        src = {"fib10": tmach.FIB10_SRC, "machine2": tm2.FIB_SRC}[proof]
+        view, trace = LocalProver(Guest.from_asm(src), device="cpu").trace()
+        comps, logs, _tr = (build_machine2_traces if proof == "machine2"
+                            else build_machine_traces)(view, trace,
+                                                       device="cpu")
+    from nexus_zkvm_tpu_torch.prover.stark import _gen_halos as halos
+    from nexus_zkvm_tpu_torch.air.component import component_info
+    return halos(comps, [component_info(c) for c in comps], logs)
+
+
+# whether the proof has a component whose rows split (the e2e fixture's
+# 2^6 rows do not on 4 or 8 ranks)
+MESH_PROOFS = {(2, "e2e"): True, (4, "e2e"): False, (8, "e2e"): False,
+               (2, "fib10"): True, (4, "fib10"): True, (2, "machine2"): True}
+
+
+@pytest.mark.parametrize("d,proof", list(MESH_PROOFS))
+def test_each_rank_generates_its_interaction_window(ranks, d, proof):
+    """Every component with lookups, on every rank: rows [r·M/D,
+    (r+1)·M/D) of its interaction where the mesh splits its M rows
+    (M/D at least MIN_WINDOW), all M rows where it does not; and the
+    natural main and preprocessed values the rank kept are that window
+    and the halo its gen tapes read, or the whole group."""
+    halos = _gen_halos(proof, d)
+    seen = set()
+    for r, rec in enumerate(ranks[d]):
+        got = rec[proof]
+        logs = got["log_sizes"]
+        assert got["interaction_windows"], r
+        for c, lo, hi in got["interaction_windows"]:
+            M = 1 << logs[c]
+            if M // d >= pcommit.MIN_WINDOW:
+                assert (lo, hi) == (r * M // d, (r + 1) * M // d), (r, c)
+                seen.add("split")
+            else:
+                assert (lo, hi) == (0, M), (r, c)
+        for role, n, (lo, L, hneg), shape in got["natural_windows"]:
+            M = 1 << n
+            if M // d >= pcommit.MIN_WINDOW:
+                hn, hp = halos.get(n, (0, 0))
+                assert (lo, L, hneg) == (r * M // d, M // d, hn), (r, role, n)
+                assert shape[1] == hn + M // d + hp, (r, role, n, shape)
+            else:
+                assert (lo, L, hneg) == (0, M, 0) and shape[1] == M
+    assert ("split" in seen) == MESH_PROOFS[(d, proof)]
+
+
+def test_machine2_proof_on_two_ranks_has_reference_digest(ranks):
+    """tests/test_torch_machine2_proof.py's fib program through
+    ``prove_machine2`` on a 2-rank mesh: on every rank the reference's
+    proof bytes, verified, nothing streamed."""
+    for r, rec in enumerate(ranks[2]):
+        m = rec["machine2"]
+        assert m["proof_blake2s"] == tm2.FIB_M2_PROOF_BLAKE2S, r
+        assert m["ranks_agree"] and m["verified"], r
+        assert m["sharded"] and m["streamed"] == [], r
 
 
 def test_one_rank_alone_joins_no_group():

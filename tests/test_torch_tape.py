@@ -216,7 +216,9 @@ def _run_program(tape, mats, table, N):
     slots = np.zeros((max(1, tape.n_slots), N), np.uint64)
     acc = np.zeros((N, 4), np.uint64)
     e = np.zeros((N, 4), np.uint64)
-    out = np.zeros(tape.n_words, np.uint32)
+    stores, _meta, words = tape.layout(N) if tape.kind == "gen" else \
+        (None, None, 0)
+    out = np.zeros(words, np.uint32)
 
     def fetch(w):
         kind, idx = w >> 30, w & 0x3FFFFFFF
@@ -248,7 +250,7 @@ def _run_program(tape, mats, table, N):
             e[:, 2], e[:, 3] = x, fetch(b)
             acc = np_qm31_add(acc, np_qm31_mul(weight(dst), e))
         else:
-            base, step = tape.stores[dst, 1:]
+            base, step = stores[dst, 1:]
             if step:
                 out[base + step * rows] = x
             else:

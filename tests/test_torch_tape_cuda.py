@@ -10,7 +10,7 @@ tests/test_torch_tape.py holds to the JAX package's evaluation bodies):
 
 * both tapes of every fib10 machine component and of the synthetic
   cases: the composition over a whole domain and over a window with its
-  halo, the LogUp operands;
+  halo, the LogUp operands over the whole trace and over a window;
 * keccak's composition tape, cut into pieces: every piece run by a numpy
   reading of its text, their bucket additions summed against the
   one-piece plain result, and one piece compiled;
@@ -194,35 +194,46 @@ def test_generated_composition_equals_plain(programs, host_libs, prog, name,
         assert np.array_equal(got[lo + L:], start[lo + L:])
 
 
+@pytest.mark.parametrize("window", ["whole", "window"])
 @pytest.mark.parametrize("prog,name", CASES)
-def test_generated_operands_equal_plain(programs, host_libs, prog, name):
+def test_generated_operands_equal_plain(programs, host_libs, prog, name,
+                                        window):
     """The LogUp operands' generated text: every word of K6's packed
-    buffer, the per-row stores and the row-0 ones.  A component without
-    lookups has no gen tape."""
+    buffer, the per-row stores and the row-0 ones, over the whole trace
+    (its own columns, a load wrapping) and over its second quarter as a
+    mesh rank's window (halo-extended blocks of random rows, the buffer
+    laid out for the window's rows).  A component without lookups has
+    no gen tape."""
     comp, rel = _pick(programs, prog, name)
     tape = gen_tape(comp, LOG, rel)
     info = component_info(comp)
     if tape is None:
         assert info.n_logup_cols == 0
         return
-    rng = np.random.default_rng(100 + CASES.index((prog, name)))
+    rng = np.random.default_rng(100 + CASES.index((prog, name))
+                                + 50 * (window == "window"))
     M = 1 << LOG
-    mats = {MAIN: _u32(rng, (info.n_main, M)),
-            PRE: _u32(rng, (info.n_pre, M)) if info.n_pre else None,
-            ISF: _u32(rng, (1, M))}
+    lo, L, (hneg, hpos) = ((0, M, (0, 0)) if window == "whole" else
+                           (M // 4, M // 4, tape.halo()))
+    W = hneg + L + hpos
+    mats = {MAIN: _u32(rng, (info.n_main, W)),
+            PRE: _u32(rng, (info.n_pre, W)) if info.n_pre else None,
+            ISF: _u32(rng, (1, W))}
     uni = tape.uniforms(rel, None)
     first = mats[MAIN]
     bases = [_ptr(first if mats.get(r) is None else mats[r])
              for r in range(4)]
-    out = np.full(tape.n_words, 0xDEADBEEF, np.uint32)
+    out = np.full(tape.layout(L)[2], 0xDEADBEEF, np.uint32)
     for fn, piece in zip(host_libs[(prog, name, "gen")],
                          tape_cuda.pieces(tape)):
         words = np.ascontiguousarray(
             np.asarray(uni, np.int64)[piece.table].astype(np.uint32))
-        assert fn(*bases, M, _ptr(out), _ptr(words), None) == 0
+        assert fn(*bases, W, L, hneg, M - 1 if L == M else -1, _ptr(out),
+                  _ptr(words), None) == 0
     want = to_u32(air_eval_operands_plain(
         tape, {r: None if m is None else from_u32(m, "cpu")
-               for r, m in mats.items()}, uni, M))
+               for r, m in mats.items()}, uni, M,
+        *(() if L == M else (lo, L, hneg))))
     assert np.array_equal(out, want)
 
 

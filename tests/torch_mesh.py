@@ -114,8 +114,12 @@ def mesh_commit_rank(mesh, spec, trace_log: int, log_blowup: int,
     untimed run, then a profiled one with its launch counts (set to 0
     just before it) and its steps' ms: the local K1 LDE, the exchange
     (the all_to_all and the subtree roots' gather), the K2 leaves and
-    the K2 climb.  ``keep_evals``: the committed evaluations, and those
-    of ``sharded_lde``, come back too."""
+    the K2 climb.  Then, when the natural rows split too, the same
+    from the rank's natural row window (``commit_windows``, as the
+    interaction is committed: step 0's all_to_all first, timed as
+    ``mesh_exchange/mesh_share``): its root, ms and steps' ms
+    (``windows_*``).  ``keep_evals``: the committed evaluations, and
+    those of ``sharded_lde``, come back too."""
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.parallel import sharded_commit_columns
     from nexus_zkvm_tpu_torch.parallel import commit as pcommit
@@ -138,19 +142,59 @@ def mesh_commit_rank(mesh, spec, trace_log: int, log_blowup: int,
         got = run()
         _sync(cols.device)
         ms = (time.perf_counter() - t0) * 1e3
+    window_root_equal = bool(np.array_equal(
+        (got[2].root() if run is windowed else got[1]), root))
     launches = kernels.launch_counts()
+    del got
+    win = {}
+    if pcommit.shards_rows(mesh, 1 << trace_log):
+        lo, hi = pcommit.window(mesh, 1 << trace_log)
+
+        def from_window():
+            return pcommit.commit_windows(
+                mesh, [cols[:, lo:hi].contiguous()], trace_log, s)
+        from_window()
+        _sync(cols.device)
+        with profiled() as wprof:
+            t0 = time.perf_counter()
+            got = from_window()
+            _sync(cols.device)
+            win_ms = (time.perf_counter() - t0) * 1e3
+        win = {"windows_root_equal": bool(np.array_equal(got[2].root(),
+                                                         root)),
+               "windows_ms": win_ms,
+               "windows_step_ms": {k: v * 1e3
+                                   for k, v in wprof.times.items()}}
+        del got
     out = {"rank": mesh.rank, "ranks": mesh.size, "backend": mesh.backend,
            "device": str(cols.device),
            "shape": [int(cols.shape[0]), 1 << trace_log], "root": root,
-           "window_root_equal": bool(np.array_equal(
-               (got[2].root() if run is windowed else got[1]), root)),
+           "window_root_equal": window_root_equal,
            "ms": ms, "step_ms": {k: v * 1e3 for k, v in prof.times.items()},
-           "launches": {k: launches[k] for k in K1K2}}
-    del got
+           "launches": {k: launches[k] for k in K1K2}, **win}
     if keep_evals:
         out["evals"] = to_u32(ev)
         out["lde"] = to_u32(sharded_lde(mesh, cols, trace_log, s))
     return out
+
+
+def mesh_step0_rank(mesh, C: int, log_n: int, seed: int) -> dict:
+    """Step 0 of the windowed commit: the (C, 2^log_n) columns drawn
+    from ``seed``, each rank given only its natural row window, committed
+    through ``commit_windows`` on the 2^(log_n + 1) domain: whether the
+    root equals the single-process commit of the whole matrix, and what
+    the rank holds (its coefficients' and evaluations' shapes)."""
+    from nexus_zkvm_tpu_torch.parallel import commit as pcommit
+    from nexus_zkvm_tpu_torch.prover import pcs
+    cols = mesh_columns((C, log_n, seed), mesh.device)
+    root = pcs.commit_blocks("t", [cols.clone()], [log_n], 1, mesh.device,
+                             keep_natural=False).trees[log_n + 1].root()
+    lo, hi = pcommit.window(mesh, 1 << log_n)
+    cf, ev, tree = pcommit.commit_windows(
+        mesh, [cols[:, lo:hi].contiguous()], log_n, log_n + 1)
+    return {"rank": mesh.rank, "C": C, "root_equal": bool(np.array_equal(
+                tree.root(), root)),
+            "coeffs": tuple(cf.shape), "evals": tuple(ev.shape)}
 
 
 def mesh_collectives_rank(mesh) -> dict:
@@ -195,16 +239,18 @@ def mesh_collectives_rank(mesh) -> dict:
             "broadcast_equal": bool((cast == 7 + D - 1).all())}
 
 
-def check_rank_kernels(prove_fn) -> tuple:
+def check_rank_kernels(prove_fn, timed: bool = False,
+                       path: str = "mesh_") -> tuple:
     """Run ``prove_fn()`` with chip_smoke's kernel wrappers recorded
     (``record_calls``: every call of K3, K4 and K6-K9, one call of each
     shape of K1 and K2), then hold each kept call to its plain version
-    (``check_recorded``, untimed, its phases prefixed "mesh_").  Returns
+    (``check_recorded``, its phases prefixed ``path``; with ``timed`` the
+    largest call of each kernel timed at the rank's shapes).  Returns
     (what ``prove_fn`` returned, {wrapper: calls held})."""
     import chip_smoke as cs
     out, calls = cs.record_calls(prove_fn, (*cs.RECORDED,
                                             *cs.RECORDED_BY_SHAPE))
-    cs.check_recorded(calls, timed_run=False, path="mesh_")
+    cs.check_recorded(calls, timed_run=timed, path=path)
     return out, {name: len(args) for name, args in calls.items()}
 
 
@@ -235,38 +281,69 @@ def mesh_slice_rank(mesh, k_squares: int, log_n: int, cfg,
             "window_kernels": window_kernels,
             "streamed": prof.notes["streamed"],
             "mesh_windows": prof.notes["mesh_windows"],
+            "interaction_windows": prof.notes["interaction_windows"],
+            "natural_windows": prof.notes["natural_windows"],
+            "log_sizes": list(proof.log_sizes),
             "verified": T.verify(comps, proof, T.Blake2sChannel(), cfg,
                                  device=device)}
 
 
 def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
                       config=None, warm: bool = True,
-                      check_kernels: bool = False) -> dict:
+                      check_kernels: bool = False,
+                      machine2: bool = False) -> dict:
     """The guest of assembly ``src`` on ``public`` through LocalProver
-    under the mesh: a cold proof (``warm``; with ``check_kernels``, rank
-    0 holds its kernel calls at its shapes to their plain versions,
-    `check_rank_kernels`), then a profiled one with its launch counts
-    (set to 0 just before it), its peak device memory and what the rank
-    holds of each group (``mesh_windows``); verify; the proof digests of
-    every rank, gathered, must agree."""
+    under the mesh (``machine2``: its trace through
+    ``machine2.prove_machine2``): a cold proof (``warm``; its phases'
+    seconds; with ``check_kernels``, rank 0 holds its kernel calls at
+    its shapes to their plain versions, `check_rank_kernels`, phases
+    prefixed "mesh_" or "mesh_m2_"), then a profiled one with its launch
+    counts (set to 0 just before it), its peak device memory, in all
+    and by top-level phase, and what the rank holds of
+    each group (``mesh_windows``), of the interaction
+    (``interaction_windows``) and of the natural values
+    (``natural_windows``); verify; the proof digests of every rank,
+    gathered, must agree.  With ``warm`` False the one proof is the
+    profiled one."""
     from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.machine2 import prove_machine2, verify_machine2
     from nexus_zkvm_tpu_torch.parallel import use_mesh
+    from nexus_zkvm_tpu_torch.prover import PcsConfig
     from nexus_zkvm_tpu_torch.sdk import Guest, LocalProver, proof_to_bytes
     from nexus_zkvm_tpu_torch.utils.device import to_u32
     from nexus_zkvm_tpu_torch.utils.profile import profiled
     cuda = torch.device(device).type == "cuda"
     prover = LocalProver(Guest.from_asm(src), config, device=device)
-    cold_s, window_kernels = None, None
+    if machine2:
+        view2, trace2 = prover.trace(public_input=public)
+        cfg = config or PcsConfig()
+
+        def prove():
+            return view2, prove_machine2(view2, trace2, cfg, device=device)
+
+        def verify(view, proof):
+            return verify_machine2(view, proof, cfg, device=device)
+    else:
+        def prove():
+            return prover.prove_with_input(public_input=public)
+        verify = prover.verify
+    cold_s, cold_phases, window_kernels = None, None, None
     with use_mesh(mesh):
         if warm:
             def cold():
-                nonlocal cold_s
-                t0 = time.perf_counter()
-                prover.prove_with_input(public_input=public)
-                _sync(device)
-                cold_s = time.perf_counter() - t0
+                nonlocal cold_s, cold_phases
+                with profiled() as cprof:
+                    t0 = time.perf_counter()
+                    prove()
+                    _sync(device)
+                    cold_s = time.perf_counter() - t0
+                cold_phases = cprof.times
             if check_kernels and mesh.rank == 0:
-                window_kernels = check_rank_kernels(cold)[1]
+                # timed on the card on 2 ranks: rank 0's window shapes
+                # of the fib 2^20 proof, PERF.md's mesh rows
+                window_kernels = check_rank_kernels(
+                    cold, cuda and mesh.size == 2 and not machine2,
+                    "mesh_m2_" if machine2 else "mesh_")[1]
             else:
                 cold()
             # every rank starts the measured proof together
@@ -276,15 +353,16 @@ def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        with profiled() as prof:
+        with profiled(memory=True) as prof:
             t0 = time.perf_counter()
-            view, proof = prover.prove_with_input(public_input=public)
+            view, proof = prove()
             _sync(device)
             prove_s = time.perf_counter() - t0
         launches = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated() if cuda else None
+    peak = max([torch.cuda.max_memory_allocated(),
+                *prof.peaks.values()]) if cuda else None
     t0 = time.perf_counter()
-    ok = prover.verify(view, proof)
+    ok = verify(view, proof)
     verify_s = time.perf_counter() - t0
     blob = proof_to_bytes(proof)
     digest = proof_digest(blob)
@@ -293,12 +371,17 @@ def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
     every = {bytes(to_u32(d)).hex()
              for d in mesh.all_gather(words[None]).unbind(0)}
     return {"rank": mesh.rank, "ranks": mesh.size, "backend": mesh.backend,
-            "cpu_log_rows": proof.stark.log_sizes[0],
+            "machine2": machine2, "cpu_log_rows": proof.stark.log_sizes[0],
+            "log_sizes": list(proof.stark.log_sizes),
             "proof_blake2s": digest, "proof_bytes": len(blob),
             "ranks_agree": every == {digest}, "verified": ok, "warm": warm,
             "prove_s": prove_s, "prove_cold_s": cold_s, "verify_s": verify_s,
-            "peak_bytes": peak, "sharded": prof.notes["sharded"],
+            "peak_bytes": peak, "phase_peak_bytes": prof.peaks,
+            "sharded": prof.notes["sharded"],
             "streamed": prof.notes["streamed"],
             "mesh_windows": prof.notes["mesh_windows"],
+            "interaction_windows": prof.notes["interaction_windows"],
+            "natural_windows": prof.notes["natural_windows"],
             "window_kernels": window_kernels, "phase_s": prof.times,
+            "cold_phase_s": cold_phases,
             "launches": launches}
