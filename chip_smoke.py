@@ -6,6 +6,7 @@
     python3 chip_smoke.py --time-stream [CHECKOUT]
     python3 chip_smoke.py --time-mesh [CHECKOUT]
     python3 chip_smoke.py --mesh-nccl
+    python3 chip_smoke.py --time-memory
 
 The second form only times warm fib 2^20 machine proofs (phase 5's
 path) and kernel K7 at that proof's shapes (`time_k7`), the third warm
@@ -20,7 +21,17 @@ the package of another checkout (this one by default), so that two
 checkouts can be compared on one card: run it for each in turn.  The
 fifth, on a machine of two cards or more, proves the fib 2^20 guest
 over NCCL, a rank a card, on 4 ranks (with four cards) and on 2, with
-the checks of phase 8 against one process alone (`mesh_nccl`).
+the checks of phase 8 against one process alone (`mesh_nccl`).  The
+sixth measures the memory mode's routes (`time_memory`): the fib guest
+at 2^21, 2^22 and 2^23-row CPU components under each route of
+MEMORY_ROUTES (resident in 1, 2 and 4 composition passes, the
+interaction tree streamed alone, both trees streamed in 2 and 4 passes,
+STREAM_FORCED's thresholds), each in a fresh process: cold and warm
+seconds (the median of 3), the phases, the allocated and reserved
+peaks, out of memory or not, the proofs of a size byte-equal; then the
+fastest route at each size whose reserved peak stays within FIT_SHARE
+of the card's memory, and 2^24 rows by the default route.  The
+defaults of ``MemoryConfig.for_device`` were chosen from its output.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -95,20 +106,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              process: byte-equal bundles, equal to the JAX package's CLI
              bundle; ``verify`` exits 0, and 1 on a bundle with one byte
              flipped.
-6. machine_stream — the large-trace memory mode, chosen by size with
-             the defaults: the fib guest at n = 838,858 (a CPU component
+6. machine_stream — the large-trace memory mode, forced by
+             STREAM_FORCED: the fib guest at n = 838,858 (a CPU component
              of 2^22 rows) through ``LocalProver``, a cold and a warm,
              profiled prove; the prover notes its main and interaction
-             trees streamed and its CPU component composed in row passes
-             (one K7 launch a pass); verify, reject a tampered opening and
-             another claim.  Every kernel must have been launched.
+             trees streamed and its CPU component composed in 4 row
+             passes (one K7 launch a pass); verify, reject a tampered
+             opening and another claim.  Every kernel must have been
+             launched.
+6b. machine_large — the same guest by the card's default route
+             (``MemoryConfig.for_device``): a cold and a warm prove,
+             verify, reject a tampered opening and another claim; its
+             bytes equal to phase 6's proof, its reserved peak within
+             FIT_SHARE of the card's memory.
 7. stream_parity — the fib 2^20 proof again under a MemoryConfig that
              streams every tree of 2^21 rows or more in 16-column chunks
              and composes the CPU component in 4 passes: its proof bytes
              must equal the default route's and its peak device memory
              must be lower.  Then the memory mode's kernels (K10-K12, and
              K7 over one pass) against their plain versions, timed, at
-             the shapes of phase 6; and K9 on every streamed chunk's
+             the shapes of phase 6 (STREAM_FORCED's chunks and passes);
+             and K9 on every streamed chunk's
              gather of one more 2^22 proof, then timed at that chunk's
              shape beside `torch.index_select` (`check_stream_gathers`).
 8. parallel — the prover over a mesh (``nexus_zkvm_tpu_torch.parallel``),
@@ -200,6 +218,16 @@ FIB_N = 209_700          # 5 steps an iteration: a 2^20-row CPU component
 FIB_PARITY_N = 10
 FIB_STREAM_N = 838_858   # 4,194,300 steps: a 2^22-row CPU component
 STREAM_LOG = 22
+# the fib guest's n for a CPU component of 2^log rows (`--time-memory`)
+FIB_MEMORY_N = {21: 419_428, 22: FIB_STREAM_N, 23: 1_677_718,
+                24: 3_355_438}
+# MemoryConfig fields that stream every size group above 2 GiB (the main
+# and interaction trees of 2^23 leaves of the 2^22 proof) in 16-column
+# chunks and compose its CPU component in 4 passes (phase 6)
+STREAM_FORCED = {"stream_commit_bytes": 2 << 30,
+                 "stream_chunk_bytes": 1 << 28, "comp_nat_budget": 8 << 30}
+# the share of the card's memory a default route may reserve at its peak
+FIT_SHARE = 0.85
 
 # the kernels that run only in the large-trace memory mode
 MEMORY_MODE = ("blake2s_leaves_stream", "quotient_colsums",
@@ -1294,15 +1322,19 @@ def phase_machine() -> tuple:
 
 
 def phase_machine_stream():
-    """The fib guest through LocalProver at a 2^22-row CPU component:
-    the large-trace memory mode, chosen by size with the default
-    MemoryConfig.  Returns (launch counts, components, log sizes)."""
+    """The fib guest through LocalProver at a 2^22-row CPU component in
+    the large-trace memory mode, forced by STREAM_FORCED: both trees of
+    2^23 leaves streamed, the CPU component composed in 4 passes.
+    Returns (launch counts, components, log sizes, the proof's blake2s
+    digest)."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.machine.driver import build_components
-    from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s, decode_u32s
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          decode_u32s, proof_to_bytes)
     from nexus_zkvm_tpu_torch.utils.profile import profiled
-    prover = LocalProver(fib_guest())          # default configs, card
+    prover = LocalProver(fib_guest(), memory=MemoryConfig(**STREAM_FORCED))
     public = encode_u32s(FIB_STREAM_N)
     t0 = time.perf_counter()
     _v, trace = prover.trace(public_input=public)
@@ -1339,9 +1371,9 @@ def phase_machine_stream():
     s = STREAM_LOG + prover.config.fri.log_blowup
     passes = route["composition_passes"][0]
     if not {("main", s), ("inter", s)} <= set(route["streamed"]) or \
-            passes < 2:
-        raise RuntimeError(f"the 2^22 proof is not in the memory mode: "
-                           f"{route}")
+            passes != 4:
+        raise RuntimeError(f"the 2^22 proof is not in the forced memory "
+                           f"mode: {route}")
     # one K7 composition launch a pass of every component
     if warm["air_eval_composition"] != sum(route["composition_passes"]):
         raise RuntimeError("composition passes and K7 launches differ")
@@ -1350,10 +1382,12 @@ def phase_machine_stream():
                            f"proof, not once")
     rejects_tampering(prover.verify, view, proof)
     check_path("machine_stream", launches, set(launches))
+    digest = proof_digest(proof_to_bytes(proof))
     emit({"phase": "machine_stream", "guest": "examples/guests/fib.s",
           "n": FIB_STREAM_N, "steps": steps, "cpu_log_rows": cpu_log,
-          "log_sizes": proof.stark.log_sizes,
+          "log_sizes": proof.stark.log_sizes, "memory": route["memory"],
           "streamed": route["streamed"], "composition_passes": passes,
+          "proof_blake2s": digest,
           "verified": True, "tampered_rejected": True,
           "other_claim_rejected": True, "emulate_s": emulate_s,
           "prove_s": prove_s, "prove_cold_s": cold_s, "verify_s": verify_s,
@@ -1361,7 +1395,71 @@ def phase_machine_stream():
           "steps_per_s": steps / prove_s, "peak_bytes": peak,
           "phase_s": prof.times, "launches_warm": warm,
           "launches": launches})
-    return launches, build_components(view, 1)[0], proof.stark.log_sizes
+    return (launches, build_components(view, 1)[0], proof.stark.log_sizes,
+            digest)
+
+
+def phase_machine_large(stream_digest: str) -> None:
+    """The 2^22 guest of phase 6 by the card's default route
+    (``MemoryConfig.for_device``): a cold and a warm, profiled prove,
+    verify, reject a tampered opening and another claim; the proof's
+    bytes must equal phase 6's forced streamed proof, and the reserved
+    peak of both proofs must stay within FIT_SHARE of the card's
+    memory."""
+    import dataclasses
+    import torch
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          proof_to_bytes)
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    prover = LocalProver(fib_guest())          # default configs, card
+    public = encode_u32s(FIB_STREAM_N)
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prover.prove_with_input(public_input=public)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        view, proof = prover.prove_with_input(public_input=public)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    t0 = time.perf_counter()
+    ok = prover.verify(view, proof)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        raise RuntimeError("the default-route 2^22 proof does not verify")
+    rejects_tampering(prover.verify, view, proof)
+    route = prof.notes
+    if route["memory"] != dataclasses.asdict(MemoryConfig.for_device(
+            "cuda")):
+        raise RuntimeError(f"the prover took {route['memory']}, not the "
+                           f"card's default")
+    digest = proof_digest(proof_to_bytes(proof))
+    if digest != stream_digest:
+        raise RuntimeError("the default-route and forced streamed 2^22 "
+                           "proofs differ")
+    if reserved > FIT_SHARE * total:
+        raise RuntimeError(f"the default route reserved {reserved} bytes, "
+                           f"over {FIT_SHARE} of the card's {total}")
+    emit({"phase": "machine_large", "n": FIB_STREAM_N,
+          "cpu_log_rows": proof.stark.log_sizes[0], "memory": route["memory"],
+          "streamed": route["streamed"],
+          "composition_passes": max(route["composition_passes"]),
+          "proof_blake2s": digest, "equal_to_machine_stream": True,
+          "verified": True, "tampered_rejected": True,
+          "other_claim_rejected": True, "prove_s": prove_s,
+          "prove_cold_s": cold_s, "verify_s": verify_s,
+          "rows_per_s": (1 << STREAM_LOG) / prove_s, "peak_bytes": peak,
+          "peak_reserved_bytes": reserved, "total_memory": total,
+          "reserved_share": reserved / total, "phase_s": prof.times})
+    # the next phases' processes share the card
+    del view, proof, prover
+    torch.cuda.empty_cache()
 
 
 def phase_stream_parity():
@@ -1378,7 +1476,7 @@ def phase_stream_parity():
                           stream_chunk_bytes=1 << 27,
                           comp_nat_budget=2 << 30)
     out = {}
-    for name, memory in (("default", MemoryConfig()), ("streamed", forced)):
+    for name, memory in (("default", None), ("streamed", forced)):
         prover = LocalProver(fib_guest(), memory=memory)
         torch.cuda.empty_cache()
         kernels.reset_launches()
@@ -1464,7 +1562,7 @@ def check_stream_kernels(comps, log_sizes) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(2028)
     P = (1 << 31) - 1
-    memory = T.MemoryConfig()
+    memory = T.MemoryConfig(**STREAM_FORCED)
     out = {}
 
     def rand(shape, hi=P):
@@ -1584,6 +1682,7 @@ def check_stream_gathers(reps: int = 20) -> dict:
     record."""
     import torch
     from nexus_zkvm_tpu_torch.ops import merkle
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     from nexus_zkvm_tpu_torch.utils.device import from_u32
     orig, seen = merkle.gather_columns, []
@@ -1601,8 +1700,9 @@ def check_stream_gathers(reps: int = 20) -> dict:
         return got
     merkle.gather_columns = wrapped
     try:
-        LocalProver(fib_guest()).prove_with_input(
-            public_input=encode_u32s(FIB_STREAM_N))
+        LocalProver(fib_guest(), memory=MemoryConfig(
+            **STREAM_FORCED)).prove_with_input(
+                public_input=encode_u32s(FIB_STREAM_N))
     finally:
         merkle.gather_columns = orig
     if not seen:
@@ -2363,11 +2463,12 @@ def time_k7(reps: int = 5) -> None:
           "operands_ms": ops_ms, "operand_rows": M})
 
 
-def time_proofs(phase: str, n: int, runs: int = 3):
+def time_proofs(phase: str, n: int, runs: int = 3, memory=None):
     """Warm fib proofs at n through LocalProver with the package on the
     path, after a cold one: per run, an unprofiled proof's seconds and
     peak device memory, then a profiled proof's phase times, printed as
-    ``phase``.  Returns the cold proof's machine components and log
+    ``phase``.  ``memory``: MemoryConfig fields, None for the package's
+    default.  Returns the cold proof's machine components and log
     sizes."""
     import torch
     import nexus_zkvm_tpu_torch as T
@@ -2376,7 +2477,8 @@ def time_proofs(phase: str, n: int, runs: int = 3):
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     from nexus_zkvm_tpu_torch.utils.profile import profiled
     kernels.build()
-    prover = LocalProver(fib_guest())
+    prover = LocalProver(fib_guest(), memory=memory and T.MemoryConfig(
+        **memory))
     public = encode_u32s(n)
     view, proof = prover.prove_with_input(public_input=public)
     comps, log_sizes = build_components(view, 1)[0], proof.stark.log_sizes
@@ -2398,6 +2500,162 @@ def time_proofs(phase: str, n: int, runs: int = 3):
     del prover
     torch.cuda.empty_cache()
     return comps, log_sizes
+
+
+# `--time-memory`'s routes: resident (no tree streamed), the interaction
+# tree streamed alone, or the main and interaction trees streamed, each
+# with its CPU component composed in _p passes, chunks of the card's
+# memory / 64; and STREAM_FORCED's thresholds (2, 4 and 8 passes at 2^21,
+# 2^22 and 2^23)
+MEMORY_ROUTES = ("resident_p1", "resident_p2", "resident_p4", "inter_p1",
+                 "inter_p2", "streamed_p1", "streamed_p2", "streamed_p4",
+                 "stream_forced")
+
+
+def memory_route(name: str, info, log: int, total: int):
+    """The MemoryConfig fields of route ``name`` for the fib guest's CPU
+    component (``info``) at 2^log rows on a card of ``total`` bytes; None
+    for ``default`` (`MemoryConfig.for_device`)."""
+    from nexus_zkvm_tpu_torch.prover.stark import _natural_rows
+    if name == "default":
+        return None
+    if name == "stream_forced":
+        return dict(STREAM_FORCED)
+    kind, passes = name.rsplit("_p", 1)
+    main = info.n_main * (4 << (log + 1))
+    nat = _natural_rows(info) * (4 << (log + 2))
+    return {"stream_commit_bytes": {"resident": 1 << 62, "inter": main,
+                                    "streamed": main - 1}[kind],
+            "stream_chunk_bytes": total // 64,
+            "comp_nat_budget": nat // int(passes)}
+
+
+def time_memory_route(log: int, name: str, warm: int = 5) -> None:
+    """One route of `time_memory` in this process alone: the fib guest at
+    a 2^log-row CPU component through LocalProver under route ``name``
+    (`memory_route`): a cold proof, ``warm`` warm ones and a profiled
+    one (with each phase's allocated and reserved peaks), verify;
+    seconds, phase times, the route the prover noted, the allocated and
+    reserved peaks of all of them, and whether the card ran out of
+    memory (then the proof is not tried again)."""
+    import torch
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.air.component import component_info
+    from nexus_zkvm_tpu_torch.machine.driver import build_components
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          proof_to_bytes)
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    kernels.build()
+    total = torch.cuda.get_device_properties(0).total_memory
+    view, _t = LocalProver(fib_guest(), device="cpu").trace(
+        public_input=encode_u32s(FIB_PARITY_N))
+    info = component_info(build_components(view, 1)[0][0])
+    fields = memory_route(name, info, log, total)
+    prover = LocalProver(fib_guest(),
+                         memory=fields and MemoryConfig(**fields))
+    public = encode_u32s(FIB_MEMORY_N[log])
+    rec = {"phase": "time_memory", "log_rows": log, "n": FIB_MEMORY_N[log],
+           "route": name, "fields": fields, "total_memory": total}
+    secs, stage, peaks = [], "cold", [0, 0]
+    torch.cuda.reset_peak_memory_stats()
+    prof = None
+    try:
+        for i in range(1 + warm):
+            stage = "cold" if i == 0 else f"warm {i}"
+            t0 = time.perf_counter()
+            prover.prove_with_input(public_input=public)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        stage = "profiled"
+        peaks = [torch.cuda.max_memory_allocated(),
+                 torch.cuda.max_memory_reserved()]
+        with profiled(memory=True) as prof:
+            view, proof = prover.prove_with_input(public_input=public)
+            torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        rec.update(oom=True, oom_in=stage, error=str(e).splitlines()[0])
+    else:
+        notes = prof.notes
+        rec.update(
+            oom=False, prove_cold_s=secs[0],
+            prove_s=float(np.median(secs[1:])), prove_warm_s=secs[1:],
+            memory=notes["memory"], streamed=notes["streamed"],
+            composition_passes=max(notes["composition_passes"]),
+            cache_released=notes.get("cache_released"),
+            log_sizes=proof.stark.log_sizes,
+            proof_blake2s=proof_digest(proof_to_bytes(proof)),
+            phase_s=prof.times)
+        del view, proof
+    # the profiled proof resets the peaks at each phase
+    rec.update(
+        peak_bytes=max(peaks[0], torch.cuda.max_memory_allocated(),
+                       *(prof.peaks.values() if prof else [])),
+        peak_reserved_bytes=max(peaks[1], torch.cuda.max_memory_reserved(),
+                                *(prof.reserved.values() if prof else [])),
+        phase_peak_bytes=prof and prof.peaks,
+        phase_reserved_bytes=prof and prof.reserved)
+    rec["reserved_share"] = rec["peak_reserved_bytes"] / total
+    if not rec["oom"]:
+        torch.cuda.empty_cache()
+        view, proof = prover.prove_with_input(public_input=public)
+        rec["verified"] = bool(prover.verify(view, proof))
+    emit(rec)
+
+
+def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
+    """The memory mode's routes measured on this card: for each 2^log-row
+    CPU component of the fib guest, every route of MEMORY_ROUTES, each in
+    a fresh process (`time_memory_route`: cold and warm seconds, c:lde,
+    quotients, openings, the allocated and reserved peaks, out of memory
+    or not); the proofs of one size must be byte-equal.  Then the
+    fastest route at each size whose reserved peak stays within
+    FIT_SHARE of the card's memory, and 2^largest rows by the default
+    route (``time_memory_fit``).  ``runs``: only these (log, route)
+    pairs, in order."""
+    from nexus_zkvm_tpu_torch import kernels
+    kernels.build()
+    build_k7()
+    fits, digests, proved = {}, {}, set()
+
+    def run(log, name):
+        try:
+            r = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--time-memory-route", str(log), name],
+                capture_output=True, text=True, timeout=900, cwd=ROOT)
+        except subprocess.TimeoutExpired:
+            emit({"phase": "time_memory", "log_rows": log, "route": name,
+                  "timeout_s": 900})
+            return None
+        recs = [json.loads(ln) for ln in r.stdout.splitlines()
+                if ln.startswith("{")]
+        if r.returncode or not recs:
+            emit({"phase": "time_memory", "log_rows": log, "route": name,
+                  "rc": r.returncode, "stderr": r.stderr[-3000:]})
+            return None
+        print(json.dumps(recs[-1]), flush=True)
+        return recs[-1]
+    for log, name in runs or [(log, name) for log in logs
+                              for name in MEMORY_ROUTES] + [
+                                  (largest, "default")]:
+        rec = run(log, name)
+        if rec is None or rec["oom"]:
+            continue
+        digests.setdefault(log, set()).add(rec["proof_blake2s"])
+        if not rec["verified"]:
+            raise RuntimeError(f"2^{log} {name}: the proof does not "
+                               f"verify")
+        proved.add(log)
+        if rec["reserved_share"] <= FIT_SHARE and (
+                log not in fits or rec["prove_s"] < fits[log][1]):
+            fits[log] = (name, rec["prove_s"], rec["reserved_share"])
+    emit({"phase": "time_memory_fit", "fit_share": FIT_SHARE,
+          "fastest_fitting": {str(k): v for k, v in fits.items()},
+          "largest_log_rows_proved": max(proved) if proved else None})
+    bad = [log for log, d in digests.items() if len(d) > 1]
+    if bad:
+        raise RuntimeError(f"routes gave different proofs at 2^{bad}")
 
 
 def time_stream_kernels(comps, log_sizes, reps: int = 20) -> None:
@@ -2432,7 +2690,7 @@ def time_stream_kernels(comps, log_sizes, reps: int = 20) -> None:
           "quotient_colsums_ms": k11_ms, "k11_shape": [S, c, M]})
 
 
-def record_timing_calls(n: int) -> dict:
+def record_timing_calls(n: int, memory=None) -> dict:
     """One fib proof at n with the package on the path, keeping the
     calls of K6 (`logup_columns`), K8 (whichever entry that package's
     prover calls: ``oods_dot_groups``, or ``oods_dot`` a gathered
@@ -2440,10 +2698,10 @@ def record_timing_calls(n: int) -> dict:
     (`decommit_many_fused`, and the first `gather_columns` call of the
     memory mode's streamed chunks, with their count): {"logup", "oods",
     "quotients", "finalize", "openings", "chunks": [args], "k8": entry,
-    "n_chunks": count}."""
+    "n_chunks": count}.  ``memory`` as for `time_proofs`."""
     from nexus_zkvm_tpu_torch.air import tape
     from nexus_zkvm_tpu_torch.ops import merkle, quotients
-    from nexus_zkvm_tpu_torch.prover import stark
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig, stark
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     k8 = "oods_dot_groups" if hasattr(stark, "oods_dot_groups") else \
         "oods_dot"
@@ -2464,8 +2722,8 @@ def record_timing_calls(n: int) -> dict:
             return _orig(*args)
         setattr(mod, fn, wrapped)
     try:
-        LocalProver(fib_guest()).prove_with_input(
-            public_input=encode_u32s(n))
+        LocalProver(fib_guest(), memory=memory and MemoryConfig(
+            **memory)).prove_with_input(public_input=encode_u32s(n))
     finally:
         for mod, fn, _key, orig in saved:
             setattr(mod, fn, orig)
@@ -2663,6 +2921,14 @@ def main() -> int:
         return 2
     card = gpu_name_and_limit()
     print(card, flush=True)
+    if sys.argv[1:2] == ["--time-memory-route"]:
+        time_memory_route(int(sys.argv[2]), sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--time-memory"]:
+        # optional LOG:ROUTE arguments: only those runs
+        time_memory([(int(a.split(":")[0]), a.split(":")[1])
+                     for a in sys.argv[2:]] or None)
+        return 0
     if sys.argv[1:] == ["--mesh-nccl"]:
         mesh_nccl()
         return 0
@@ -2673,14 +2939,18 @@ def main() -> int:
         # fib 2^20 (resident), then K7 at that proof's shapes
         time_proofs("time_machine", FIB_N)
         time_k7()
-        n = FIB_N
+        n, memory = FIB_N, None
     elif timing == "--time-stream":
-        # fib 2^22 (the memory mode), then K10 and K11 at its shapes
-        time_stream_kernels(*time_proofs("time_stream", FIB_STREAM_N))
+        # fib 2^22 in the forced memory mode (the package of a checkout
+        # without `MemoryConfig.for_device` too), then K10 and K11 at its
+        # shapes
+        memory = STREAM_FORCED
+        time_stream_kernels(*time_proofs("time_stream", FIB_STREAM_N,
+                                         memory=memory))
         n = FIB_STREAM_N
     if timing:
         # then K6, K8, K3, K12 and K9 on one more proof's own calls
-        calls = record_timing_calls(n)
+        calls = record_timing_calls(n, memory)
         time_k6_k8(calls, n)
         time_k3_k12(calls, n)
         time_k9(calls, n)
@@ -2718,7 +2988,9 @@ def main() -> int:
     phase_machine2_parity()
     phase_cli()
     wall("cli")
-    stream_launches, stream_comps, stream_logs = phase_machine_stream()
+    stream_launches, stream_comps, stream_logs, stream_digest = \
+        phase_machine_stream()
+    phase_machine_large(stream_digest)
     phase_stream_parity()
     timed.update(check_stream_kernels(stream_comps, stream_logs))
     del stream_comps

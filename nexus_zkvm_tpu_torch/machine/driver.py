@@ -377,9 +377,10 @@ def build_machine_traces(view, trace, segment_log: int | None = None,
 
 def prove_machine(view, trace, config: PcsConfig = PcsConfig(),
                   segment_log: int | None = None, device="cuda",
-                  memory: MemoryConfig = MemoryConfig()) -> MachineProof:
+                  memory: MemoryConfig | None = None) -> MachineProof:
     """``memory``: where the prover keeps its data (the large-trace
-    memory mode is chosen by size); the proof is the same under any."""
+    memory mode is chosen by size; None: `MemoryConfig.for_device`);
+    the proof is the same under any."""
     with scope("fills"):
         comps, log_sizes, traces = build_machine_traces(
             view, trace, segment_log, device=device)

@@ -230,9 +230,10 @@ def build_machine2_traces(view, trace, device="cuda"):
 
 def prove_machine2(view, trace, config: PcsConfig = PcsConfig(),
                    device="cuda",
-                   memory: MemoryConfig = MemoryConfig()) -> MachineProof:
+                   memory: MemoryConfig | None = None) -> MachineProof:
     """``memory``: where the prover keeps its data (the large-trace
-    memory mode is chosen by size); the proof is the same under any."""
+    memory mode is chosen by size; None: `MemoryConfig.for_device`);
+    the proof is the same under any."""
     with scope("fills"):
         comps, log_sizes, traces = build_machine2_traces(view, trace,
                                                          device=device)

@@ -26,6 +26,7 @@ process group, and its collectives are the identity.
 
 from __future__ import annotations
 
+import socket
 from dataclasses import dataclass
 
 import torch
@@ -55,6 +56,7 @@ class Mesh:
     device: torch.device      # the device this rank drives
     backend: str | None       # "nccl" or "gloo"; None for a local mesh
     group: object = None      # None: the default (world) group
+    per_card: int = 1         # ranks of the mesh on this rank's card
 
     def _staged(self, t: torch.Tensor) -> bool:
         return t.is_cuda and self.backend != "nccl"
@@ -168,8 +170,22 @@ def make_mesh(n_devices: int | None = None) -> Mesh | None:
         return None
     if n == 1:
         return local_mesh()
-    return Mesh(size=n, rank=rank, device=distributed.device(),
-                backend=dist.get_backend(group), group=group)
+    dev, backend = distributed.device(), dist.get_backend(group)
+    return Mesh(size=n, rank=rank, device=dev, backend=backend, group=group,
+                per_card=_per_card(dev, backend, group, n))
+
+
+def _per_card(dev: torch.device, backend: str, group, n: int) -> int:
+    """The mesh's ranks on ``dev``'s card (collective): one on NCCL,
+    which takes a card a rank; on gloo the ranks whose (host, card) is
+    this rank's."""
+    if dev.type != "cuda" or backend == "nccl":
+        return 1
+    me = (socket.gethostname(), torch.cuda.current_device()
+          if dev.index is None else dev.index)
+    every = [None] * n
+    dist.all_gather_object(every, me, group=group)
+    return every.count(me)
 
 
 def local_mesh() -> Mesh:

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import torch
+
 from ..ops.fri import FriConfig
 
 __all__ = ["PcsConfig", "FriConfig", "MemoryConfig"]
@@ -42,14 +44,42 @@ class MemoryConfig:
 
     Under a mesh nothing streams, as in the JAX package.
 
-    The defaults stream at the JAX package's thresholds (2 GiB, 256 MiB),
-    so both packages take the same route at every size.  The budget keeps
-    the fib guest's 2^20-row CPU component (438 columns × 2^22 × 4 B =
-    7.35 GB) in one pass and splits 2^21 into 2 and 2^22 into 4.
+    The entry points take ``memory=None``, which is :meth:`for_device`.
+    On the CPU that is the class defaults (2 GiB, 256 MiB, 8 GiB), the
+    thresholds the CPU tests compare with the JAX package's routes.  On
+    a CUDA card it is ``CARD_FRACTIONS`` of the card's memory M
+    (``total_memory``, divided among the mesh ranks on the card): trees
+    above M/8 stream, in chunks of M/64, and a composition runs in
+    passes of at most M/4.  The fractions are the fastest routes that
+    ``chip_smoke.py --time-memory`` measured within 0.85 M of reserved
+    memory on an NVIDIA H100 80GB HBM3 at 700.00 W (M = 85,017,493,504
+    bytes), for the fib guest's CPU component: resident in one pass at
+    2^20 and 2^21 rows, resident in two passes at 2^22 (one pass runs
+    out of memory), both trees streamed in four passes at 2^23 (the
+    largest trace that card proves).  The route is a function of the
+    shapes and M alone: no fallback after an out-of-memory error, no
+    reading of what else the card holds.
     """
     stream_commit_bytes: int = 2 << 30
     stream_chunk_bytes: int = 1 << 28
     comp_nat_budget: int = 8 << 30
+
+    @classmethod
+    def for_bytes(cls, total: int) -> "MemoryConfig":
+        """The thresholds for ``total`` bytes of card memory (one rank's
+        share of a card)."""
+        return cls(**{k: int(total * f) for k, f in CARD_FRACTIONS.items()})
+
+    @classmethod
+    def for_device(cls, device, mesh=None) -> "MemoryConfig":
+        """The thresholds for ``device``: the class defaults on the CPU;
+        on a CUDA card :meth:`for_bytes` of its ``total_memory`` over
+        the ranks of ``mesh`` on that card (``Mesh.per_card``)."""
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            return cls()
+        total = torch.cuda.get_device_properties(dev).total_memory
+        return cls.for_bytes(total // (mesh.per_card if mesh else 1))
 
     def streams(self, nbytes: int) -> bool:
         return nbytes > self.stream_commit_bytes
@@ -66,3 +96,9 @@ class MemoryConfig:
                 and passes < (1 << ev_log):
             passes *= 2
         return passes
+
+
+# A card's thresholds, each field of MemoryConfig as a fraction of the
+# card's memory (see MemoryConfig)
+CARD_FRACTIONS = {"stream_commit_bytes": 1 / 8, "stream_chunk_bytes": 1 / 64,
+                  "comp_nat_budget": 1 / 4}

@@ -358,7 +358,7 @@ def _role(role: str, trace_logs, log_blowup: int, groups: dict,
 
 def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
                   keep_natural: bool = True,
-                  memory: MemoryConfig = MemoryConfig(),
+                  memory: MemoryConfig | None = None,
                   mesh=None, halo: dict = None,
                   row_windows: bool = False) -> RoleCommitment:
     """Commit pre-stacked column blocks: blocks[i] is a (k_i, 2^n_i)
@@ -371,7 +371,9 @@ def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
     keeps its window and ``halo[n]`` = (hneg, hpos) rows around it
     (default none), the whole matrix freed once committed;
     ``row_windows``: the blocks of such a size are (k_i, 2^n/D) windows
-    (`_commit_group`)."""
+    (`_commit_group`).  ``memory`` None: `MemoryConfig.for_device`."""
+    if memory is None:
+        memory = MemoryConfig.for_device(device, mesh)
     by_n, idxs_by_n, trace_logs = {}, {}, []
     for b, n in zip(blocks, block_logs):
         k = int(b.shape[0])
@@ -399,7 +401,7 @@ def commit_blocks(role: str, blocks, block_logs, log_blowup: int, device,
 
 def commit_columns(role: str, columns, trace_logs, log_blowup: int, device,
                    keep_natural: bool = True,
-                   memory: MemoryConfig = MemoryConfig(),
+                   memory: MemoryConfig | None = None,
                    mesh=None, halo: dict = None) -> RoleCommitment:
     """columns: natural-order numpy uint32 arrays of sizes
     2^trace_logs[i], committed in this order."""
@@ -411,9 +413,12 @@ def commit_columns(role: str, columns, trace_logs, log_blowup: int, device,
 
 def commit_from_coeffs(role: str, coeffs: torch.Tensor, trace_log: int,
                        log_blowup: int,
-                       memory: MemoryConfig = MemoryConfig(),
+                       memory: MemoryConfig | None = None,
                        mesh=None) -> RoleCommitment:
-    """Commit a (C, 2^trace_log) coefficient matrix (one size group)."""
+    """Commit a (C, 2^trace_log) coefficient matrix (one size group);
+    ``memory`` None: `MemoryConfig.for_device`."""
+    if memory is None:
+        memory = MemoryConfig.for_device(coeffs.device, mesh)
     C = int(coeffs.shape[0])
     _nat, _span, *committed = _commit_group(
         [coeffs], trace_log, trace_log + log_blowup, coeffs.device, memory,

@@ -46,6 +46,7 @@ preprocessed commitment, which runs on ``device``.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -514,6 +515,13 @@ def _composition_cols(c: int, n: int, info, plan: Plan) -> dict:
                 if info.n_logup_cols else None)}
 
 
+def _comp_passes(memory: MemoryConfig, info, n: int, mesh) -> int:
+    """Row passes of component (info, 2^n rows)'s composition: its 4x
+    domain, or this rank's window of it, by the memory budget."""
+    w0, w1 = pcommit.window(mesh, 1 << (n + 2))
+    return memory.comp_passes(_natural_rows(info), (w1 - w0).bit_length() - 1)
+
+
 def _composition(components, infos, plan, log_sizes, relations,
                  claimed_sums, alpha, rcs, device,
                  memory: MemoryConfig, mesh=None) -> torch.Tensor:
@@ -541,8 +549,7 @@ def _composition(components, infos, plan, log_sizes, relations,
             buckets[ev] = torch.zeros((N, 4), dtype=torch.int32,
                                       device=device)
         w0, w1 = pcommit.window(mesh, N)
-        passes = memory.comp_passes(_natural_rows(info),
-                                    (w1 - w0).bit_length() - 1)
+        passes = _comp_passes(memory, info, n, mesh)
         all_passes.append(passes)
         hneg, hpos = domain_halo(info)
         chunk = memory.chunk_cols(ev) if passes > 1 or mesh else None
@@ -608,7 +615,7 @@ def _quotients_streamed(role_rcs, s: int, xs, ys, consts, gcs,
 
 def prove(components, log_sizes, main_traces, channel,
           config: PcsConfig = PcsConfig(), device="cuda",
-          memory: MemoryConfig = MemoryConfig(),
+          memory: MemoryConfig | None = None,
           release_traces: bool = False) -> Proof:
     """components: list of Component; main_traces: per component either
     a list of natural-order uint32 numpy columns of size 2^log_sizes[c]
@@ -617,8 +624,12 @@ def prove(components, log_sizes, main_traces, channel,
     traces are read, never modified; with ``release_traces`` the list's
     entries are set to None once committed, so a device trace is freed
     after the interaction.  ``memory`` decides where the data is kept,
-    never the proof; the route taken is noted on the active profile
-    (``streamed``: the (role, eval size) trees committed column-streamed;
+    never the proof (None: `MemoryConfig.for_device` of ``device`` and
+    the active mesh); the thresholds and the route taken are noted on
+    the active profile (``memory``: the MemoryConfig's fields;
+    ``cache_released``: whether a composition in passes on a card had
+    the caching allocator emptied at the start and before it;
+    ``streamed``: the (role, eval size) trees committed column-streamed;
     ``composition_passes``: each component's row passes; ``sharded``:
     the (role, eval size) trees, and ("fri", size) layer trees, committed
     in row windows over the active mesh; ``mesh_windows``: what this rank
@@ -634,9 +645,22 @@ def prove(components, log_sizes, main_traces, channel,
     mesh = active_mesh()
     if mesh is not None and mesh.size == 1:
         mesh = None
+    if memory is None:
+        memory = MemoryConfig.for_device(dev, mesh)
+    note("memory", dataclasses.asdict(memory))
     infos = [component_info(c) for c in components]
     plan = build_plan(log_sizes, infos, config)
     blowup = config.fri.log_blowup
+    # a composition in row passes: the trace crowds the card, so the
+    # caching allocator's free blocks (the last proof's, then those of
+    # the phases before the composition) go back to the card, where
+    # blocks of the next phase's sizes can be carved
+    tight = dev.type == "cuda" and any(
+        _comp_passes(memory, info, n, mesh) > 1
+        for info, n in zip(infos, log_sizes))
+    note("cache_released", tight)
+    if tight:
+        torch.cuda.empty_cache()
     s0 = plan.n_comp_trace_log + blowup
     channel.mix_u32s(np.asarray(log_sizes, np.uint32))
 
@@ -708,6 +732,8 @@ def prove(components, log_sizes, main_traces, channel,
             rc_inter.mix_roots(channel)
 
     with scope("composition"):
+        if tight:
+            torch.cuda.empty_cache()
         alpha = np.asarray(channel.draw_felt(), np.uint64)
         rcs = {"pre": rc_pre, "main": rc_main, "inter": rc_inter}
         comp_coeffs = _composition(components, infos, plan, log_sizes,

@@ -5,8 +5,8 @@ Counterpart of `Stwo<Local>` (`nexus-zkvm/sdk/src/stwo/seq.rs:
 prover; `verify` rebuilds everything from the public View.  Proving runs
 on ``device`` (default ``"cuda"``, which raises without a card; pass
 ``device="cpu"`` for the plain PyTorch path).  ``memory`` sets the
-large-trace memory mode's thresholds (``prover.MemoryConfig``; the
-defaults choose it by size).
+large-trace memory mode's thresholds (``prover.MemoryConfig``; None,
+the default, sizes them for the device: ``MemoryConfig.for_device``).
 """
 
 from __future__ import annotations
@@ -29,13 +29,11 @@ class LocalProver:
     config: PcsConfig = None
     backend: str = "auto"        # emulator backend: python|native|auto
     device: str = "cuda"
-    memory: MemoryConfig = None
+    memory: MemoryConfig | None = None
 
     def __post_init__(self):
         if self.config is None:
             self.config = PcsConfig()
-        if self.memory is None:
-            self.memory = MemoryConfig()
 
     def trace(self, public_input: bytes = b"", private_input: bytes = b"",
               associated_data: bytes = b"", max_steps=None):

@@ -8,9 +8,9 @@ CUDA on entry and exit, so a phase's time includes the device work it
 issued.  ``note(key, value)`` records what a run decided
 (``prof.notes``), also a no-op without one.  ``profiled(memory=True)``
 also keeps each top-level phase's peak device memory (``prof.peaks``,
-bytes; the card's peak counter is reset as each top-level scope
-starts and ends, so ``"(between)"`` holds the most reached outside
-them).
+bytes allocated; ``prof.reserved``, bytes the caching allocator held;
+the card's peak counters are reset as each top-level scope starts and
+ends, so ``"(between)"`` holds the most reached outside them).
 
 Usage::
 
@@ -41,6 +41,7 @@ class Profiler:
         self.counts: dict[str, int] = {}    # "outer/inner" scope -> calls
         self.notes: dict[str, object] = {}
         self.peaks: dict[str, int] = {}     # top-level scope -> bytes
+        self.reserved: dict[str, int] = {}  # top-level scope -> bytes
         self.memory = False
         self._stack: list[str] = []
         self._t0 = time.perf_counter()
@@ -128,6 +129,8 @@ def scope(name: str):
 def _peak(prof: Profiler, key: str) -> None:
     prof.peaks[key] = max(prof.peaks.get(key, 0),
                           torch.cuda.max_memory_allocated())
+    prof.reserved[key] = max(prof.reserved.get(key, 0),
+                             torch.cuda.max_memory_reserved())
 
 
 def note(key: str, value) -> None:

@@ -5,6 +5,8 @@ at n = 15, where the JAX package switches to its transposed small-half
 stages; outputs must be equal as uint32 (exact).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -139,3 +141,45 @@ def test_pass_plan_on_the_card(n):
         for lo, hi, wb, s0 in plan:
             assert wb + hi - lo <= T
             assert lo == 0 or wb >= min(W, lo)
+
+
+# the largest transforms of the main path: the composition's LDE of 437
+# coefficient rows to 4x (one pass at 2^22 rows, 2^23, 2^24) and a
+# resident 2^23-row trace's interaction LDE; every output past 2^31
+# words, the 437-row ones past 2^32
+@pytest.mark.parametrize("rows,k,n", [(437, 22, 24), (438, 23, 25),
+                                      (437, 24, 26), (244, 23, 24)])
+def test_pass_plan_index_math_at_the_largest_shapes(rows, k, n):
+    """csrc/cfft.cu's index math for the card's plan at these shapes: the
+    grid fits the kernel's 2^31 - 1 blocks, a pass's tiles partition a
+    row (their bases distinct and clear of a tile's own bits), positions
+    stay below 2^n <= 2^30 (32 bits), and the first and last blocks
+    read and write inside the matrix at offsets that only 64 bits hold
+    (the kernel's row offsets are long long)."""
+    text = (Path(TC.__file__).parents[1] / "csrc" / "cfft.cu").read_text()
+    assert "const long long row = blockIdx.x % rows;" in text
+    assert "src + (row << log_src)" in text and \
+        "dst + (row << log_n)" in text
+    assert rows << n >= 1 << 31
+    for inverse, kk in ((False, k), (True, n)):
+        plan = TC._pass_plan(kk, n, inverse)
+        for i, (lo, hi, wb, s0) in enumerate(plan):
+            S, nhigh = wb + hi - lo, n - hi
+            log_src = kk if i == 0 else n
+            ntiles = 1 << (lo - wb + nhigh)
+            assert rows * ntiles <= 0x7FFFFFFF and ntiles << S == 1 << n
+            tile = np.arange(ntiles, dtype=np.int64)
+            base = ((tile & ((1 << nhigh) - 1)) << hi) | \
+                ((tile >> nhigh) << wb)
+            own = ((1 << wb) - 1) | (((1 << (hi - lo)) - 1) << lo)
+            assert len(np.unique(base)) == ntiles and not (base & own).any()
+            q = np.arange(1 << S, dtype=np.int64)
+            for b in (0, rows * ntiles - 1):
+                row, t = b % rows, b // rows
+                pos = base[t] | (q & ((1 << wb) - 1)) | ((q >> wb) << lo)
+                assert pos.max() < 1 << n <= 1 << 30
+                src = (row << log_src) + (pos >> (n - log_src))
+                dst = (row << n) + pos
+                assert src.max() < rows << log_src and dst.max() < rows << n
+            # the last block's row starts past 2^31 words
+            assert (rows - 1) << n >= 1 << 31

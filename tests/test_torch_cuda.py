@@ -63,6 +63,47 @@ def test_cfft_extend(dev, b):
                        cfft.evaluate_plain(cfft.extend_coeffs(x, 20 + b)))
 
 
+def test_cfft_lde_past_2_32_words(dev):
+    """K1's 64-bit row offsets: an LDE of 260 rows from 2^22 to 2^24
+    points (4.4e9 output words, as the composition's resident LDE at
+    2^22 rows) equals, at its first and last rows, the plain version on
+    that row alone."""
+    x = torch.randint(0, P, (260, 1 << 22), dtype=torch.int32, device=dev)
+    out = cfft.evaluate(x, 24)
+    for r in (0, 259):
+        want = cfft.evaluate_plain(cfft.extend_coeffs(x[r:r + 1], 24))
+        assert torch.equal(out[r:r + 1], want)
+    del out, x
+    torch.cuda.empty_cache()
+
+
+def test_blake2s_leaves_past_2_32_words(dev):
+    """K2's 64-bit message offsets: the leaves of a (260, 2^24) column
+    matrix (4.4e9 words, read leaf-wise at a 2^24-word stride) equal the
+    plain version's at the first and last leaves."""
+    cols = torch.randint(0, P, (260, 1 << 24), dtype=torch.int32,
+                         device=dev)
+    got = blake2s.hash_rows(cols.t())
+    for sl in (slice(0, 4), slice((1 << 24) - 4, 1 << 24)):
+        want = blake2s.hash_rows_plain(cols[:, sl].t().contiguous())
+        assert torch.equal(got[sl], want)
+    del got, cols
+    torch.cuda.empty_cache()
+
+
+def test_memory_config_for_the_card(dev):
+    """``MemoryConfig.for_device`` on the card: the card fractions of its
+    total memory, over the mesh ranks on the card."""
+    from nexus_zkvm_tpu_torch.parallel.mesh import Mesh
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig
+    total = torch.cuda.get_device_properties(dev).total_memory
+    assert MemoryConfig.for_device(dev) == MemoryConfig.for_bytes(total)
+    mesh = Mesh(size=2, rank=0, device=dev, backend="gloo", per_card=2)
+    assert MemoryConfig.for_device(dev, mesh) == \
+        MemoryConfig.for_bytes(total // 2)
+    assert MemoryConfig.for_device("cpu") == MemoryConfig()
+
+
 @pytest.mark.parametrize("W", [1, 4, 16, 17, 192])
 def test_blake2s(dev, W):
     m = rand(dev, (257, W), 1 << 32, seed=W)

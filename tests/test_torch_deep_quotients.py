@@ -291,6 +291,38 @@ def test_k3_plan_matches_the_kernel():
             PLAN["threads"] * plan["points"]
 
 
+@pytest.mark.parametrize("rows,log_m,S", [((1, 193, 244), 23, 2),
+                                          ((193, 244), 24, 2),
+                                          ((1, 193, 244), 24, 3)])
+def test_k3_plan_addresses_at_the_largest_groups(rows, log_m, S):
+    """K3's plan at the largest size groups: the fib proof's 438 columns
+    at 2^23 points (a resident 2^22-row trace) and the main and
+    interaction trees at 2^24 (a resident 2^23-row trace).  The grid
+    fits 2^31 - 1 blocks, a stage's bulk copies expect fewer than 2^32
+    bytes, and the first and last blocks' copies (column k of role
+    block r from point p0: word k M + p0) lie inside their blocks, the
+    last one past 2^31 words at 2^24 points, where the kernel's offset
+    is 64-bit."""
+    text = CSRC.read_text()
+    assert "rb.ptr[r] + (long long)k * M + p0, 4u * n" in text
+    M = 1 << log_m
+    plan = TQ.quotient_plan(rows, M, S)
+    nb, run = plan["blocks"], plan["run"]
+    assert nb <= 0x7FFFFFFF and nb * run == M
+    for st in plan["where"]:
+        assert len(st) * (4 * run + 16 * S) < 1 << 32
+    far = 0
+    for b in (0, nb - 1):
+        p0, n = b * run, plan["n"][b]
+        for st in plan["where"]:
+            for r, j in st:
+                first, last = j * M + p0, j * M + p0 + n - 1
+                assert 0 <= first <= last < rows[r] * M
+                far = max(far, last)
+    assert far == max(rows) * M - 1
+    assert (far >= 1 << 31) == (max(rows) * M > 1 << 31)
+
+
 # ---------------------------------------------------------------------------
 # The epilogue: V, zero V, K12
 # ---------------------------------------------------------------------------

@@ -18,6 +18,8 @@ same plain version.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -48,13 +50,16 @@ def _storage_words(t: torch.Tensor):
 
 
 def emulate(pieces, unit: int = GATHER_UNIT, threads: int = THREADS,
-            words: int | None = None) -> np.ndarray:
+            words: int | None = None, read: bool = True) -> np.ndarray:
     """K9 on `gather_plan`'s tables, unit by unit and thread by thread,
     for a kernel of ``threads`` threads and ``unit`` words a block (the
     card's 256 and GATHER_UNIT; smaller ones split small pieces), into
     a zeroed buffer of ``words`` words (by default up to the last
     piece's end), each piece at its ``out``: each word written at most
-    once, and every piece's words written."""
+    once, and every piece's words written.  Without ``read`` (sources
+    with no storage, such as meta tensors) it returns, for each output
+    word, the source word the kernel reads, counted from the source's
+    start."""
     per = unit // threads
     assert per * threads == unit and per % 4 == 0
     packed, G, U, words = gather_plan(pieces, unit, words)
@@ -63,10 +68,12 @@ def emulate(pieces, unit: int = GATHER_UNIT, threads: int = THREADS,
     idx = packed[G * len(D) + U:]
     out = np.zeros(words, np.uint32)
     writes = np.zeros(words, np.int64)
+    reads = np.full(words, -1, np.int64)
     for u in units.tolist():
         g, start = u >> 32, u & 0xFFFFFFFF
         d = {k: int(table[g, i]) for k, i in D.items()}
-        flat, base = _storage_words(pieces[g].src)
+        flat, base = (_storage_words(pieces[g].src) if read else
+                      (None, d["src"]))
         assert (d["src"] - base) % 4 == 0
         src0 = (d["src"] - base) // 4
         n, wlog = d["n"], d["wlog"]
@@ -104,11 +111,15 @@ def emulate(pieces, unit: int = GATHER_UNIT, threads: int = THREADS,
             assert (r < d["rows"]).all()
             at = (src0 + r * d["rs"] + s_idx[pe - p0] * d["is"]
                   + (e & ((1 << wlog) - 1)) * d["ts"])
+            if not read:
+                reads[d["out"] + e] = at
+                np.add.at(writes, d["out"] + e, 1)
+                continue
             out[d["out"] + e] = flat[at]
             np.add.at(writes, d["out"] + e, 1)
     assert (writes <= 1).all() and writes.sum() == sum(
         p.words for p in pieces)
-    return out
+    return out if read else reads
 
 
 def _plain(pieces, words=None) -> np.ndarray:
@@ -245,6 +256,25 @@ def test_plan_raises_at_2_31_words():
     _p, _g, units, words = gather_plan(
         [_Gather(src.expand((1 << 15) - 1, 1 << 16), idx, 1)])
     assert words == (1 << 31) - (1 << 16) and units == words // GATHER_UNIT
+
+
+@pytest.mark.parametrize("rows,log_n", [(193, 24), (244, 24), (438, 25)])
+def test_emulated_addresses_at_the_largest_trees(rows, log_n):
+    """The opened values of the largest resident trees (the main and
+    interaction trees of a 2^23-row trace; 438 columns of 2^25 points
+    past it) at a proof's 108 positions: every source word the kernel
+    reads is the value's own, past 2^31 words (and 2^32 at 438 x 2^25)
+    into the source, so its offsets are 64-bit (csrc/gather.cu)."""
+    src = torch.empty((rows, 1 << log_n), dtype=torch.int32, device="meta")
+    rng = np.random.default_rng(rows + log_n)
+    idx = np.sort(rng.choice(1 << log_n, 108, replace=False)).astype(np.int64)
+    got = emulate([_Gather(src, idx, 1)], read=False)
+    want = (np.arange(rows, dtype=np.int64)[:, None] << log_n) + idx[None, :]
+    assert np.array_equal(got, want.reshape(-1))
+    assert got.max() >= 1 << 31
+    text = (Path(TM.__file__).parents[1] / "csrc" / "gather.cu").read_text()
+    assert len(re.findall(r"d\.src \+ \(long long\)quot\(p, d\) \* d\.rs \+"
+                          r"\s+\(long long\)s_idx\[p - p0\] \* d\.is", text)) == 2
 
 
 def test_plan_raises_on_what_the_kernel_does_not_take():
