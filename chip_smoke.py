@@ -32,6 +32,12 @@ peaks, out of memory or not, the proofs of a size byte-equal; then the
 fastest route at each size whose reserved peak stays within FIT_SHARE
 of the card's memory, and 2^24 rows by the default route.  The
 defaults of ``MemoryConfig.for_device`` were chosen from its output.
+Then segmented proofs (SEGMENTED_ROUTES: a route name ending in
+``_s<k>`` proves in 2^k-step segments): fib at 2^24 steps in 2^21-,
+2^22- and 2^23-step segments by the default route and STREAM_FORCED's,
+and at 2^25 steps in 2^22-step segments, the proofs of one (steps,
+segment log) byte-equal; ``LOG:ROUTE`` arguments run only those
+(``--time-memory 24:default_s22``).
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -119,6 +125,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              verify, reject a tampered opening and another claim; its
              bytes equal to phase 6's proof, its reserved peak within
              FIT_SHARE of the card's memory.
+6c. machine_segments — segmented machine proofs
+             (``machine.prove_machine(..., segment_log=k)``, each
+             2^k-step segment its own CPU component): SEGMENTED_SRC at
+             2^4-step segments under the CPU tests' PcsConfig, its
+             blake2s the JAX package's SEGMENTED_PROOF_BLAKE2S, and the
+             fib guest at n = 10 in four segments, default PcsConfig,
+             each byte-equal to the port's CPU proof (proved in a
+             process of its own meanwhile); then fib at n = 3,355,438
+             (16,777,200 steps) in 2^22-step segments, four 2^22-row
+             CPU components, by the card's default route: a cold and a
+             warm, profiled proof (each segment's `f:cpu`, the peaks by
+             phase), verify, a tampered opening and another claim
+             rejected, the reserved peak of both within FIT_SHARE of
+             the card, every kernel K1-K12 launched; then one more
+             proof whose calls are held to their plain versions as it
+             makes them (every segment's K5, one call of each shape of
+             K3, K7, K8 and K11) and K5 on each segment's first steps
+             against the numpy host fill.
 7. stream_parity — the fib 2^20 proof again under a MemoryConfig that
              streams every tree of 2^21 rows or more in 16-column chunks
              and composes the CPU component in 4 passes: its proof bytes
@@ -143,8 +167,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 9. kernels — one JSON line with every kernel's numbers: launches from
              the path it belongs to (phase 5, or phase 6 for the memory
              mode's three; K1 counts one launch a transform, K8 one a
-             proof) and from phase 5b's three proofs
-             (``machine2_launches``), times at that path's shapes;
+             proof), from phase 5b's three proofs
+             (``machine2_launches``) and from phase 6c's two 2^24-step
+             proofs (``segments_launches``), times at that path's shapes;
              ``circle_fft`` adds ``extend``, the composition's
              zero-extending LDE (see `check_prover_kernels`), and
              ``oods_dot`` ``all_groups``, its launch over all of a
@@ -218,9 +243,10 @@ FIB_N = 209_700          # 5 steps an iteration: a 2^20-row CPU component
 FIB_PARITY_N = 10
 FIB_STREAM_N = 838_858   # 4,194,300 steps: a 2^22-row CPU component
 STREAM_LOG = 22
-# the fib guest's n for a CPU component of 2^log rows (`--time-memory`)
+# the fib guest's n for at most 2^log steps (5 n + 10), a CPU component
+# of 2^log rows (`--time-memory`)
 FIB_MEMORY_N = {21: 419_428, 22: FIB_STREAM_N, 23: 1_677_718,
-                24: 3_355_438}
+                24: 3_355_438, 25: 6_710_884}
 # MemoryConfig fields that stream every size group above 2 GiB (the main
 # and interaction trees of 2^23 leaves of the 2^22 proof) in 16-column
 # chunks and compose its CPU component in 4 passes (phase 6)
@@ -228,6 +254,22 @@ STREAM_FORCED = {"stream_commit_bytes": 2 << 30,
                  "stream_chunk_bytes": 1 << 28, "comp_nat_budget": 8 << 30}
 # the share of the card's memory a default route may reserve at its peak
 FIT_SHARE = 0.85
+# phase machine_segments: fib at 16,777,200 steps in 2^22-step segments,
+# four 2^22-row CPU components, by the card's default route
+SEGMENT_LOG = 22
+FIB_SEGMENTS_N = 3_355_438
+SEGMENTS = 4
+# SEGMENTED_SRC proved at SEGMENTED_LOG under SEGMENTED_CONFIG (the CPU
+# tests' PcsConfig), and the blake2s of the JAX package's proof of it
+# (recorded in tests/test_torch_machine.py)
+SEGMENTED_LOG = 4
+SEGMENTED_CONFIG = {"pow_bits": 2, "log_blowup": 1, "log_last_layer": 0,
+                    "n_queries": 8}
+SEGMENTED_PROOF_BLAKE2S = \
+    "fab8c4cc264ec28196de01b162e68a7f37d2888e38bd5e40bd983d5158d3cc92"
+# steps of each segment whose K5 rows are also held to the numpy host
+# fill (`cpu.fill_cpu`)
+FILL_NUMPY_STEPS = 1 << 16
 
 # the kernels that run only in the large-trace memory mode
 MEMORY_MODE = ("blake2s_leaves_stream", "quotient_colsums",
@@ -290,6 +332,18 @@ KECCAK_SRC = """
 # a different claim: a proof of fib must not verify against it
 OTHER_SRC = """
         addi t0, zero, 3
+        lw   t1, 0x84(zero)
+        sw   t0, 0(t1)
+""" + EXIT_ASM
+
+
+# tests/test_torch_machine.py's segmented program: 2^4-step segments
+# give several CPU components
+SEGMENTED_SRC = """
+        addi t0, zero, 40
+    loop:
+        addi t0, t0, -1
+        bne  t0, zero, loop
         lw   t1, 0x84(zero)
         sw   t0, 0(t1)
 """ + EXIT_ASM
@@ -637,7 +691,7 @@ def check_machine_kernels(full: bool = True) -> dict:
     (2^20 rows when ``full``); K6-K9 on the recorded calls of a proof of
     that trace (`check_recorded`); K1-K4 at the shapes of that proof."""
     import torch
-    from nexus_zkvm_tpu_torch.machine import fill_dev
+    from nexus_zkvm_tpu_torch.machine import driver, fill_dev
     from nexus_zkvm_tpu_torch.machine.driver import build_components, _clog2
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     from nexus_zkvm_tpu_torch.utils.device import from_u32
@@ -1460,6 +1514,404 @@ def phase_machine_large(stream_digest: str) -> None:
     # the next phases' processes share the card
     del view, proof, prover
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: segmented machine proofs
+# ---------------------------------------------------------------------------
+
+def segmented_config():
+    """The PcsConfig of SEGMENTED_CONFIG (the CPU tests')."""
+    import nexus_zkvm_tpu_torch as T
+    c = SEGMENTED_CONFIG
+    return T.PcsConfig(pow_bits=c["pow_bits"], fri=T.FriConfig(
+        log_blowup=c["log_blowup"], log_last_layer=c["log_last_layer"],
+        n_queries=c["n_queries"]))
+
+
+def segmented_parity_proofs(device) -> dict:
+    """The small segmented proofs at SEGMENTED_LOG on ``device``, each
+    verified there: ``pinned``, SEGMENTED_SRC under SEGMENTED_CONFIG (the
+    JAX package's digest SEGMENTED_PROOF_BLAKE2S), and ``fib``, the fib
+    guest at FIB_PARITY_N under the default PcsConfig.  {name: {"bytes",
+    "prove_s", "log_sizes"}}."""
+    import nexus_zkvm_tpu_torch as T
+    from nexus_zkvm_tpu_torch.machine import prove_machine, verify_machine
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          proof_to_bytes)
+    from nexus_zkvm_tpu_torch.vm import asm, k_trace
+    out = {}
+    for name, (view, trace), config in (
+            ("pinned", k_trace(asm.assemble(SEGMENTED_SRC),
+                               backend="python"), segmented_config()),
+            ("fib", LocalProver(fib_guest(), device=device).trace(
+                public_input=encode_u32s(FIB_PARITY_N)), T.PcsConfig())):
+        t0 = time.perf_counter()
+        proof = prove_machine(view, trace, config,
+                              segment_log=SEGMENTED_LOG, device=device)
+        secs = time.perf_counter() - t0
+        if not verify_machine(view, proof, config, device=device):
+            raise RuntimeError(f"the segmented {name} proof does not verify "
+                               f"on {device}")
+        out[name] = {"bytes": proof_to_bytes(proof), "prove_s": secs,
+                     "log_sizes": proof.stark.log_sizes}
+    return out
+
+
+def segments_cpu(out_dir: str) -> None:
+    """`segmented_parity_proofs` on the CPU, each proof's bytes written to
+    ``out_dir``/NAME.bin (phase machine_segments runs this in a process
+    of its own while the card proves)."""
+    import torch
+    torch.set_num_threads(4)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    got = segmented_parity_proofs("cpu")
+    for name, rec in got.items():
+        (out / f"{name}.bin").write_bytes(rec["bytes"])
+    emit({name: {"prove_s": rec["prove_s"], "log_sizes": rec["log_sizes"]}
+          for name, rec in got.items()})
+
+
+def fill_numpy(trace, view, log: int, static_lo, static_hi) -> tuple:
+    """The numpy host fill of a trace segment (`cpu.fill_cpu`, its table
+    counts by `tables.count_multiplicity`), as K5 gives it: ((193, 2^log)
+    uint32 matrix, (N_HIST,) uint32 histograms)."""
+    from nexus_zkvm_tpu_torch.machine import cpu, fill_dev
+    from nexus_zkvm_tpu_torch.machine.driver import build_components
+    from nexus_zkvm_tpu_torch.machine.tables import (_Table,
+                                                     count_multiplicity)
+    fill, emits = cpu.fill_cpu(trace, view, log, static_lo, static_hi)
+    comps, fixed, _w = build_components(view, 1)
+    tables = {c.relation: c for c in comps if isinstance(c, _Table)}
+    hist = [count_multiplicity(tables[rel], emits.get(
+        rel, np.zeros(0, np.int64)), fixed[tables[rel].name])[:size]
+        for rel, size in fill_dev.RELATION_SIZES.items()]
+    return (np.stack(cpu.CPU_SCHEMA.to_columns(fill)).astype(np.uint32),
+            np.concatenate(hist).astype(np.uint32))
+
+
+# the wrappers whose calls a segmented proof holds to their plain
+# versions as it makes them (`check_inline`): kernel -> (module,
+# function, plain function, the argument the call updates in place)
+INLINE = {
+    "cpu_fill": ("nexus_zkvm_tpu_torch.machine.fill_dev", "cpu_fill",
+                 "cpu_fill_plain", None),
+    "air_eval_operands": ("nexus_zkvm_tpu_torch.air.tape",
+                          "air_eval_operands", "air_eval_operands_plain",
+                          None),
+    "air_eval_composition": ("nexus_zkvm_tpu_torch.air.tape",
+                             "air_eval_composition",
+                             "air_eval_composition_plain", 9),
+    "oods_dot": ("nexus_zkvm_tpu_torch.prover.stark", "oods_dot_groups",
+                 None, None),
+    "deep_quotients": ("nexus_zkvm_tpu_torch.ops.quotients",
+                       "accumulate_blocks", "accumulate_blocks_plain", None),
+    "quotient_colsums": ("nexus_zkvm_tpu_torch.ops.quotients",
+                         "colsum_fold", "colsum_fold_plain", 0),
+}
+
+
+def _inline_shape(name: str, args) -> tuple:
+    """What makes two calls of ``name`` the same shape: a tape's program
+    and rows (the CPU component's segments share theirs), the blocks'
+    and sums' shapes; K5 and K8 every call."""
+    if name in ("air_eval_composition", "air_eval_operands"):
+        tape = args[0]
+        rows = args[4] if name == "air_eval_composition" else (
+            args[5] if len(args) > 5 else args[3])
+        return (tape.name, tape.kind, len(tape.program), int(rows))
+    if name == "deep_quotients":
+        return tuple(tuple(b.shape) for b in args[0]) + (
+            tuple(args[4].shape),)
+    if name == "quotient_colsums":
+        return (tuple(args[0].shape), tuple(args[1].shape), bool(args[3]))
+    return None
+
+
+def _oods_plain_rows(groups, rows_at_once: int = 32):
+    """K8's plain version (`stark.oods_dot_groups_plain`) a few rows of a
+    group at a time, so that its int64 products stay small beside the
+    proof's coefficients."""
+    import torch
+    from nexus_zkvm_tpu_torch.prover import stark
+    out = []
+    for batch, rows, factors in groups:
+        rows = range(int(batch.shape[0])) if rows is None else list(rows)
+        for i in range(0, len(rows), rows_at_once):
+            out.append(stark.oods_dot_plain(
+                batch[list(rows[i:i + rows_at_once])], factors))
+    return torch.cat(out).to(torch.int32)
+
+
+def check_inline(prove_fn) -> tuple:
+    """Run ``prove_fn()`` with the wrappers of INLINE wrapped: every K5
+    call, and the first call of each shape (`_inline_shape`) of K7's
+    composition and operands, K8, K3 and K11, runs the kernel (the call
+    itself, which the proof goes on with) and then the plain version on
+    the same inputs (on a copy of the argument it updates), and raises
+    unless they are uint32-equal and the kernel launched.  Returns (what
+    ``prove_fn`` returned, [{kernel, shape, plain_ms}])."""
+    import importlib
+    import torch
+    from nexus_zkvm_tpu_torch import kernels
+    checked, seen, saved = [], set(), []
+    for name, (mod, fn, plain_name, inplace) in INLINE.items():
+        m = importlib.import_module(mod)
+        orig = getattr(m, fn)
+        plain = (_oods_plain_rows if plain_name is None
+                 else getattr(m, plain_name))
+
+        def wrapped(*args, _orig=orig, _plain=plain, _name=name,
+                    _inplace=inplace):
+            shape = _inline_shape(_name, args)
+            if shape is not None and (_name, shape) in seen:
+                return _orig(*args)
+            seen.add((_name, shape))
+            before = kernels.launch_counts()[_name]
+            kept = None if _inplace is None else args[_inplace].clone()
+            got = _orig(*args)
+            torch.cuda.synchronize()
+            if kernels.launch_counts()[_name] == before:
+                raise RuntimeError(f"{_name}: the wrapper did not launch its "
+                                   f"kernel")
+            t0 = time.perf_counter()
+            if _inplace is None:
+                want = _plain(*args)
+            else:
+                plain_args = list(args)
+                plain_args[_inplace] = kept
+                _plain(*plain_args)
+                got, want = args[_inplace], kept
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            got_t = got if isinstance(got, tuple) else (got,)
+            want_t = want if isinstance(want, tuple) else (want,)
+            if not all(g.shape == w.shape and torch.equal(g, w)
+                       for g, w in zip(got_t, want_t)):
+                raise RuntimeError(f"{_name} {shape}: kernel and plain "
+                                   f"version differ in the segmented proof")
+            checked.append({"kernel": _name, "shape": (
+                list(shape) if shape else [list(g.shape) for g in got_t]),
+                "plain_s": plain_s})
+            del kept, want, want_t
+            return got
+        saved.append((m, fn, orig))
+        setattr(m, fn, wrapped)
+    try:
+        out = prove_fn()
+    finally:
+        for m, fn, orig in saved:
+            setattr(m, fn, orig)
+    return out, checked
+
+
+def phase_machine_segments() -> dict:
+    """Segmented machine proofs (``machine.prove_machine(...,
+    segment_log=k)``) on the card.  (a) SEGMENTED_SRC at SEGMENTED_LOG
+    under SEGMENTED_CONFIG: the proof's blake2s equals the JAX package's
+    SEGMENTED_PROOF_BLAKE2S and its bytes the port's CPU proof; (b) the
+    fib guest at FIB_PARITY_N at SEGMENTED_LOG (four CPU components),
+    default PcsConfig: CPU and card byte-equal (the CPU proofs run in a
+    process of their own, `segments_cpu`, while the card proves).
+    (c) fib at FIB_SEGMENTS_N (16,777,200 steps) in 2^SEGMENT_LOG-step
+    segments, SEGMENTS CPU components of 2^22 rows, by the card's
+    default route: emulated once, then a cold proof and a warm, profiled
+    one (each phase's allocated and reserved peaks), verify, a tampered
+    opening and another claim rejected, the reserved peak of both
+    proofs within FIT_SHARE of the card; every kernel K1-K12 launched;
+    then one more proof whose calls are held to their plain versions
+    as it makes them (`check_inline`: every segment's K5, one call of
+    each shape of K3, K7, K8 and K11), and the first FILL_NUMPY_STEPS
+    steps of every segment through K5 against the numpy host fill.
+    Returns the launch counts of (c)'s cold and warm proofs."""
+    import dataclasses
+    import torch
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.machine import prove_machine, verify_machine
+    from nexus_zkvm_tpu_torch.machine import driver, fill_dev
+    from nexus_zkvm_tpu_torch.machine.driver import build_components, _clog2
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          decode_u32s, proof_to_bytes)
+    from nexus_zkvm_tpu_torch.utils.device import to_u32
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    out_dir = ROOT / "build" / "segments_cpu"
+    cpu_run = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--segments-cpu",
+         str(out_dir)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT)
+    try:
+        card = segmented_parity_proofs("cuda")
+        if proof_digest(card["pinned"]["bytes"]) != SEGMENTED_PROOF_BLAKE2S:
+            raise RuntimeError("the card's segmented proof differs from the "
+                               "JAX package's recorded digest")
+
+        # (c) the full-width execution
+        prover = LocalProver(fib_guest())            # default configs, card
+        public = encode_u32s(FIB_SEGMENTS_N)
+        total = torch.cuda.get_device_properties(0).total_memory
+        t0 = time.perf_counter()
+        view, trace = prover.trace(public_input=public)
+        emulate_s = time.perf_counter() - t0
+        steps = trace.n_steps
+        # the components besides the CPU's (the same for every fib input)
+        n_fixed = len(build_components(view, 1)[0]) - 1
+        if len(card["fib"]["log_sizes"]) - n_fixed < 3:
+            raise RuntimeError("the fib parity proof has fewer than 3 "
+                               "segments")
+
+        def prove():
+            return prove_machine(view, trace, prover.config,
+                                 segment_log=SEGMENT_LOG)
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prove()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        cold = kernels.launch_counts()
+        peaks = {"cold": [torch.cuda.max_memory_allocated(),
+                          torch.cuda.max_memory_reserved()]}
+        torch.cuda.reset_peak_memory_stats()
+        # each segment's fill (`f:cpu`: its step rows to the card, K5),
+        # timed call by call
+        f_cpu, fill = [], driver.fill_cpu_dev
+
+        def timed_fill(*args, **kw):
+            t = time.perf_counter()
+            got = fill(*args, **kw)
+            torch.cuda.synchronize()
+            f_cpu.append(time.perf_counter() - t)
+            return got
+        driver.fill_cpu_dev = timed_fill
+        try:
+            with profiled(memory=True) as prof:
+                t0 = time.perf_counter()
+                proof = prove()
+                torch.cuda.synchronize()
+                prove_s = time.perf_counter() - t0
+        finally:
+            driver.fill_cpu_dev = fill
+        peaks["warm"] = [max([torch.cuda.max_memory_allocated(),
+                              *prof.peaks.values()]),
+                         max([torch.cuda.max_memory_reserved(),
+                              *prof.reserved.values()])]
+        launches = kernels.launch_counts()
+        warm = {k: v - cold[k] for k, v in launches.items()}
+        t0 = time.perf_counter()
+        ok = verify_machine(view, proof, prover.config)
+        verify_s = time.perf_counter() - t0
+        if not ok:
+            raise RuntimeError("the segmented 2^24-step proof does not "
+                               "verify")
+        rejects_tampering(prover.verify, view, proof)
+        if decode_u32s(view.public_output, 1)[0] != fib_u32(FIB_SEGMENTS_N):
+            raise RuntimeError("wrong fib output")
+        logs = proof.stark.log_sizes
+        segs = len(logs) - n_fixed
+        if segs != SEGMENTS or logs[:segs] != [SEGMENT_LOG] * segs:
+            raise RuntimeError(f"{segs} CPU components of 2^{logs[:segs]}, "
+                               f"not {SEGMENTS} of 2^{SEGMENT_LOG}")
+        route = prof.notes
+        if route["memory"] != dataclasses.asdict(MemoryConfig.for_device(
+                "cuda")):
+            raise RuntimeError(f"the prover took {route['memory']}, not the "
+                               f"card's default")
+        if warm["air_eval_composition"] != sum(route["composition_passes"]):
+            raise RuntimeError("composition passes and K7 launches differ")
+        if warm["cpu_fill"] != SEGMENTS or warm["oods_dot"] != 1:
+            raise RuntimeError(f"K5 launched {warm['cpu_fill']} times and K8 "
+                               f"{warm['oods_dot']} in the warm proof")
+        check_path("machine_segments", warm, set(warm))
+        reserved = max(p[1] for p in peaks.values())
+        if reserved > FIT_SHARE * total:
+            raise RuntimeError(f"the segmented proofs reserved {reserved} "
+                               f"bytes, over {FIT_SHARE} of the card's "
+                               f"{total}")
+        digest = proof_digest(proof_to_bytes(proof))
+        del proof
+
+        # one more proof, its calls held to their plain versions
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proof, checked = check_inline(prove)
+        checked_s = time.perf_counter() - t0
+        if proof_digest(proof_to_bytes(proof)) != digest:
+            raise RuntimeError("the checked segmented proof differs")
+        del proof
+        fills = [c for c in checked if c["kernel"] == "cpu_fill"]
+        if len(fills) != SEGMENTS or {c["kernel"] for c in checked} != set(
+                INLINE):
+            raise RuntimeError(f"calls checked: {checked}")
+        torch.cuda.empty_cache()
+        # K5 on the first steps of every segment against the numpy fill
+        st_lo, st_hi = build_components(view, 1)[2]
+        numpy_fill = []
+        for i, seg in enumerate(trace.split_by(1 << SEGMENT_LOG)):
+            head = seg.split_by(FILL_NUMPY_STEPS)[0]
+            log = _clog2(head.n_steps, lo=4)
+            mat, hist = fill_dev.fill_cpu_dev(head, view, log, st_lo, st_hi)
+            want = fill_numpy(head, view, log, st_lo, st_hi)
+            if not (np.array_equal(to_u32(mat), want[0])
+                    and np.array_equal(to_u32(hist), want[1])):
+                raise RuntimeError(f"K5 differs from the numpy fill on "
+                                   f"segment {i}")
+            numpy_fill.append({"segment": i, "clk0": int(seg.steps["clk"][0]),
+                               "steps": head.n_steps})
+
+        # (a) and (b) on the CPU
+        stdout, stderr = cpu_run.communicate(timeout=600)
+        if cpu_run.returncode:
+            raise RuntimeError(f"the CPU segmented proofs failed:\n"
+                               f"{stderr[-3000:]}")
+        cpu_rec = json.loads([ln for ln in stdout.splitlines()
+                              if ln.startswith("{")][-1])
+        for name in ("pinned", "fib"):
+            if (out_dir / f"{name}.bin").read_bytes() != card[name]["bytes"]:
+                raise RuntimeError(f"the CPU and card segmented {name} "
+                                   f"proofs differ")
+    finally:
+        if cpu_run.poll() is None:
+            cpu_run.kill()
+            cpu_run.wait()
+    rows = SEGMENTS << SEGMENT_LOG
+    emit({"phase": "machine_segments",
+          "pinned": {"src": "SEGMENTED_SRC", "segment_log": SEGMENTED_LOG,
+                     "config": SEGMENTED_CONFIG,
+                     "proof_blake2s": SEGMENTED_PROOF_BLAKE2S,
+                     "equal_to_jax_digest": True, "equal_to_cpu": True,
+                     "log_sizes": card["pinned"]["log_sizes"],
+                     "cuda_prove_s": card["pinned"]["prove_s"],
+                     "cpu_prove_s": cpu_rec["pinned"]["prove_s"]},
+          "fib_parity": {"n": FIB_PARITY_N, "segment_log": SEGMENTED_LOG,
+                         "segments": len(card["fib"]["log_sizes"]) - n_fixed,
+                         "equal_to_cpu": True,
+                         "proof_blake2s": proof_digest(card["fib"]["bytes"]),
+                         "log_sizes": card["fib"]["log_sizes"],
+                         "cuda_prove_s": card["fib"]["prove_s"],
+                         "cpu_prove_s": cpu_rec["fib"]["prove_s"]},
+          "n": FIB_SEGMENTS_N, "steps": steps, "segment_log": SEGMENT_LOG,
+          "segments": segs, "log_sizes": logs, "proof_blake2s": digest,
+          "verified": True, "tampered_rejected": True,
+          "other_claim_rejected": True, "emulate_s": emulate_s,
+          "prove_cold_s": cold_s, "prove_s": prove_s, "verify_s": verify_s,
+          "f_cpu_s": f_cpu,
+          "steps_per_s": steps / (emulate_s + prove_s),
+          "rows_per_s": rows / (emulate_s + prove_s),
+          "peak_bytes": {k: v[0] for k, v in peaks.items()},
+          "peak_reserved_bytes": {k: v[1] for k, v in peaks.items()},
+          "reserved_share": reserved / total, "total_memory": total,
+          "phase_peak_bytes": prof.peaks,
+          "phase_reserved_bytes": prof.reserved,
+          "memory": route["memory"], "streamed": route["streamed"],
+          "composition_passes": route["composition_passes"],
+          "cache_released": route["cache_released"],
+          "phase_s": prof.times, "launches_warm": warm,
+          "launches_cold": cold, "checked_proof_s": checked_s,
+          "checked": checked, "numpy_fill": numpy_fill})
+    return launches
 
 
 def phase_stream_parity():
@@ -2363,12 +2815,13 @@ def phase_parallel(fib_digest: str, m2_digest: str, m2_expected) -> None:
                         m2_expected, None, halo_m2, "parallel_machine2")
 
 
-def fib_tapes(machine2: bool = False):
+def fib_tapes(machine2: bool = False, segments: int = 1):
     """The fib guest's machine components (n = FIB_PARITY_N: the
     components, their tapes and so K7's sources are the same at every
-    trace size), with ``machine2`` the components of its machine2 proof
-    after them (the 12 families; the others are machine v1's), and
-    relations drawn from a fresh channel."""
+    trace size; ``segments`` CPU components), with ``machine2`` the
+    components of its machine2 proof after them (the 12 families; the
+    others are machine v1's), and relations drawn from a fresh
+    channel."""
     import nexus_zkvm_tpu_torch as T
     from nexus_zkvm_tpu_torch.air.component import component_info
     from nexus_zkvm_tpu_torch.air.lookups import draw_relations
@@ -2377,7 +2830,7 @@ def fib_tapes(machine2: bool = False):
     from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
     view, _t = LocalProver(fib_guest(), device="cpu").trace(
         public_input=encode_u32s(FIB_PARITY_N))
-    comps = build_components(view, 1)[0]
+    comps = build_components(view, segments)[0]
     if machine2:
         # (imported here: `--time-machine` may run a checkout without it)
         from nexus_zkvm_tpu_torch.machine2 import EXEC_FAMILIES, \
@@ -2393,15 +2846,23 @@ def build_k7() -> None:
     a piece, as many at once as the machine has CPUs, the longest
     first): the seconds, the slowest piece, the CPU seconds of every nvcc, and
     each piece's row operations, table words, nvcc wall and CPU seconds,
-    registers and spill bytes (ptxas)."""
+    registers and spill bytes (ptxas).  The batch holds the CPU
+    component's later segments too (phase machine_segments'), whose
+    tapes share the CPU component's sources: ``segment_sources`` counts
+    the pieces they would add (none), so no proof builds one."""
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.air import tape as tp, tape_cuda
-    comps, rel = fib_tapes(machine2=True)
+    comps, rel = fib_tapes(machine2=True, segments=SEGMENTS)
     t0 = time.perf_counter()
     rec = tp.build_kernels(comps, [PARITY_LOG] * len(comps), rel)
     secs = time.perf_counter() - t0
+
+    def libs(cs):
+        return {p.lib for c in cs for fn in (tp.domain_tape, tp.gen_tape)
+                for p in tape_cuda.pieces(fn(c, PARITY_LOG, rel))}
+    extra = libs(comps[1:SEGMENTS]) - libs(comps[:1])
     pieces = []
-    for c in comps:
+    for c in comps[:1] + comps[SEGMENTS:]:
         for kind, fn in (("domain", tp.domain_tape), ("gen", tp.gen_tape)):
             tape = fn(c, PARITY_LOG, rel)
             for i, p in enumerate(tape_cuda.pieces(tape) if tape else []):
@@ -2413,7 +2874,8 @@ def build_k7() -> None:
                                **kernels.ptxas_summary(lib)})
     emit({"phase": "k7_build", "seconds": secs, "built": rec["built"],
           "slowest_piece_s": rec["slowest_s"], "nvcc_cpu_s": rec["cpu_s"],
-          "cpu_count": os.cpu_count(), "pieces": pieces})
+          "cpu_count": os.cpu_count(), "segment_sources": len(extra),
+          "pieces": pieces})
 
 
 def time_k7(reps: int = 5) -> None:
@@ -2512,6 +2974,14 @@ MEMORY_ROUTES = ("resident_p1", "resident_p2", "resident_p4", "inter_p1",
                  "stream_forced")
 
 
+def route_segments(name: str) -> tuple:
+    """(route, segment log or None) of a `--time-memory` route name: a
+    name ending in ``_s<k>`` proves the execution in 2^k-step segments
+    (``default_s22``: the default route, 2^22-step segments)."""
+    base, sep, k = name.rpartition("_s")
+    return (base, int(k)) if sep and k.isdigit() else (name, None)
+
+
 def memory_route(name: str, info, log: int, total: int):
     """The MemoryConfig fields of route ``name`` for the fib guest's CPU
     component (``info``) at 2^log rows on a card of ``total`` bytes; None
@@ -2532,31 +3002,47 @@ def memory_route(name: str, info, log: int, total: int):
 
 def time_memory_route(log: int, name: str, warm: int = 5) -> None:
     """One route of `time_memory` in this process alone: the fib guest at
-    a 2^log-row CPU component through LocalProver under route ``name``
-    (`memory_route`): a cold proof, ``warm`` warm ones and a profiled
-    one (with each phase's allocated and reserved peaks), verify;
-    seconds, phase times, the route the prover noted, the allocated and
-    reserved peaks of all of them, and whether the card ran out of
-    memory (then the proof is not tried again)."""
+    2^log steps (a 2^log-row CPU component) through LocalProver under
+    route ``name`` (`memory_route`); a name ending in ``_s<k>``
+    (`route_segments`) proves it in 2^k-step segments, each its own CPU
+    component, through ``machine.prove_machine(..., segment_log=k)``
+    after ``LocalProver.trace`` (emulation timed in each proof, as
+    ``prove_with_input`` has it): a cold proof, ``warm`` warm ones and a
+    profiled one (with each phase's allocated and reserved peaks),
+    verify; seconds, phase times, the route the prover noted, the
+    allocated and reserved peaks of all of them, and whether the card
+    ran out of memory (then the proof is not tried again)."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.air.component import component_info
+    from nexus_zkvm_tpu_torch.machine import prove_machine
     from nexus_zkvm_tpu_torch.machine.driver import build_components
     from nexus_zkvm_tpu_torch.prover import MemoryConfig
     from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
                                           proof_to_bytes)
-    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    from nexus_zkvm_tpu_torch.utils.profile import profiled, scope
     kernels.build()
     total = torch.cuda.get_device_properties(0).total_memory
     view, _t = LocalProver(fib_guest(), device="cpu").trace(
         public_input=encode_u32s(FIB_PARITY_N))
     info = component_info(build_components(view, 1)[0][0])
-    fields = memory_route(name, info, log, total)
+    route, seg = route_segments(name)
+    fields = memory_route(route, info, min(log, seg or log), total)
     prover = LocalProver(fib_guest(),
                          memory=fields and MemoryConfig(**fields))
     public = encode_u32s(FIB_MEMORY_N[log])
+
+    def prove_once():
+        if seg is None:
+            return prover.prove_with_input(public_input=public)
+        with scope("emulate"):
+            view, trace = prover.trace(public_input=public)
+        rec["steps"] = trace.n_steps
+        return view, prove_machine(view, trace, prover.config,
+                                   segment_log=seg, memory=prover.memory)
     rec = {"phase": "time_memory", "log_rows": log, "n": FIB_MEMORY_N[log],
-           "route": name, "fields": fields, "total_memory": total}
+           "route": name, "segment_log": seg, "fields": fields,
+           "total_memory": total}
     secs, stage, peaks = [], "cold", [0, 0]
     torch.cuda.reset_peak_memory_stats()
     prof = None
@@ -2564,14 +3050,14 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
         for i in range(1 + warm):
             stage = "cold" if i == 0 else f"warm {i}"
             t0 = time.perf_counter()
-            prover.prove_with_input(public_input=public)
+            prove_once()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         stage = "profiled"
         peaks = [torch.cuda.max_memory_allocated(),
                  torch.cuda.max_memory_reserved()]
         with profiled(memory=True) as prof:
-            view, proof = prover.prove_with_input(public_input=public)
+            view, proof = prove_once()
             torch.cuda.synchronize()
     except torch.cuda.OutOfMemoryError as e:
         rec.update(oom=True, oom_in=stage, error=str(e).splitlines()[0])
@@ -2584,6 +3070,8 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
             composition_passes=max(notes["composition_passes"]),
             cache_released=notes.get("cache_released"),
             log_sizes=proof.stark.log_sizes,
+            cpu_components=len(proof.stark.log_sizes)
+            - len(build_components(view, 1)[0]) + 1,
             proof_blake2s=proof_digest(proof_to_bytes(proof)),
             phase_s=prof.times)
         del view, proof
@@ -2598,9 +3086,17 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
     rec["reserved_share"] = rec["peak_reserved_bytes"] / total
     if not rec["oom"]:
         torch.cuda.empty_cache()
-        view, proof = prover.prove_with_input(public_input=public)
+        view, proof = prove_once()
         rec["verified"] = bool(prover.verify(view, proof))
     emit(rec)
+
+
+# `--time-memory`'s segmented runs: fib at 2^24 steps in 2^21-, 2^22- and
+# 2^23-step segments by the default route and STREAM_FORCED's, and at
+# 2^25 steps in 2^22-step segments by the default route
+SEGMENTED_ROUTES = tuple((24, f"{r}_s{k}") for k in (21, 22, 23)
+                         for r in ("default", "stream_forced")) + (
+                             (25, "default_s22"),)
 
 
 def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
@@ -2608,15 +3104,17 @@ def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
     CPU component of the fib guest, every route of MEMORY_ROUTES, each in
     a fresh process (`time_memory_route`: cold and warm seconds, c:lde,
     quotients, openings, the allocated and reserved peaks, out of memory
-    or not); the proofs of one size must be byte-equal.  Then the
-    fastest route at each size whose reserved peak stays within
-    FIT_SHARE of the card's memory, and 2^largest rows by the default
-    route (``time_memory_fit``).  ``runs``: only these (log, route)
+    or not); 2^largest rows by the default route; then the segmented
+    runs of SEGMENTED_ROUTES.  The proofs of one (size, segment log)
+    must be byte-equal.  Then the fastest route at each size whose
+    reserved peak stays within FIT_SHARE of the card's memory, the
+    largest size proved as one component and the largest proved in
+    segments (``time_memory_fit``).  ``runs``: only these (log, route)
     pairs, in order."""
     from nexus_zkvm_tpu_torch import kernels
     kernels.build()
     build_k7()
-    fits, digests, proved = {}, {}, set()
+    fits, digests, proved, by_segments = {}, {}, set(), set()
 
     def run(log, name):
         try:
@@ -2638,24 +3136,33 @@ def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
         return recs[-1]
     for log, name in runs or [(log, name) for log in logs
                               for name in MEMORY_ROUTES] + [
-                                  (largest, "default")]:
+                                  (largest, "default"),
+                                  *SEGMENTED_ROUTES]:
         rec = run(log, name)
         if rec is None or rec["oom"]:
             continue
-        digests.setdefault(log, set()).add(rec["proof_blake2s"])
+        seg = route_segments(name)[1]
+        digests.setdefault((log, seg), set()).add(rec["proof_blake2s"])
         if not rec["verified"]:
             raise RuntimeError(f"2^{log} {name}: the proof does not "
                                f"verify")
-        proved.add(log)
+        if seg is None:
+            proved.add(log)
+        else:
+            by_segments.add(rec["steps"])
+        key = log if seg is None else f"{log}_s{seg}"
         if rec["reserved_share"] <= FIT_SHARE and (
-                log not in fits or rec["prove_s"] < fits[log][1]):
-            fits[log] = (name, rec["prove_s"], rec["reserved_share"])
+                key not in fits or rec["prove_s"] < fits[key][1]):
+            fits[key] = (name, rec["prove_s"], rec["reserved_share"])
     emit({"phase": "time_memory_fit", "fit_share": FIT_SHARE,
           "fastest_fitting": {str(k): v for k, v in fits.items()},
-          "largest_log_rows_proved": max(proved) if proved else None})
-    bad = [log for log, d in digests.items() if len(d) > 1]
+          "largest_log_rows_proved": max(proved) if proved else None,
+          "largest_steps_proved_by_segments":
+          max(by_segments) if by_segments else None})
+    bad = [k for k, d in digests.items() if len(d) > 1]
     if bad:
-        raise RuntimeError(f"routes gave different proofs at 2^{bad}")
+        raise RuntimeError(f"routes gave different proofs at (2^log, "
+                           f"segment log) {bad}")
 
 
 def time_stream_kernels(comps, log_sizes, reps: int = 20) -> None:
@@ -2921,6 +3428,9 @@ def main() -> int:
         return 2
     card = gpu_name_and_limit()
     print(card, flush=True)
+    if sys.argv[1:2] == ["--segments-cpu"]:
+        segments_cpu(sys.argv[2])
+        return 0
     if sys.argv[1:2] == ["--time-memory-route"]:
         time_memory_route(int(sys.argv[2]), sys.argv[3])
         return 0
@@ -2991,6 +3501,9 @@ def main() -> int:
     stream_launches, stream_comps, stream_logs, stream_digest = \
         phase_machine_stream()
     phase_machine_large(stream_digest)
+    wall("machine_large")
+    seg_launches = phase_machine_segments()
+    wall("machine_segments")
     phase_stream_parity()
     timed.update(check_stream_kernels(stream_comps, stream_logs))
     del stream_comps
@@ -3010,6 +3523,7 @@ def main() -> int:
                      else launches)[name],
         "path": "machine_stream" if name in MEMORY_MODE else "machine",
         "machine2_launches": m2_launches[name],
+        "segments_launches": seg_launches[name],
         "max_abs_err": timed[name]["max_abs_err"], "ms": timed[name]["ms"],
         "plain_ms": timed[name]["plain_ms"],
         "bound_ms": timed[name]["bound_ms"],

@@ -423,7 +423,7 @@ class Tape:
     # a·rows + b for a buffer of ``rows`` rows (`layout`)
     store_terms: np.ndarray
     modes: torch.Tensor = None  # (4, B) K6 operand modes (gen)
-    name: str = ""             # the component's
+    name: str = ""             # the component's family (`_family`)
     params: dict = None        # the component's, the "param" inputs' values
     _dev: dict = field(default_factory=dict, repr=False)
 
@@ -678,7 +678,8 @@ def _record_domain(component, relations) -> Tape:
         else:
             outputs.append((K_EMITQ_LO, j, tuple(e)))
     return _compile(ctx.rec, "domain", ctx.STRIDE, outputs,
-                    ctx.n_constraints, component.name, component.params(),
+                    ctx.n_constraints, _family(component),
+                    component.params(),
                     emits=emits)
 
 
@@ -713,7 +714,7 @@ def _record_gen(component, relations) -> Tape:
                 off_m += width
             else:
                 off_c += width
-    return _compile(rec, "gen", ctx.STRIDE, outputs, 0, component.name,
+    return _compile(rec, "gen", ctx.STRIDE, outputs, 0, _family(component),
                     component.params(),
                     stores=np.asarray(stores, np.int64).reshape(-1, 4),
                     modes=torch.tensor(modes, dtype=torch.int64)
@@ -722,6 +723,13 @@ def _record_gen(component, relations) -> Tape:
 
 _CACHE: dict = {}
 _LOCK = threading.Lock()
+
+
+def _family(component) -> str:
+    """The name a component's tapes, and so their K7 sources, carry: its
+    ``family`` where components differ only in ``params()`` (the CPU
+    component's segments, which so share K7's builds), else its name."""
+    return getattr(component, "family", component.name)
 
 
 def _cached(kind, component, log_size, relations, build):

@@ -118,6 +118,7 @@ class CpuComponent(Component):
     the TPU-native rendering of the reference's trace `split_by` seam
     (`nexus-zkvm/vm/src/trace.rs:108-120`)."""
     name = "cpu"
+    family = "cpu"             # every segment's tapes: one K7 source each
     n_main = CPU_SCHEMA.n_cols
 
     def __init__(self, entry: int, exit_addr: int, heap_start: int,

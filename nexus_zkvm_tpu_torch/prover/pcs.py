@@ -15,8 +15,13 @@ the (C, 2^s) evaluations never exist at once and are not kept
 (``evals[s]`` is None).  The quotients and the openings recompute them
 from the coefficients, chunk by chunk (:func:`opened_values_streamed`).
 A natural-order group above the threshold is interpolated a chunk of
-columns at a time (:func:`_interpolate_big`), in place when the
-commitment does not keep the natural values.
+columns at a time (:func:`_interpolate_big`), in place where the
+matrix was stacked here from several blocks: such a streamed group
+keeps no natural values, and the interaction evaluates a component's
+from the coefficients when it reads them
+(:meth:`RoleCommitment.natural_rows`), so they exist one component at
+a time.  A component's columns within a group are read in place (a
+row slice), not gathered.
 
 Under a mesh of two or more ranks (``mesh=``, which ``prove`` takes from
 the active mesh) nothing streams, and a size group whose rows split
@@ -64,7 +69,9 @@ class RoleCommitment:
     cols_by_size: dict        # eval_log -> [column indices]
     trees: dict               # eval_log -> MerkleTree
     natural: dict = None      # n -> (column index list, (Cn, 2^n) tensor,
-                              # or a split group's (Cn, W) window block)
+                              # or a split group's (Cn, W) window block,
+                              # or None: a streamed group's, evaluated
+                              # from its coefficients when read)
     natural_spans: dict = None  # n -> (lo, L, hneg) of a split group: its
                               # block's position q holds natural row
                               # lo - hneg + q (mod 2^n)
@@ -101,9 +108,14 @@ class RoleCommitment:
         return batch, None if sel == list(range(batch.shape[0])) else sel, n
 
     def _rows(self, batches, col_idxs):
+        """The rows ``col_idxs`` of their batch and n: a view of it where
+        they are consecutive (a component's columns in a group of
+        several), else a gathered copy."""
         batch, sel, n = self._row_index(batches, col_idxs)
         if sel is None:
             return batch, n
+        if sel == list(range(sel[0], sel[0] + len(sel))):
+            return batch[sel[0]:sel[0] + len(sel)], n
         return batch[torch.as_tensor(sel, device=batch.device)], n
 
     def coeff_rows(self, col_idxs):
@@ -118,8 +130,19 @@ class RoleCommitment:
     def natural_rows(self, col_idxs):
         """(rows, n): the natural values of ``col_idxs`` (one size n),
         all 2^n rows, or the window block of a split group
-        (`natural_span`)."""
-        return self._rows(self.natural, col_idxs)
+        (`natural_span`); of a streamed group, which keeps none, its
+        coefficient rows evaluated on the 2^n domain (K1) and put in
+        natural order, 32 rows at a time beside the output."""
+        n = self.trace_logs[col_idxs[0]]
+        if self.natural[n][1] is not None:
+            return self._rows(self.natural, col_idxs)
+        rows, n = self.coeff_rows(col_idxs)
+        out = torch.empty_like(rows)
+        n2l = dev_natural_to_layout(n, rows.device)
+        for lo in range(0, int(rows.shape[0]), 32):
+            torch.index_select(cfft.evaluate(rows[lo:lo + 32], n), 1, n2l,
+                               out=out[lo:lo + 32])
+        return out, n
 
     def natural_span(self, n: int):
         """(lo, L, hneg) of the natural window a rank keeps of size n's
@@ -304,10 +327,11 @@ def _commit_group(mats: list, n: int, s: int, device, memory: MemoryConfig,
     ``parallel/commit.py``).  Returns (the natural values when
     ``keep_natural``: all of them, or where the 2^n rows split this
     rank's window with ``halo`` = (hneg, hpos) rows around it, then its
-    (lo, L, hneg), else None; coefficients; committed evaluations or
-    None when streamed; tree; this rank's ``Share``).  Without
-    ``keep_natural`` a big group of tensor blocks is interpolated in
-    place."""
+    (lo, L, hneg), else None, as for a streamed group stacked here,
+    which keeps none; coefficients; committed evaluations or None when
+    streamed; tree; this rank's ``Share``).  A streamed group of tensor
+    blocks is interpolated in place where the matrix is not a block of
+    the caller's."""
     split_n = pcommit.shards_rows(mesh, 1 << n)
     if row_windows and split_n:
         C = sum(int(m.shape[0]) for m in mats)
@@ -315,20 +339,26 @@ def _commit_group(mats: list, n: int, s: int, device, memory: MemoryConfig,
         return (None, None) + pcommit.commit_windows(mesh, mats, n, s) + \
             (sh,)
     host = all(isinstance(m, np.ndarray) for m in mats)
+    given = {m.data_ptr() for m in mats if isinstance(m, torch.Tensor)}
     mat = _stack(mats, 1 << n, device)
-    nat, span = (None, None)
-    if keep_natural:
-        nat, span = (_natural_window(mesh, mat, n, halo) if split_n
-                     else (mat, None))
     C = int(mat.shape[0])
     sh = pcommit.share(mesh, C, 1 << s)
+    # nothing streams under a mesh, as in the JAX package
+    big = sh.size == 1 and (mesh is None or mesh.size == 1) and \
+        memory.streams(C * (4 << s))
+    # a matrix stacked here (not the caller's own block: a trace is read,
+    # never modified) is interpolated in place when it streams, and its
+    # natural values are then evaluated again when read
+    mine = (not keep_natural or mat.data_ptr() not in given) and not host
+    nat, span = (None, None)
+    if keep_natural and not (big and mine):
+        nat, span = (_natural_window(mesh, mat, n, halo) if split_n
+                     else (mat, None))
     if sh.size > 1:
         return (nat, span) + pcommit.commit_group(mesh, mat, n, s, natural) \
             + (sh,)
-    # nothing streams under a mesh, as in the JAX package
-    big = (mesh is None or mesh.size == 1) and memory.streams(C * (4 << s))
     if natural and big and memory.streams(C * (4 << n)):
-        mat = _interpolate_big(mat, n, in_place=not (keep_natural or host))
+        mat = _interpolate_big(mat, n, in_place=mine)
     elif natural:
         mat = cfft.interpolate(mat[:, dev_layout_to_natural(n, mat.device)])
     if big:

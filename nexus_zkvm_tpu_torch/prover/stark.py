@@ -515,6 +515,18 @@ def _composition_cols(c: int, n: int, info, plan: Plan) -> dict:
                 if info.n_logup_cols else None)}
 
 
+def _streams(memory: MemoryConfig, infos, log_sizes, blowup: int) -> bool:
+    """Whether a committed trace tree streams: a role's columns of every
+    component of one size, on its blown-up domain, over the threshold."""
+    cols = {}
+    for info, n in zip(infos, log_sizes):
+        got = cols.get(n, (0, 0, 0))
+        cols[n] = (got[0] + info.n_main, got[1] + info.n_pre,
+                   got[2] + 4 * info.n_logup_cols)
+    return any(memory.streams(c * (4 << (n + blowup)))
+               for n, roles in cols.items() for c in roles)
+
+
 def _comp_passes(memory: MemoryConfig, info, n: int, mesh) -> int:
     """Row passes of component (info, 2^n rows)'s composition: its 4x
     domain, or this rank's window of it, by the memory budget."""
@@ -627,8 +639,10 @@ def prove(components, log_sizes, main_traces, channel,
     never the proof (None: `MemoryConfig.for_device` of ``device`` and
     the active mesh); the thresholds and the route taken are noted on
     the active profile (``memory``: the MemoryConfig's fields;
-    ``cache_released``: whether a composition in passes on a card had
-    the caching allocator emptied at the start and before it;
+    ``cache_released``: whether a proof on a card whose composition
+    runs in passes or one of whose trace trees streams had the
+    caching allocator emptied at its start, before the interaction's
+    commit, before the composition and at its end;
     ``streamed``: the (role, eval size) trees committed column-streamed;
     ``composition_passes``: each component's row passes; ``sharded``:
     the (role, eval size) trees, and ("fri", size) layer trees, committed
@@ -651,13 +665,15 @@ def prove(components, log_sizes, main_traces, channel,
     infos = [component_info(c) for c in components]
     plan = build_plan(log_sizes, infos, config)
     blowup = config.fri.log_blowup
-    # a composition in row passes: the trace crowds the card, so the
-    # caching allocator's free blocks (the last proof's, then those of
-    # the phases before the composition) go back to the card, where
-    # blocks of the next phase's sizes can be carved
-    tight = dev.type == "cuda" and any(
+    # a composition in row passes or a streamed tree: the trace crowds
+    # the card, so the caching allocator's free blocks (the last
+    # proof's, then those of the phases before the interaction's commit
+    # and the composition) go back to the card, where blocks of the next
+    # phase's sizes can be carved
+    tight = dev.type == "cuda" and (any(
         _comp_passes(memory, info, n, mesh) > 1
         for info, n in zip(infos, log_sizes))
+        or (mesh is None and _streams(memory, infos, log_sizes, blowup)))
     note("cache_released", tight)
     if tight:
         torch.cuda.empty_cache()
@@ -708,12 +724,17 @@ def prove(components, log_sizes, main_traces, channel,
                                             rc_main, dev, mesh)
         claimed_sums = list(claimed)
         channel.mix_felts(claimed.astype(np.uint32))
+        # (a streamed group keeps none: its rows were evaluated from the
+        # coefficients a component at a time)
         note("natural_windows", [
-            (role, n, rc.natural_span(n) or (0, 1 << n, 0), tuple(t.shape))
+            (role, n, rc.natural_span(n) or (0, 1 << n, 0),
+             (len(idxs), 1 << n) if t is None else tuple(t.shape))
             for role, rc in (("pre", rc_pre), ("main", rc_main))
-            for n, (_idxs, t) in rc.natural.items()])
+            for n, (idxs, t) in rc.natural.items()])
         rc_main.natural = rc_pre.natural = None
     with scope("commit:inter"):
+        if tight:
+            torch.cuda.empty_cache()
         # each component's (B, L, 4) columns are freed as their (4B, L)
         # copy is made, and the commitment takes the copies over (a
         # rank's window where the mesh splits the rows: L = M/D)
@@ -851,6 +872,12 @@ def prove(components, log_sizes, main_traces, channel,
         for (role, s), d in zip(keys, decs):
             openings[role].append((s, d))
         fri_proof = fri.fri_proof_from_decs(fri_state, decs[len(keys):])
+    if tight:
+        # leave the card as the proof found it: its buffers freed, the
+        # caching allocator's free blocks back to the card, where the
+        # next proof's fills (before its own release) carve theirs
+        rcs = rc_pre = rc_main = rc_inter = fri_state = items = None
+        torch.cuda.empty_cache()
 
     return Proof(log_sizes=list(log_sizes), roots=roots,
                  claimed_sums=claimed_sums, sampled=sampled,

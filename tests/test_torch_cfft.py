@@ -145,10 +145,14 @@ def test_pass_plan_on_the_card(n):
 
 # the largest transforms of the main path: the composition's LDE of 437
 # coefficient rows to 4x (one pass at 2^22 rows, 2^23, 2^24) and a
-# resident 2^23-row trace's interaction LDE; every output past 2^31
-# words, the 437-row ones past 2^32
+# resident 2^23-row trace's interaction LDE; segmented, the main and
+# interaction groups of four 2^22-row CPU components and the
+# interaction group of eight, transformed whole when nothing streams;
+# every output past 2^31 words, the 437-row ones and the groups past 2^32
 @pytest.mark.parametrize("rows,k,n", [(437, 22, 24), (438, 23, 25),
-                                      (437, 24, 26), (244, 23, 24)])
+                                      (437, 24, 26), (244, 23, 24),
+                                      (772, 22, 23), (976, 22, 23),
+                                      (1952, 22, 23)])
 def test_pass_plan_index_math_at_the_largest_shapes(rows, k, n):
     """csrc/cfft.cu's index math for the card's plan at these shapes: the
     grid fits the kernel's 2^31 - 1 blocks, a pass's tiles partition a

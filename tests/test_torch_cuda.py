@@ -91,6 +91,59 @@ def test_blake2s_leaves_past_2_32_words(dev):
     torch.cuda.empty_cache()
 
 
+def test_quotients_past_2_32_words_of_segments(dev):
+    """K3 and K11 over a size group wider than 2^32 words, as several
+    CPU components make one: a preprocessed column and 520 columns
+    (more than two 2^22-row segments' interaction columns) at 2^23
+    points, 4.4e9 words.  Only the last 8 columns are nonzero, so the
+    kernels' sums, which read every word, equal the plain versions' over
+    those columns alone, read past 2^32 words into the block."""
+    M, S = 1 << 23, 2
+    pre = rand(dev, (1, M), seed=1)
+    big = torch.zeros((520, M), dtype=torch.int32, device=dev)
+    big[512:] = rand(dev, (8, M), seed=2)
+    gcs = rand(dev, (S, 521, 4), seed=3)
+    consts = rand(dev, (S, 6, 4), seed=4)
+    xs, ys = circle.dev_committed_points(23, dev)
+    got = quotients.accumulate_blocks([pre, big], xs, ys, consts, gcs)
+    tail = gcs[:, [0] + list(range(513, 521))].contiguous()
+    assert torch.equal(got, quotients.accumulate_blocks_plain(
+        [pre, big[512:]], xs, ys, consts, tail))
+    acc = rand(dev, (S, M, 4), seed=5)
+    want = acc.clone()
+    quotients.colsum_fold(acc, big, gcs[:, 1:].contiguous(), False)
+    quotients.colsum_fold_plain(want, big[512:], gcs[:, 513:].contiguous(),
+                                False)
+    assert torch.equal(acc, want)
+    del big, acc, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("n,seg", [(838_900, 1), (3_355_438, 3)])
+def test_cpu_fill_of_a_segment_past_2_22_steps(dev, n, seg):
+    """K5 on a segment that starts past step 2^22 (clk0 = seg 2^22 + 1):
+    the fib guest in 2^22-step segments, a short second segment and the
+    last of four (its clk past 3 2^22); the fill equals the plain
+    version."""
+    from pathlib import Path
+    from nexus_zkvm_tpu_torch.machine import fill_dev
+    from nexus_zkvm_tpu_torch.machine.driver import build_components, _clog2
+    from nexus_zkvm_tpu_torch.sdk import Guest, LocalProver, encode_u32s
+    src = (Path(__file__).resolve().parents[1] / "examples" / "guests"
+           / "fib.s").read_text()
+    view, trace = LocalProver(Guest.from_asm(src), device="cpu").trace(
+        public_input=encode_u32s(n))
+    part = trace.split_by(1 << 22)[seg]
+    assert int(part.steps["clk"][0]) == (seg << 22) + 1
+    _c, _f, (lo, hi) = build_components(view, 1)
+    rows, prm = fill_dev.step_rows(part, view, _clog2(part.n_steps, lo=4),
+                                   lo, hi)
+    rows = from_u32(rows, dev)
+    got = fill_dev.cpu_fill(rows, prm)
+    want = fill_dev.cpu_fill_plain(rows, prm)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_memory_config_for_the_card(dev):
     """``MemoryConfig.for_device`` on the card: the card fractions of its
     total memory, over the mesh ranks on the card."""

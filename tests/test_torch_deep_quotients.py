@@ -293,11 +293,17 @@ def test_k3_plan_matches_the_kernel():
 
 @pytest.mark.parametrize("rows,log_m,S", [((1, 193, 244), 23, 2),
                                           ((193, 244), 24, 2),
-                                          ((1, 193, 244), 24, 3)])
+                                          ((1, 193, 244), 24, 3),
+                                          ((1, 772, 976), 23, 2),
+                                          ((1544, 1952), 23, 2),
+                                          ((386, 488), 24, 3)])
 def test_k3_plan_addresses_at_the_largest_groups(rows, log_m, S):
     """K3's plan at the largest size groups: the fib proof's 438 columns
     at 2^23 points (a resident 2^22-row trace) and the main and
-    interaction trees at 2^24 (a resident 2^23-row trace).  The grid
+    interaction trees at 2^24 (a resident 2^23-row trace); segmented,
+    the columns of four and eight 2^22-row CPU components at 2^23
+    points and of two 2^23-row ones at 2^24, a block of up to 1,952
+    columns (8.2 x 10^9 words: past 2^32) when nothing streams.  The grid
     fits 2^31 - 1 blocks, a stage's bulk copies expect fewer than 2^32
     bytes, and the first and last blocks' copies (column k of role
     block r from point p0: word k M + p0) lie inside their blocks, the

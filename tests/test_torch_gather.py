@@ -258,11 +258,14 @@ def test_plan_raises_at_2_31_words():
     assert words == (1 << 31) - (1 << 16) and units == words // GATHER_UNIT
 
 
-@pytest.mark.parametrize("rows,log_n", [(193, 24), (244, 24), (438, 25)])
+@pytest.mark.parametrize("rows,log_n", [(193, 24), (244, 24), (438, 25),
+                                        (772, 23), (976, 23), (1952, 23)])
 def test_emulated_addresses_at_the_largest_trees(rows, log_n):
     """The opened values of the largest resident trees (the main and
     interaction trees of a 2^23-row trace; 438 columns of 2^25 points
-    past it) at a proof's 108 positions: every source word the kernel
+    past it; segmented, the main and interaction trees of four 2^22-row
+    CPU components and the interaction tree of eight, held whole when
+    nothing streams) at a proof's 108 positions: every source word the kernel
     reads is the value's own, past 2^31 words (and 2^32 at 438 x 2^25)
     into the source, so its offsets are 64-bit (csrc/gather.cu)."""
     src = torch.empty((rows, 1 << log_n), dtype=torch.int32, device="meta")

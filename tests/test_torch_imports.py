@@ -44,6 +44,24 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_example_imports_no_jax_and_no_reference_package():
+    """examples/prove_fib_torch.py, imported (not run), loads the port
+    and nothing of JAX."""
+    probe = textwrap.dedent("""
+        import re, runpy, sys
+        runpy.run_path("examples/prove_fib_torch.py", run_name="probe")
+        bad = [m for m in sys.modules
+               if re.fullmatch(r"jax(\\..*)?|jaxlib(\\..*)?", m)
+               or re.fullmatch(r"nexus_zkvm_tpu(\\..*)?", m)]
+        assert "nexus_zkvm_tpu_torch.sdk" in sys.modules
+        print("leaked:", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs on it")
