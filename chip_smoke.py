@@ -2492,6 +2492,8 @@ MESH_SEED = 2029
 MESH_RANKS = 4
 FIB_MESH4_N = 104_850            # 524,260 steps: a 2^19-row CPU component
 MESH4_LOG = 19
+# fib at FIB_N (1,048,500 steps) in four 2^18-step segments on 2 ranks
+MESH_SEGMENT_LOG = 18
 
 
 def mesh_helpers(root: Path = ROOT):
@@ -2530,72 +2532,98 @@ def host_copy_gbps(device, nbytes: int = 1 << 28) -> dict:
 MESH_PEAK_RATIO = {2: 0.467, 4: 0.303}
 
 
-def _check_mesh_machine(path: str, n: int, recs, digest: str,
-                        log_rows: int, expected, single_peak, halo: tuple,
-                        phase: str = "parallel") -> None:
-    """Every rank's proof: bytes equal to the single process's (its
-    digest), equal on every rank, verified; nothing streamed; the main,
-    interaction and composition trees committed in row windows, and the
-    rank's window of the main group of its one 2^log_rows-row component
-    (the first) M/D rows; the interaction of every component with
-    lookups generated for its natural window [r·M/D, (r+1)·M/D) where
-    the mesh splits its M rows, else for all of them, and of the natural
-    values only that window kept, with ``halo`` = (hneg, hpos) rows
-    around it at 2^log_rows (the gen tape's); exactly the kernels
-    ``expected`` launched; its peak device memory within
-    MESH_PEAK_RATIO of the single process's ``single_peak`` (when one
-    was measured; emitted with its peak by phase); rank 0's calls of
-    every kernel wrapper at its shapes equal to their plain versions
-    (`RECORDED`, `RECORDED_BY_SHAPE`; torch_mesh.check_rank_kernels)."""
+def check_mesh_windows(where: str, rec, cpu_logs, halo: tuple) -> None:
+    """What one rank of a mesh machine proof (``rec``, from
+    torch_mesh.mesh_machine_rank) committed and held: nothing streamed;
+    the proof's first components are its CPU components (or machine2's
+    largest family), of 2^n rows for n in ``cpu_logs`` in turn; at each
+    of their sizes the main and interaction trees committed in row
+    windows over the mesh (and the composition's), and the rank's window
+    of the main group M/D rows of the 2^(n + 1) domain; the interaction
+    of every component with lookups, every CPU component among them,
+    generated for its natural window [r·M/D, (r+1)·M/D) where the mesh
+    splits its M rows, else for all of them; of the natural values only
+    that window kept, with ``halo`` = (hneg, hpos) rows around it at the
+    CPU components' size (the gen tapes'), and natural main values at
+    each of those sizes.  Needs no card: the CPU tests run it on their
+    ranks' records."""
     from nexus_zkvm_tpu_torch.parallel.commit import MIN_WINDOW
-    s = log_rows + 1
-    for rec in recs:
-        where = f"{path}/rank{rec['rank']}"
-        D, r, logs = rec["ranks"], rec["rank"], rec["log_sizes"]
-        if logs[0] != log_rows or logs.count(log_rows) != 1:
-            raise RuntimeError(f"{where}: components at 2^{logs}, not one "
-                               f"at 2^{log_rows} first")
-        if rec["proof_blake2s"] != digest or not rec["ranks_agree"]:
-            raise RuntimeError(f"{where}: the proof differs from the single "
-                               f"process's")
-        if not rec["verified"]:
-            raise RuntimeError(f"{where}: the proof does not verify")
-        got = {tuple(g) for g in rec["sharded"]}
-        if not {("main", s), ("inter", s)} <= got or \
-                not any(role == "comp" for role, _s in got) or \
-                rec["streamed"]:
-            raise RuntimeError(f"{where}: not committed in windows over the "
-                               f"mesh: {rec['sharded']}, streamed "
-                               f"{rec['streamed']}")
-        w = (1 << s) // D
-        main = [g for g in rec["mesh_windows"] if g[:2] == ("main", s)]
+    D, r, logs = rec["ranks"], rec["rank"], rec["log_sizes"]
+    k = len(cpu_logs)
+    if list(logs[:k]) != list(cpu_logs):
+        raise RuntimeError(f"{where}: components at 2^{logs}, not the CPU "
+                           f"components at 2^{list(cpu_logs)} first")
+    sizes = sorted(set(cpu_logs))
+    got = {tuple(g) for g in rec["sharded"]}
+    want = {(role, n + 1) for n in sizes for role in ("main", "inter")}
+    if not want <= got or not any(role == "comp" for role, _s in got) or \
+            rec["streamed"]:
+        raise RuntimeError(f"{where}: not committed in windows over the "
+                           f"mesh: {rec['sharded']}, streamed "
+                           f"{rec['streamed']}")
+    for n in sizes:
+        w = (1 << (n + 1)) // D
+        main = [g for g in rec["mesh_windows"] if tuple(g[:2]) == ("main",
+                                                                 n + 1)]
         if [tuple(g[2]) for g in main] != [(r * w, (r + 1) * w)] or \
                 main[0][4][1] != w:
             raise RuntimeError(f"{where}: holds {main}, not the window "
                                f"[{r * w}, {(r + 1) * w})")
 
-        def window(m):
-            return ((r * m // D, m // D) if m // D >= MIN_WINDOW
-                    else (0, m))
-        inter = [tuple(g) for g in rec["interaction_windows"]]
-        bad = [g for g in inter if (g[1], g[2] - g[1]) != window(
-            1 << logs[g[0]])]
-        if bad or not any(c == 0 for c, _lo, _hi in inter):
-            raise RuntimeError(f"{where}: interaction windows {bad} not the "
-                               f"rank's, or none of component 0: {inter}")
-        nat = rec["natural_windows"]
-        for role, n_, (lo, L, hneg), shape in nat:
-            m = 1 << n_
-            hn, hp = halo if n_ == log_rows else (hneg, shape[1] - hneg - L)
-            if (lo, L) != window(m) or hneg != hn or hp < 0 or \
-                    shape[1] != hn + L + hp or (L == m and (hneg or shape[1] != m)):
-                raise RuntimeError(f"{where}: natural {role} values at "
-                                   f"2^{n_} held as {(lo, L, hneg)}, "
-                                   f"{shape}, not the window {window(m)} "
-                                   f"with its halo")
-        if not any((g[0], g[1]) == ("main", log_rows) for g in nat):
-            raise RuntimeError(f"{where}: no natural main values at "
-                               f"2^{log_rows}: {nat}")
+    def window(m):
+        return ((r * m // D, m // D) if m // D >= MIN_WINDOW else (0, m))
+    inter = [tuple(g) for g in rec["interaction_windows"]]
+    bad = [g for g in inter if (g[1], g[2] - g[1]) != window(
+        1 << logs[g[0]])]
+    if bad or not set(range(k)) <= {c for c, _lo, _hi in inter}:
+        raise RuntimeError(f"{where}: interaction windows {bad} not the "
+                           f"rank's, or none of a CPU component: {inter}")
+    nat = rec["natural_windows"]
+    for role, n_, (lo, L, hneg), shape in nat:
+        m = 1 << n_
+        hn, hp = halo if n_ in sizes else (hneg, shape[1] - hneg - L)
+        if L == m:                  # held whole, without a halo
+            hn, hp = 0, 0
+        if (lo, L) != window(m) or hneg != hn or hp < 0 or \
+                shape[1] != hn + L + hp:
+            raise RuntimeError(f"{where}: natural {role} values at "
+                               f"2^{n_} held as {(lo, L, hneg)}, "
+                               f"{shape}, not the window {window(m)} "
+                               f"with its halo")
+    held = {n_ for role, n_, _span, _shape in nat if role == "main"}
+    if not set(sizes) <= held:
+        raise RuntimeError(f"{where}: no natural main values at "
+                           f"2^{sorted(set(sizes) - held)}: {nat}")
+
+
+def _check_mesh_machine(path: str, n: int, recs, digest: str,
+                        cpu_logs, expected, single_peak, halo: tuple,
+                        phase: str = "parallel",
+                        kernels_held: bool = True) -> None:
+    """Every rank's proof: bytes equal to the single process's (its
+    digest), equal on every rank, verified; its windows as
+    `check_mesh_windows` holds them (the CPU components at 2^n for n in
+    ``cpu_logs``, first, and no other component at their sizes;
+    ``halo`` at their size); exactly the kernels
+    ``expected`` launched; its peak device memory within
+    MESH_PEAK_RATIO of the single process's ``single_peak`` (when one
+    was measured; emitted with its peak by phase); with
+    ``kernels_held``, rank 0's calls of every kernel wrapper at its
+    shapes equal to their plain versions (`RECORDED`,
+    `RECORDED_BY_SHAPE`; torch_mesh.check_rank_kernels)."""
+    for rec in recs:
+        where = f"{path}/rank{rec['rank']}"
+        D, r = rec["ranks"], rec["rank"]
+        rest = rec["log_sizes"][len(cpu_logs):]
+        if set(rest) & set(cpu_logs):
+            raise RuntimeError(f"{where}: components at 2^{rest} beside "
+                               f"the CPU components at 2^{list(cpu_logs)}")
+        if rec["proof_blake2s"] != digest or not rec["ranks_agree"]:
+            raise RuntimeError(f"{where}: the proof differs from the single "
+                               f"process's")
+        if not rec["verified"]:
+            raise RuntimeError(f"{where}: the proof does not verify")
+        check_mesh_windows(where, rec, cpu_logs, halo)
         check_path(where, rec["launches"], expected)
         ratio = None
         if single_peak is not None:
@@ -2606,18 +2634,21 @@ def _check_mesh_machine(path: str, n: int, recs, digest: str,
                                    f"process's {single_peak} (at most "
                                    f"{MESH_PEAK_RATIO[D]})")
         wk = rec["window_kernels"]
-        if r == 0 and (not wk or not all(
+        if kernels_held and r == 0 and (not wk or not all(
                 wk.get(k) for k in (*RECORDED, *RECORDED_BY_SHAPE))):
             raise RuntimeError(f"{where}: a kernel wrapper not held at the "
                                f"rank's shapes: {wk}")
+        s = min(cpu_logs) + 1
         emit({"phase": phase, "path": path, "n": n, **{
             k: rec[k] for k in ("rank", "ranks", "backend", "cpu_log_rows",
-                                "log_sizes", "proof_blake2s", "proof_bytes",
-                                "warm", "prove_s", "prove_cold_s",
-                                "cold_phase_s", "verify_s", "peak_bytes",
-                                "phase_peak_bytes", "sharded", "streamed",
-                                "interaction_windows", "phase_s",
-                                "launches", "window_kernels")},
+                                "segment_log", "log_sizes", "proof_blake2s",
+                                "proof_bytes", "warm", "prove_s",
+                                "prove_cold_s", "cold_phase_s", "verify_s",
+                                "peak_bytes", "phase_peak_bytes",
+                                "reserved_bytes", "phase_reserved_bytes",
+                                "cold_peak_bytes", "cold_reserved_bytes",
+                                "sharded", "streamed", "interaction_windows",
+                                "phase_s", "launches", "window_kernels")},
               "single_process_peak_bytes": single_peak,
               "peak_ratio": ratio,
               "mesh_windows": [[role, s_, rows, cols]
@@ -2659,14 +2690,17 @@ def commit_bound(C: int, log_n: int, ranks: int, gbps: dict) -> dict:
             "copy_gbps": gbps, "transport": "gloo through host memory"}
 
 
-def _single_proof(tm, src: str, n: int) -> dict:
-    """The fib guest at ``n`` proved by one process alone on the card, a
-    fresh one as each mesh rank is, through the ranks' own program
-    (``mesh_machine_rank`` on the local mesh: a cold proof, then the
-    warm one whose seconds and peak device memory it reports)."""
+def _single_proof(tm, src: str, n: int, segment_log: int | None = None,
+                  timeout: float = 300) -> dict:
+    """The fib guest at ``n`` (in 2^segment_log-step segments, when
+    given) proved by one process alone on the card, a fresh one as each
+    mesh rank is, through the ranks' own program (``mesh_machine_rank``
+    on the local mesh: a cold proof, then the warm one whose seconds and
+    peak device memory it reports)."""
     from nexus_zkvm_tpu_torch.sdk import encode_u32s
     rec, = tm.spawn(tm.mesh_machine_rank, 1, src, encode_u32s(n), "cuda",
-                    None, True, False, device="cuda", timeout=300)
+                    None, True, False, False, segment_log, device="cuda",
+                    timeout=timeout)
     if not rec["verified"]:
         raise RuntimeError(f"the single process's proof at n = {n} does "
                            f"not verify")
@@ -2708,7 +2742,16 @@ def phase_parallel(fib_digest: str, m2_digest: str, m2_expected) -> None:
       at 2^20 rows in place of the CPU component), the kernels of
       ``m2_expected`` launched, rank 0's calls of its cold proof equal
       to their plain versions (phases prefixed "mesh_m2_"), its peak a
-      rank and by phase reported."""
+      rank and by phase reported;
+    - on the same 2 ranks (their first proof), the fib guest at n =
+      FIB_N in four 2^MESH_SEGMENT_LOG-step segments
+      (``machine.prove_machine(...,
+      segment_log=)``, four CPU components; a cold proof, then a warm
+      one): on every rank the bytes of one fresh process's proof of the
+      same, verified, every CPU segment in windows as above, the
+      resident kernels launched, the peak within MESH_PEAK_RATIO of that
+      process's, rank 0's calls of its cold proof equal to their plain
+      versions (phases prefixed "mesh_seg_")."""
     import gc
     import torch
     import nexus_zkvm_tpu_torch as T
@@ -2748,11 +2791,15 @@ def phase_parallel(fib_digest: str, m2_digest: str, m2_expected) -> None:
     if single[FIB_N]["proof_blake2s"] != fib_digest:
         raise RuntimeError("the fib 2^20 proof differs from phase machine's")
     digest19 = single[FIB_MESH4_N]["proof_blake2s"]
+    single_seg = _single_proof(tm, src, FIB_N, MESH_SEGMENT_LOG)
     emit({"phase": "parallel_single", **{
-        f"2^{rec['cpu_log_rows']}": {"n": n, **{k: rec[k] for k in (
-            "peak_bytes", "phase_peak_bytes", "prove_s", "prove_cold_s",
-            "proof_blake2s")}}
-        for n, rec in single.items()}})
+        key: {"n": n, "segment_log": rec["segment_log"],
+              "log_sizes": rec["log_sizes"], **{k: rec[k] for k in (
+                  "peak_bytes", "phase_peak_bytes", "reserved_bytes",
+                  "prove_s", "prove_cold_s", "phase_s", "proof_blake2s")}}
+        for key, n, rec in [(f"2^{r['cpu_log_rows']}", n, r)
+                            for n, r in single.items()]
+        + [(f"2^{MESH_SEGMENT_LOG} x {SEGMENTS}", FIB_N, single_seg)]}})
     cbound = commit_bound(C, log_n, MESH_RANKS, host_copy_gbps(device))
     torch.cuda.empty_cache()
     expected = set(kernels.launch_counts()) - set(MEMORY_MODE)
@@ -2793,26 +2840,39 @@ def phase_parallel(fib_digest: str, m2_digest: str, m2_expected) -> None:
               "collectives": coll, "slice_equal": True,
               "slice_sharded": sl["sharded"], "spawn_wall_s": wall})
     _check_mesh_machine(f"parallel/gloo{MESH_RANKS}", FIB_MESH4_N,
-                        [m for *_r, m in recs], digest19, MESH4_LOG, expected,
-                        single[FIB_MESH4_N]["peak_bytes"], halo_v1)
+                        [m for *_r, m in recs], digest19, [MESH4_LOG],
+                        expected, single[FIB_MESH4_N]["peak_bytes"], halo_v1)
     del recs, commit, coll, sl
 
+    # the segmented proof first: a rank keeps the device constants of
+    # the proofs it made before, and its peak is held to a fresh
+    # process's with the least margin (0.457 of 0.467, PERF.md §6)
     t0 = time.perf_counter()
     recs = tm.spawn(tm.checks_rank, 2, [
+        (tm.mesh_machine_rank, (src, encode_u32s(FIB_N), device, None,
+                                True, True, False, MESH_SEGMENT_LOG)),
         (tm.mesh_machine_rank, (src, encode_u32s(FIB_N), device, None, True,
                                 True)),
         (tm.mesh_machine_rank, (src, encode_u32s(FIB_N), device, None,
-                                True, True, True))], backend="gloo",
-                    device=device, timeout=600)
+                                True, True, True))],
+                    backend="gloo", device=device, timeout=600)
     emit({"phase": "parallel_gloo2", "spawn_wall_s":
           time.perf_counter() - t0})
-    _check_mesh_machine("parallel/gloo2", FIB_N, [v1 for v1, _m2 in recs],
-                        fib_digest, FULL_LOG, expected,
-                        single[FIB_N]["peak_bytes"], halo_v1)
+    _check_mesh_machine("parallel/gloo2/segments", FIB_N,
+                        [seg for seg, _v1, _m2 in recs],
+                        single_seg["proof_blake2s"],
+                        [MESH_SEGMENT_LOG] * SEGMENTS, expected,
+                        single_seg["peak_bytes"], halo_v1,
+                        "parallel_segments")
+    _check_mesh_machine("parallel/gloo2", FIB_N,
+                        [v1 for _seg, v1, _m2 in recs], fib_digest,
+                        [FULL_LOG], expected, single[FIB_N]["peak_bytes"],
+                        halo_v1)
     # no single process's machine2 peak to hold a rank's to: reported
     _check_mesh_machine("parallel/gloo2/machine2", FIB_N,
-                        [m2 for _v1, m2 in recs], m2_digest, FULL_LOG,
-                        m2_expected, None, halo_m2, "parallel_machine2")
+                        [m2 for _seg, _v1, m2 in recs], m2_digest,
+                        [FULL_LOG], m2_expected, None, halo_m2,
+                        "parallel_machine2")
 
 
 def fib_tapes(machine2: bool = False, segments: int = 1):
@@ -3372,23 +3432,52 @@ def time_mesh() -> None:
               "cold_phase_s": recs[0].get("cold_phase_s")})
 
 
+def _check_fit(where: str, recs, total: int) -> list:
+    """Each rank's reserved peak, of its cold and its warm proof, within
+    FIT_SHARE of its card's ``total`` bytes; returns the shares."""
+    shares = []
+    for rec in recs:
+        reserved = max(rec["reserved_bytes"], rec["cold_reserved_bytes"])
+        shares.append(reserved / total)
+        if reserved > FIT_SHARE * total:
+            raise RuntimeError(f"{where}/rank{rec['rank']}: reserved "
+                               f"{reserved} bytes, over {FIT_SHARE} of the "
+                               f"card's {total}")
+    return shares
+
+
 def mesh_nccl() -> None:
-    """The fib guest at a 2^20-row CPU component over NCCL, a rank a
-    card, on 4 ranks (with four cards or more) and then on 2: every
-    rank's proof byte-equal to one fresh process's (`_single_proof`,
-    which sets the peak each rank is held to), verified, nothing
-    streamed, its trees in windows, every kernel of the resident path
-    launched, rank 0's kernel calls equal to their plain versions at
-    its shapes (`_check_mesh_machine`).  The one NCCL check of the
-    script: the default run, on one card, has no NCCL mesh."""
+    """The prover over NCCL, a rank a card.  The fib guest at a 2^20-row
+    CPU component on 4 ranks (with four cards or more) and then on 2:
+    every rank's proof byte-equal to one fresh process's
+    (`_single_proof`, which sets the peak each rank is held to),
+    verified, nothing streamed, its trees in windows, every kernel of
+    the resident path launched, rank 0's kernel calls equal to their
+    plain versions at its shapes (`_check_mesh_machine`).  Then, with
+    four cards, the JAX package's 2^24 mesh configuration, fib at
+    FIB_SEGMENTS_N (16,777,200 steps) on 4 ranks, each a cold proof and
+    a warm one, every rank's reserved peak within FIT_SHARE of its card:
+    (i) in four 2^SEGMENT_LOG-step segments, byte-equal to one fresh
+    process's proof of the same on one card (what phase
+    ``machine_segments`` proves), its prove seconds beside the ranks';
+    (ii) as one 2^24-row CPU component, which one card cannot hold: no
+    single proof to compare with, so every rank verifies, the ranks'
+    digests agree, a tampered opening and another program's claim are
+    rejected, and each rank holds its window of 2^25/4 rows of the main
+    group.  The one NCCL check of the script: the default run, on one
+    card, has no NCCL mesh."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.air.tape import gen_tape
     from nexus_zkvm_tpu_torch.sdk import encode_u32s
     cards = torch.cuda.device_count()
     if cards < 2:
         raise RuntimeError(f"{cards} card: NCCL needs a card for each rank")
     kernels.build()
     tm = mesh_helpers()
+    comps, rel = fib_tapes()
+    halo = gen_tape(comps[0], PARITY_LOG, rel).halo()
+    del comps, rel
     src = (ROOT / "examples" / "guests" / "fib.s").read_text()
     single = _single_proof(tm, src, FIB_N)
     emit({"phase": "parallel_single", "2^20": {k: single[k] for k in (
@@ -3399,8 +3488,49 @@ def mesh_nccl() -> None:
                         "cuda", None, True, True, backend="nccl",
                         device="cuda", timeout=300)
         _check_mesh_machine(f"parallel/nccl{ranks}", FIB_N, recs,
-                            single["proof_blake2s"], FULL_LOG, expected,
-                            single["peak_bytes"])
+                            single["proof_blake2s"], [FULL_LOG], expected,
+                            single["peak_bytes"], halo)
+    if cards < 4:
+        emit({"phase": "parallel_nccl_2^24", "cards": cards,
+              "skipped": "the 2^24 configuration needs four cards"})
+        return
+    total = torch.cuda.get_device_properties(0).total_memory
+    public = encode_u32s(FIB_SEGMENTS_N)
+    seg = _single_proof(tm, src, FIB_SEGMENTS_N, SEGMENT_LOG, timeout=900)
+    _check_fit("parallel_single/segments", [seg], total)
+    emit({"phase": "parallel_single", "segments": {
+        "n": FIB_SEGMENTS_N, "segment_log": SEGMENT_LOG, **{
+            k: seg[k] for k in ("log_sizes", "peak_bytes", "reserved_bytes",
+                                "cold_peak_bytes", "cold_reserved_bytes",
+                                "phase_peak_bytes", "phase_reserved_bytes",
+                                "prove_s", "prove_cold_s", "phase_s",
+                                "verify_s", "proof_blake2s")}}})
+    for name, segment_log, digest in (("segments", SEGMENT_LOG,
+                                       seg["proof_blake2s"]),
+                                      ("rows", None, None)):
+        t0 = time.perf_counter()
+        recs = tm.spawn(tm.mesh_machine_rank, 4, src, public, "cuda", None,
+                        True, False, False, segment_log, segment_log is None,
+                        backend="nccl", device="cuda", timeout=900)
+        wall = time.perf_counter() - t0
+        path = f"parallel/nccl4/2^24-{name}"
+        if digest is None:
+            # one card cannot hold the proof: the ranks agree, verify,
+            # and reject a tampered opening and another claim
+            digest = recs[0]["proof_blake2s"]
+        shares = _check_fit(path, recs, total)
+        cpu_logs = ([SEGMENT_LOG] * SEGMENTS if segment_log else
+                    [SEGMENT_LOG + 2])
+        _check_mesh_machine(path, FIB_SEGMENTS_N, recs, digest, cpu_logs,
+                            expected, None, halo, "parallel_nccl_2^24",
+                            kernels_held=False)
+        emit({"phase": "parallel_nccl_2^24", "path": path,
+              "proof_blake2s": digest, "spawn_wall_s": wall,
+              "reserved_share": shares, "total_memory": total,
+              "single_process": ({k: seg[k] for k in (
+                  "prove_s", "prove_cold_s", "peak_bytes",
+                  "reserved_bytes")} if segment_log else None),
+              "tampered_rejected": segment_log is None})
 
 
 def gpu_name_and_limit() -> str:

@@ -129,7 +129,8 @@ class Mesh:
 
     def broadcast(self, t: torch.Tensor, root: int) -> torch.Tensor:
         """Rank ``root``'s ``t`` on every rank, on ``t``'s device (the
-        other ranks pass a tensor of the same shape and dtype to fill)."""
+        other ranks pass a tensor of the same shape and dtype, which is
+        filled and returned; the root gets ``t`` back)."""
         if self.size == 1:
             return t
         buf = self._send(t, copy=self.rank == root)
@@ -138,7 +139,9 @@ class Mesh:
             dist.get_global_rank(self.group, root)
         for lo, hi in _pieces(flat.numel(), _PIECE):
             dist.broadcast(flat[lo:hi], src, group=self.group)
-        return buf.to(t.device)
+        if buf is not t and self.rank != root:
+            t.copy_(buf)
+        return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(k, ...) on every rank -> (size * k, ...) on ``t``'s device:

@@ -83,6 +83,8 @@ __all__ = ["prove", "verify", "Proof", "oods_dot", "oods_dot_plain",
            "oods_dot_groups", "oods_dot_groups_plain", "oods_plan"]
 
 ROLE_ORDER = ("pre", "main", "inter", "comp")
+# columns a mesh rank's composition LDE evaluates at once
+MESH_LDE_COLS = 16
 _QM31_BASIS = [np_qm31(*(np.uint64(1) if t == i else np.uint64(0)
                          for t in range(4))) for i in range(4)]
 
@@ -547,7 +549,8 @@ def _composition(components, infos, plan, log_sizes, relations,
     1/passes of its natural columns exist at once.  Under ``mesh`` a
     rank composes its window of each 4x domain that splits
     (``parallel.commit.window``), in passes by the window's bytes, its
-    LDE in column chunks whose coefficients come from their owners
+    LDE in chunks of MESH_LDE_COLS columns whose coefficients come from
+    their owners
     (`RoleCommitment.coeff_source`); the buckets' windows are gathered
     before they are combined.  The pass counts are noted on the active
     profile as ``composition_passes``."""
@@ -564,7 +567,11 @@ def _composition(components, infos, plan, log_sizes, relations,
         passes = _comp_passes(memory, info, n, mesh)
         all_passes.append(passes)
         hneg, hpos = domain_halo(info)
-        chunk = memory.chunk_cols(ev) if passes > 1 or mesh else None
+        # a mesh rank evaluates each chunk on the whole 4x domain and
+        # keeps only its window of it: the least chunk a streamed tree
+        # takes
+        chunk = (MESH_LDE_COLS if mesh is not None and w1 - w0 < N else
+                 memory.chunk_cols(ev) if passes > 1 or mesh else None)
         sources = {role: None if x is None else
                    (*rcs[x[0]].coeff_source(x[1], chunk or len(x[1])),
                     len(x[1]))

@@ -13,8 +13,9 @@ that raises ends the call with its traceback, and the other ranks are
 stopped.  CPU ranks run one thread each.
 
 The rank programs below are the mesh checks of
-tests/test_torch_parallel.py, tests/test_torch_cuda.py and
-chip_smoke.py's ``parallel`` phase; nothing here imports JAX.
+tests/test_torch_parallel.py, tests/test_torch_mesh_segments.py,
+tests/test_torch_cuda.py and chip_smoke.py's ``parallel`` phase and
+``--mesh-nccl`` mode; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -291,30 +292,45 @@ def mesh_slice_rank(mesh, k_squares: int, log_n: int, cfg,
 def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
                       config=None, warm: bool = True,
                       check_kernels: bool = False,
-                      machine2: bool = False) -> dict:
+                      machine2: bool = False, segment_log: int | None = None,
+                      tamper: bool = False) -> dict:
     """The guest of assembly ``src`` on ``public`` through LocalProver
     under the mesh (``machine2``: its trace through
-    ``machine2.prove_machine2``): a cold proof (``warm``; its phases'
-    seconds; with ``check_kernels``, rank 0 holds its kernel calls at
-    its shapes to their plain versions, `check_rank_kernels`, phases
-    prefixed "mesh_" or "mesh_m2_"), then a profiled one with its launch
-    counts (set to 0 just before it), its peak device memory, in all
-    and by top-level phase, and what the rank holds of
-    each group (``mesh_windows``), of the interaction
-    (``interaction_windows``) and of the natural values
-    (``natural_windows``); verify; the proof digests of every rank,
-    gathered, must agree.  With ``warm`` False the one proof is the
-    profiled one."""
+    ``machine2.prove_machine2``; ``segment_log``: emulated by
+    ``LocalProver.trace``, then ``machine.prove_machine(...,
+    segment_log=)``, every rank emulating and filling every segment): a
+    cold proof (``warm``; its phases' seconds and its peak device
+    memory, allocated and reserved; with ``check_kernels``, rank 0
+    holds its kernel calls at its shapes to their plain versions,
+    `check_rank_kernels`, phases prefixed "mesh_", "mesh_m2_" or
+    "mesh_seg_"), then a profiled one with its launch counts (set to 0
+    just before it), its peak device memory, allocated and reserved, in
+    all and by top-level phase, and what the rank holds of each group
+    (``mesh_windows``), of the interaction (``interaction_windows``)
+    and of the natural values (``natural_windows``); verify (with
+    ``tamper``, a tampered opening and another program's claim must
+    fail it: chip_smoke's ``rejects_tampering``); the proof digests of
+    every rank, gathered, must agree.  With ``warm`` False the one proof
+    is the profiled one."""
     from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.machine import prove_machine
     from nexus_zkvm_tpu_torch.machine2 import prove_machine2, verify_machine2
     from nexus_zkvm_tpu_torch.parallel import use_mesh
     from nexus_zkvm_tpu_torch.prover import PcsConfig
     from nexus_zkvm_tpu_torch.sdk import Guest, LocalProver, proof_to_bytes
     from nexus_zkvm_tpu_torch.utils.device import to_u32
-    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    from nexus_zkvm_tpu_torch.utils.profile import profiled, scope
     cuda = torch.device(device).type == "cuda"
     prover = LocalProver(Guest.from_asm(src), config, device=device)
-    if machine2:
+    if segment_log is not None:
+        def prove():
+            with scope("emulate"):
+                view, trace = prover.trace(public_input=public)
+            return view, prove_machine(view, trace, prover.config,
+                                       segment_log=segment_log,
+                                       device=device)
+        verify = prover.verify
+    elif machine2:
         view2, trace2 = prover.trace(public_input=public)
         cfg = config or PcsConfig()
 
@@ -328,22 +344,30 @@ def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
             return prover.prove_with_input(public_input=public)
         verify = prover.verify
     cold_s, cold_phases, window_kernels = None, None, None
+    cold_peaks = None
     with use_mesh(mesh):
         if warm:
             def cold():
-                nonlocal cold_s, cold_phases
+                nonlocal cold_s, cold_phases, cold_peaks
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
                 with profiled() as cprof:
                     t0 = time.perf_counter()
                     prove()
                     _sync(device)
                     cold_s = time.perf_counter() - t0
                 cold_phases = cprof.times
+                if cuda:
+                    cold_peaks = [torch.cuda.max_memory_allocated(),
+                                  torch.cuda.max_memory_reserved()]
             if check_kernels and mesh.rank == 0:
                 # timed on the card on 2 ranks: rank 0's window shapes
                 # of the fib 2^20 proof, PERF.md's mesh rows
                 window_kernels = check_rank_kernels(
-                    cold, cuda and mesh.size == 2 and not machine2,
-                    "mesh_m2_" if machine2 else "mesh_")[1]
+                    cold, cuda and mesh.size == 2 and not machine2
+                    and segment_log is None,
+                    "mesh_m2_" if machine2 else
+                    "mesh_seg_" if segment_log is not None else "mesh_")[1]
             else:
                 cold()
             # every rank starts the measured proof together
@@ -361,9 +385,14 @@ def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
         launches = kernels.launch_counts()
     peak = max([torch.cuda.max_memory_allocated(),
                 *prof.peaks.values()]) if cuda else None
+    reserved = max([torch.cuda.max_memory_reserved(),
+                    *prof.reserved.values()]) if cuda else None
     t0 = time.perf_counter()
     ok = verify(view, proof)
     verify_s = time.perf_counter() - t0
+    if tamper:
+        import chip_smoke
+        chip_smoke.rejects_tampering(verify, view, proof)
     blob = proof_to_bytes(proof)
     digest = proof_digest(blob)
     words = torch.from_numpy(np.frombuffer(bytes.fromhex(digest), np.int32)
@@ -371,12 +400,17 @@ def mesh_machine_rank(mesh, src: str, public: bytes, device="cuda",
     every = {bytes(to_u32(d)).hex()
              for d in mesh.all_gather(words[None]).unbind(0)}
     return {"rank": mesh.rank, "ranks": mesh.size, "backend": mesh.backend,
-            "machine2": machine2, "cpu_log_rows": proof.stark.log_sizes[0],
+            "machine2": machine2, "segment_log": segment_log,
+            "cpu_log_rows": proof.stark.log_sizes[0],
             "log_sizes": list(proof.stark.log_sizes),
             "proof_blake2s": digest, "proof_bytes": len(blob),
             "ranks_agree": every == {digest}, "verified": ok, "warm": warm,
             "prove_s": prove_s, "prove_cold_s": cold_s, "verify_s": verify_s,
             "peak_bytes": peak, "phase_peak_bytes": prof.peaks,
+            "reserved_bytes": reserved, "phase_reserved_bytes": prof.reserved,
+            "cold_peak_bytes": cold_peaks and cold_peaks[0],
+            "cold_reserved_bytes": cold_peaks and cold_peaks[1],
+            "tampered_rejected": tamper,
             "sharded": prof.notes["sharded"],
             "streamed": prof.notes["streamed"],
             "mesh_windows": prof.notes["mesh_windows"],
