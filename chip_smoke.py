@@ -36,8 +36,13 @@ Then segmented proofs (SEGMENTED_ROUTES: a route name ending in
 ``_s<k>`` proves in 2^k-step segments): fib at 2^24 steps in 2^21-,
 2^22- and 2^23-step segments by the default route and STREAM_FORCED's,
 and at 2^25 steps in 2^22-step segments, the proofs of one (steps,
-segment log) byte-equal; ``LOG:ROUTE`` arguments run only those
-(``--time-memory 24:default_s22``).
+segment log) byte-equal; then machine2's routes (MACHINE2_ROUTES: a
+route name starting ``m2_``): the fib guest through ``prove_machine2``
+with its largest family, ex_alu, at 2^21, 2^22 and 2^23 rows by the
+card's default route and `machine2_forced`'s, and at 16,777,200 steps
+(ex_alu at 2^24) in one proof by the default route, each with the
+process's peak resident host memory; ``LOG:ROUTE`` arguments run only
+those (``--time-memory 24:default_s22``, ``23:m2_default``).
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -88,14 +93,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              equal.  Then the keccak guest (``KECCAK_SRC``, one keccak-f
              permutation) the same way (`phase_keccak_parity`): its
              keccak component's real rows through K7's pieces.
+5a. selftest — the prover's self-test (``selftest=True``) on the fib
+             guest at n = 10 through machine v1: the same bytes as
+             without it, no OODS sample mismatch, every component OK and
+             the total equal to the composition's sampled value, read
+             from the returned report; then with the CPU component's
+             domain accumulator moved by one: BAD on it alone, its
+             constraints equal one by one (the plain tape interpreter
+             on the card's tensors).
 5b. machine2 — the same fib guest and n through
              ``machine2.prove_machine2`` on the card (default PcsConfig
              and MemoryConfig): the families ex_alu at (51, 2^20) and
              ex_branch at (54, 2^18) filled on the host (numpy, scope
              ``f:machine2``), K7 on the 12 families' generated tapes; a
-             cold, a warm and a profiled prove, verify, reject a tampered
-             opening, another claim, the exit code flipped and the proof
-             under machine v1's verifier; the launches must be
+             cold and a warm, profiled prove (`machine2_prove`), verify,
+             reject a tampered opening, another claim, the exit code
+             flipped and the proof under machine v1's verifier; the
+             launches must be
              MACHINE2_KERNELS (no K5, none of the memory mode's three);
              rows/s beside phase 5's.  One more proof has its calls of
              K3, K4 and K6-K9 recorded and each run again through the kernel
@@ -107,7 +121,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              through machine2 on the CPU and the card, byte-equal; the
              constraint harness (``air.testing``) on the n = 10 machine2
              traces on the card finds no violation.
-5d. cli    — ``python -m nexus_zkvm_tpu_torch.cli prove`` of the fib
+5d. machine2_large — machine2 above 2^20 rows: the fib guest at n =
+             838,858 (ex_alu at (51, 2^22)) through ``prove_machine2``
+             by the card's default route (`machine2_prove`: cold, then
+             warm and profiled, verify, the four forgeries rejected),
+             the reserved peak within FIT_SHARE of the card and the
+             host's resident memory within FIT_SHARE of the host's;
+             then one more proof by that route and one by a route
+             forced to stream the main and interaction trees of 2^23
+             leaves and compose ex_alu in 4 passes, the first call of
+             each shape of K1-K4 and K6-K12 over the two held to its
+             plain version as the proof makes it (`check_inline`,
+             INLINE_M2): the same bytes, and no kernel either launched
+             left unheld; the routes launch every kernel but K5
+             between them.
+5e. cli    — ``python -m nexus_zkvm_tpu_torch.cli prove`` of the fib
              guest at n = 10 on the card and with ``--cpu``, each a
              process: byte-equal bundles, equal to the JAX package's CLI
              bundle; ``verify`` exits 0, and 1 on a bundle with one byte
@@ -167,9 +195,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 9. kernels — one JSON line with every kernel's numbers: launches from
              the path it belongs to (phase 5, or phase 6 for the memory
              mode's three; K1 counts one launch a transform, K8 one a
-             proof), from phase 5b's three proofs
+             proof), from phase 5b's two proofs
              (``machine2_launches``) and from phase 6c's two 2^24-step
-             proofs (``segments_launches``), times at that path's shapes;
+             proofs (``segments_launches``), from phase 5d's two
+             default proofs and its forced one (``machine2_large_launches``,
+             ``machine2_forced_launches``), times at that path's shapes;
              ``circle_fft`` adds ``extend``, the composition's
              zero-extending LDE (see `check_prover_kernels`), and
              ``oods_dot`` ``all_groups``, its launch over all of a
@@ -1591,31 +1621,70 @@ def fill_numpy(trace, view, log: int, static_lo, static_hi) -> tuple:
             np.concatenate(hist).astype(np.uint32))
 
 
+_FILL = "nexus_zkvm_tpu_torch.machine.fill_dev"
+_TAPE = "nexus_zkvm_tpu_torch.air.tape"
+_STARK = "nexus_zkvm_tpu_torch.prover.stark"
+_QUOT = "nexus_zkvm_tpu_torch.ops.quotients"
+_MERKLE = "nexus_zkvm_tpu_torch.ops.merkle"
 # the wrappers whose calls a segmented proof holds to their plain
-# versions as it makes them (`check_inline`): kernel -> (module,
-# function, plain function, the argument the call updates in place)
+# versions as it makes them (`check_inline`): wrapper -> (the kernel it
+# launches, (module, function), (module, plain function) with None for
+# this script, the argument the call updates in place)
 INLINE = {
-    "cpu_fill": ("nexus_zkvm_tpu_torch.machine.fill_dev", "cpu_fill",
-                 "cpu_fill_plain", None),
-    "air_eval_operands": ("nexus_zkvm_tpu_torch.air.tape",
-                          "air_eval_operands", "air_eval_operands_plain",
-                          None),
-    "air_eval_composition": ("nexus_zkvm_tpu_torch.air.tape",
-                             "air_eval_composition",
-                             "air_eval_composition_plain", 9),
-    "oods_dot": ("nexus_zkvm_tpu_torch.prover.stark", "oods_dot_groups",
-                 None, None),
-    "deep_quotients": ("nexus_zkvm_tpu_torch.ops.quotients",
-                       "accumulate_blocks", "accumulate_blocks_plain", None),
-    "quotient_colsums": ("nexus_zkvm_tpu_torch.ops.quotients",
-                         "colsum_fold", "colsum_fold_plain", 0),
+    "cpu_fill": ("cpu_fill", (_FILL, "cpu_fill"), (_FILL, "cpu_fill_plain"),
+                 None),
+    "air_eval_operands": ("air_eval_operands", (_TAPE, "air_eval_operands"),
+                          (_TAPE, "air_eval_operands_plain"), None),
+    "air_eval_composition": ("air_eval_composition",
+                             (_TAPE, "air_eval_composition"),
+                             (_TAPE, "air_eval_composition_plain"), 9),
+    "oods_dot": ("oods_dot", (_STARK, "oods_dot_groups"),
+                 (None, "_oods_plain_rows"), None),
+    "deep_quotients": ("deep_quotients", (_QUOT, "accumulate_blocks"),
+                       (_QUOT, "accumulate_blocks_plain"), None),
+    "quotient_colsums": ("quotient_colsums", (_QUOT, "colsum_fold"),
+                         (_QUOT, "colsum_fold_plain"), 0),
+}
+# the wrappers machine2_large's two routes hold to their plain versions
+# as they call them: INLINE's but K5 (machine2 fills on the host), and
+# K1, K2 (merkle's names, which its trees call), K4, K6, K9 (both
+# entries), K10 (its leaf states updated in place, made on a tree's
+# first chunk) and K12
+INLINE_M2 = {
+    **{k: v for k, v in INLINE.items() if k != "cpu_fill"},
+    "interpolate": ("circle_ifft", ("nexus_zkvm_tpu_torch.ops.cfft",
+                                    "interpolate"),
+                    (None, "_interpolate_plain"), None),
+    "evaluate": ("circle_fft", ("nexus_zkvm_tpu_torch.ops.cfft", "evaluate"),
+                 (None, "_evaluate_plain"), None),
+    "hash_rows": ("blake2s_messages", (_MERKLE, "hash_rows"),
+                  (None, "_hash_rows_plain"), None),
+    "hash_parents": ("blake2s_parents", (_MERKLE, "hash_parents"),
+                     (None, "_hash_parents_plain"), None),
+    "fold": ("fri_fold", ("nexus_zkvm_tpu_torch.ops.fri", "fold"),
+             ("nexus_zkvm_tpu_torch.ops.fri", "fold_plain"), None),
+    "logup_columns": ("logup_columns", (_TAPE, "logup_columns"),
+                      ("nexus_zkvm_tpu_torch.air.component",
+                       "logup_columns_plain"), None),
+    "gather_openings": ("gather_openings", (_MERKLE, "gather_openings"),
+                        (_MERKLE, "gather_openings_plain"), None),
+    "gather_columns": ("gather_openings", (_MERKLE, "gather_columns"),
+                       (None, "_gather_columns_plain"), None),
+    "blake2s_leaves_stream": ("blake2s_leaves_stream",
+                              ("nexus_zkvm_tpu_torch.ops.blake2s",
+                               "leaves_stream"),
+                              ("nexus_zkvm_tpu_torch.ops.blake2s",
+                               "leaves_stream_plain"), 0),
+    "quotient_finalize": ("quotient_finalize", (_QUOT, "colsum_finalize"),
+                          (_QUOT, "colsum_finalize_plain"), None),
 }
 
 
-def _inline_shape(name: str, args) -> tuple:
-    """What makes two calls of ``name`` the same shape: a tape's program
-    and rows (the CPU component's segments share theirs), the blocks'
-    and sums' shapes; K5 and K8 every call."""
+def _inline_shape(name: str, args, kw) -> tuple:
+    """What makes two calls of wrapper ``name`` the same shape: a tape's
+    program and rows (the CPU component's segments share theirs), the
+    blocks', sums', batches' and layers' shapes; None (K5): every
+    call."""
     if name in ("air_eval_composition", "air_eval_operands"):
         tape = args[0]
         rows = args[4] if name == "air_eval_composition" else (
@@ -1626,72 +1695,154 @@ def _inline_shape(name: str, args) -> tuple:
             tuple(args[4].shape),)
     if name == "quotient_colsums":
         return (tuple(args[0].shape), tuple(args[1].shape), bool(args[3]))
+    if name == "logup_columns":
+        return (int(args[1].shape[1]), int(args[2]))
+    if name == "blake2s_leaves_stream":
+        return (tuple(args[1].shape), args[0] is None, bool(args[4]))
+    if name == "oods_dot":
+        return tuple((tuple(b.shape), None if r is None else len(r))
+                     for b, r, _f in args[0])
+    if name == "interpolate":
+        return (tuple(args[0].shape), "out" in kw)
+    if name == "evaluate":
+        return (tuple(args[0].shape), args[1] if len(args) > 1 else
+                kw.get("log_size"))
+    if name == "hash_rows":
+        return (tuple(args[0].shape), args[0].stride())
+    if name == "fold":
+        return (tuple(args[0].shape), len(args) > 3 and args[3] is not None)
+    if name == "gather_openings":
+        return (len(args[0]), args[1] if len(args) > 1 else
+                kw.get("words"))
+    if name == "gather_columns":
+        return (tuple(args[0].shape), len(args[1]))
+    if name in ("hash_parents", "quotient_finalize"):
+        return (tuple(args[0].shape),)
     return None
 
 
-def _oods_plain_rows(groups, rows_at_once: int = 32):
+def _by_rows(plain, x, rows: int):
+    """``plain`` on ``rows`` rows of the (R, ...) ``x`` at a time, so
+    that its int64 work stays small beside the proof's tensors."""
+    import torch
+    return torch.cat([plain(x[i:i + rows]) for i in range(0, len(x), rows)])
+
+
+def _interpolate_plain(evals, out=None):
+    """K1's inverse transform's plain version (`cfft.interpolate_plain`)
+    of the call's input, 16 columns at a time."""
+    from nexus_zkvm_tpu_torch.ops import cfft
+    return _by_rows(cfft.interpolate_plain, evals, 16)
+
+
+def _evaluate_plain(coeffs, log_size=None):
+    """K1's forward transform's plain version: the coefficients
+    zero-extended to 2^log_size, then `cfft.evaluate_plain`, 16 columns
+    at a time."""
+    from nexus_zkvm_tpu_torch.ops import cfft
+    n = max(coeffs.shape[-1].bit_length() - 1, log_size or 0)
+    return _by_rows(lambda x: cfft.evaluate_plain(cfft.extend_coeffs(x, n)),
+                    coeffs, 16)
+
+
+def _hash_rows_plain(msgs):
+    """K2's `hash_rows_plain` of the call's rows, 2^20 rows at a time;
+    fewer than 2^16 rows (the wide rows of keccak's columns: hundreds of
+    blocks, each many operations on a few rows) on a host copy, where a
+    small operation costs a few microseconds instead of a launch."""
+    from nexus_zkvm_tpu_torch.ops import blake2s
+    if msgs.shape[0] < 1 << 16:
+        return blake2s.hash_rows_plain(msgs.cpu()).to(msgs.device)
+    return _by_rows(blake2s.hash_rows_plain, msgs, 1 << 20)
+
+
+def _hash_parents_plain(layer):
+    """K2's parent layer by `hash_rows_plain` on the children's digest
+    pairs, 2^20 parents at a time."""
+    from nexus_zkvm_tpu_torch.ops import blake2s
+    return _by_rows(blake2s.hash_rows_plain, layer.reshape(-1, 16), 1 << 20)
+
+
+def _gather_columns_plain(src, idx):
+    """K9's single-piece entry by plain indexing: src[:, idx]."""
+    import torch
+    ix = idx if isinstance(idx, torch.Tensor) else torch.as_tensor(
+        np.asarray(idx, np.int64))
+    return src[:, ix.to(src.device)]
+
+
+def _oods_plain_rows(groups, words: int = 1 << 24):
     """K8's plain version (`stark.oods_dot_groups_plain`) a few rows of a
-    group at a time, so that its int64 products stay small beside the
-    proof's coefficients."""
+    group at a time (at least 32, at most ``words`` coefficients), so
+    that its int64 products stay small beside the proof's
+    coefficients."""
     import torch
     from nexus_zkvm_tpu_torch.prover import stark
     out = []
     for batch, rows, factors in groups:
         rows = range(int(batch.shape[0])) if rows is None else list(rows)
+        rows_at_once = max(32, words // int(batch.shape[1]))
         for i in range(0, len(rows), rows_at_once):
             out.append(stark.oods_dot_plain(
                 batch[list(rows[i:i + rows_at_once])], factors))
     return torch.cat(out).to(torch.int32)
 
 
-def check_inline(prove_fn) -> tuple:
-    """Run ``prove_fn()`` with the wrappers of INLINE wrapped: every K5
-    call, and the first call of each shape (`_inline_shape`) of K7's
-    composition and operands, K8, K3 and K11, runs the kernel (the call
+def check_inline(prove_fn, inline=None, seen=None) -> tuple:
+    """Run ``prove_fn()`` with the wrappers of ``inline`` (None: INLINE)
+    wrapped: every K5 call, and the first call of each shape
+    (`_inline_shape`) of every other wrapper, runs the kernel (the call
     itself, which the proof goes on with) and then the plain version on
     the same inputs (on a copy of the argument it updates), and raises
-    unless they are uint32-equal and the kernel launched.  Returns (what
-    ``prove_fn`` returned, [{kernel, shape, plain_ms}])."""
+    unless they are uint32-equal and the kernel launched.  ``seen`` (a
+    set, updated): the (wrapper, shape) pairs an earlier proof checked,
+    not checked again.  Returns (what ``prove_fn`` returned, [{wrapper,
+    kernel, shape, plain_s}])."""
     import importlib
     import torch
     from nexus_zkvm_tpu_torch import kernels
-    checked, seen, saved = [], set(), []
-    for name, (mod, fn, plain_name, inplace) in INLINE.items():
+    checked, saved = [], []
+    seen = set() if seen is None else seen
+    for key, (kernel, (mod, fn), (plain_mod, plain_fn), inplace) in (
+            inline or INLINE).items():
         m = importlib.import_module(mod)
         orig = getattr(m, fn)
-        plain = (_oods_plain_rows if plain_name is None
-                 else getattr(m, plain_name))
+        plain = (globals()[plain_fn] if plain_mod is None else
+                 getattr(importlib.import_module(plain_mod), plain_fn))
 
-        def wrapped(*args, _orig=orig, _plain=plain, _name=name,
-                    _inplace=inplace):
-            shape = _inline_shape(_name, args)
-            if shape is not None and (_name, shape) in seen:
-                return _orig(*args)
-            seen.add((_name, shape))
-            before = kernels.launch_counts()[_name]
-            kept = None if _inplace is None else args[_inplace].clone()
-            got = _orig(*args)
+        def wrapped(*args, _orig=orig, _plain=plain, _key=key,
+                    _kernel=kernel, _inplace=inplace, **kw):
+            shape = _inline_shape(_key, args, kw)
+            if shape is not None and (_key, shape) in seen:
+                return _orig(*args, **kw)
+            seen.add((_key, shape))
+            before = kernels.launch_counts()[_kernel]
+            # (an argument updated in place may be None: the call makes it)
+            kept = None if _inplace is None or args[_inplace] is None \
+                else args[_inplace].clone()
+            got = _orig(*args, **kw)
             torch.cuda.synchronize()
-            if kernels.launch_counts()[_name] == before:
-                raise RuntimeError(f"{_name}: the wrapper did not launch its "
+            if kernels.launch_counts()[_kernel] == before:
+                raise RuntimeError(f"{_key}: the wrapper did not launch its "
                                    f"kernel")
             t0 = time.perf_counter()
-            if _inplace is None:
-                want = _plain(*args)
+            if kept is None:
+                want = _plain(*args, **kw)
             else:
                 plain_args = list(args)
                 plain_args[_inplace] = kept
-                _plain(*plain_args)
-                got, want = args[_inplace], kept
+                ret = _plain(*plain_args, **kw)
+                got = args[_inplace] if got is None else got
+                want = kept if ret is None else ret
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
             got_t = got if isinstance(got, tuple) else (got,)
             want_t = want if isinstance(want, tuple) else (want,)
             if not all(g.shape == w.shape and torch.equal(g, w)
                        for g, w in zip(got_t, want_t)):
-                raise RuntimeError(f"{_name} {shape}: kernel and plain "
-                                   f"version differ in the segmented proof")
-            checked.append({"kernel": _name, "shape": (
+                raise RuntimeError(f"{_key} {shape}: kernel and plain "
+                                   f"version differ in the checked proof")
+            checked.append({"wrapper": _key, "kernel": _kernel, "shape": (
                 list(shape) if shape else [list(g.shape) for g in got_t]),
                 "plain_s": plain_s})
             del kept, want, want_t
@@ -1842,8 +1993,8 @@ def phase_machine_segments() -> dict:
             raise RuntimeError("the checked segmented proof differs")
         del proof
         fills = [c for c in checked if c["kernel"] == "cpu_fill"]
-        if len(fills) != SEGMENTS or {c["kernel"] for c in checked} != set(
-                INLINE):
+        if len(fills) != SEGMENTS or {c["wrapper"] for c in checked} != \
+                set(INLINE):
             raise RuntimeError(f"calls checked: {checked}")
         torch.cuda.empty_cache()
         # K5 on the first steps of every segment against the numpy fill
@@ -2247,6 +2398,10 @@ MACHINE2_KERNELS = ("circle_ifft", "circle_fft", "blake2s_messages",
 # the fib guest's two large families at n = FIB_N: (name, columns, log
 # rows); ADD and ADDI steps fill ex_alu, BNE and BEQ ex_branch
 MACHINE2_SHAPES = (("ex_alu", 51, FULL_LOG), ("ex_branch", 54, 18))
+# the kernels machine2's fib proof at n = FIB_STREAM_N launches by the
+# default route and a route forced to stream (`phase_machine2_large`)
+# between them: every one but K5
+MACHINE2_LARGE_KERNELS = MACHINE2_KERNELS + MEMORY_MODE
 # blake2s of the bundle the JAX package's CLI writes for `prove
 # examples/guests/fib.s --input 10 --cpu` (1,566,100 bytes;
 # tests/test_torch_cli.py holds the port's CPU bundle to it)
@@ -2271,23 +2426,34 @@ def machine2_rejects(view, proof, config) -> None:
         raise RuntimeError("machine v1's verifier accepts a machine2 proof")
 
 
-def phase_machine2(v1: dict) -> dict:
-    """The fib guest at n = FIB_N through ``machine2.prove_machine2`` on
-    the card (default PcsConfig and MemoryConfig): a cold, a warm and a
-    profiled prove (phase times; ``fills/f:machine2`` is the families'
-    host fill), verify, the four forgeries rejected, the launches of
-    those three proofs against MACHINE2_KERNELS, rows/s beside machine
-    v1's (``v1``: phase `machine`'s record).  Then one more proof with
-    its calls of K3, K4 and K6-K9 recorded (`record_calls`): its bytes equal
-    the profiled proof's, and every call again through the kernel and
-    its plain version (`check_recorded`: uint32-equal; the largest
-    timed); and K1-K4 at that proof's shapes (`check_prover_kernels`,
-    untimed).  Returns the launch counts of the three proofs and the
-    proof's digest."""
+def machine2_families(view, proof, shapes) -> tuple:
+    """The machine2 components of ``view`` and each one's log rows and
+    main columns in ``proof`` ({name: log}, {name: columns}); raises
+    unless every (name, columns, log rows) of ``shapes`` holds."""
+    from nexus_zkvm_tpu_torch.machine2 import build_components2
+    comps = build_components2(view)[0]
+    logs = {c.name: n for c, n in zip(comps, proof.stark.log_sizes)}
+    widths = {c.name: c.n_main for c in comps}
+    for name, cols, log in shapes:
+        if (widths[name], logs[name]) != (cols, log):
+            raise RuntimeError(f"{name} at ({widths[name]}, 2^{logs[name]}),"
+                               f" not ({cols}, 2^{log})")
+    return comps, logs, widths
+
+
+def machine2_prove(n: int, shapes, where: str) -> dict:
+    """The fib guest at ``n`` through ``machine2.prove_machine2`` on the
+    card by its default route (PcsConfig(), ``MemoryConfig.for_device``):
+    a cold proof, then a warm one, profiled with each phase's allocated
+    and reserved peaks; it verifies, its fib output is right, its
+    families have ``shapes`` (`machine2_families`) and the four
+    forgeries are rejected (`machine2_rejects`).  ``where`` names the
+    phase.  Returns {"view", "trace", "config", "proof", "comps", "notes"
+    (the route), "rec": the fields both machine2 phases emit, the
+    launches of the two proofs among them}."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.machine2 import (EXEC_FAMILIES,
-                                               build_components2,
                                                prove_machine2,
                                                verify_machine2)
     from nexus_zkvm_tpu_torch.prover import PcsConfig
@@ -2295,76 +2461,102 @@ def phase_machine2(v1: dict) -> dict:
                                           decode_u32s, proof_to_bytes)
     from nexus_zkvm_tpu_torch.utils.profile import profiled
     config = PcsConfig()
+    total = torch.cuda.get_device_properties(0).total_memory
     t0 = time.perf_counter()
     view, trace = LocalProver(fib_guest()).trace(
-        public_input=encode_u32s(FIB_N))
+        public_input=encode_u32s(n))
     emulate_s = time.perf_counter() - t0
     steps = int(len(trace.steps["clk"]))
     torch.cuda.empty_cache()
     kernels.reset_launches()
-    secs = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        prove_machine2(view, trace, config)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    cold_s, prove_s = secs
     torch.cuda.reset_peak_memory_stats()
-    with profiled() as prof:
+    t0 = time.perf_counter()
+    prove_machine2(view, trace, config)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    peaks = [torch.cuda.max_memory_allocated(),
+             torch.cuda.max_memory_reserved()]
+    with profiled(memory=True) as prof:
         t0 = time.perf_counter()
         proof = prove_machine2(view, trace, config)
         torch.cuda.synchronize()
-        profiled_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+        prove_s = time.perf_counter() - t0
+    peaks = [max([peaks[0], torch.cuda.max_memory_allocated(),
+                  *prof.peaks.values()]),
+             max([peaks[1], torch.cuda.max_memory_reserved(),
+                  *prof.reserved.values()])]
     launches = kernels.launch_counts()
     t0 = time.perf_counter()
     ok = verify_machine2(view, proof, config)
     verify_s = time.perf_counter() - t0
     if not ok:
-        raise RuntimeError("the machine2 proof does not verify")
-    if decode_u32s(view.public_output, 1)[0] != fib_u32(FIB_N):
-        raise RuntimeError("wrong fib output")
-    comps = build_components2(view)[0]
-    logs = {c.name: n for c, n in zip(comps, proof.stark.log_sizes)}
-    widths = {c.name: c.n_main for c in comps}
-    for name, cols, log in MACHINE2_SHAPES:
-        if (widths[name], logs[name]) != (cols, log):
-            raise RuntimeError(f"{name} at ({widths[name]}, 2^{logs[name]}),"
-                               f" not ({cols}, 2^{log})")
+        raise RuntimeError(f"{where}: the machine2 proof does not verify")
+    if decode_u32s(view.public_output, 1)[0] != fib_u32(n):
+        raise RuntimeError(f"{where}: wrong fib output")
+    comps, logs, widths = machine2_families(view, proof, shapes)
     machine2_rejects(view, proof, config)
+    blob = proof_to_bytes(proof)
     route = prof.notes
+    family_rows = sum(1 << logs[f.name] for f in EXEC_FAMILIES)
+    rec = {"phase": where, "guest": "examples/guests/fib.s", "n": n,
+           "steps": steps, "log_sizes": proof.stark.log_sizes,
+           "families": {f.name: [widths[f.name], logs[f.name]]
+                        for f in EXEC_FAMILIES},
+           "proof_bytes": len(blob), "proof_blake2s": proof_digest(blob),
+           "verified": True, "rejected": ["tampered_opening", "other_claim",
+                                          "exit_code_flipped", "machine_v1"],
+           "memory": route["memory"], "streamed": route["streamed"],
+           "composition_passes": route["composition_passes"],
+           "cache_released": route["cache_released"],
+           "emulate_s": emulate_s, "prove_cold_s": cold_s,
+           "prove_s": prove_s, "verify_s": verify_s,
+           "host_fill_s": prof.times.get("fills/f:machine2"),
+           "rows_per_s": (1 << max(proof.stark.log_sizes)) / prove_s,
+           "family_rows_per_s": family_rows / prove_s,
+           "steps_per_s": steps / prove_s,
+           "peak_bytes": peaks[0], "peak_reserved_bytes": peaks[1],
+           "reserved_share": peaks[1] / total, "total_memory": total,
+           "phase_peak_bytes": prof.peaks,
+           "phase_reserved_bytes": prof.reserved, "phase_s": prof.times,
+           "launches": launches}
+    return {"view": view, "trace": trace, "config": config, "proof": proof,
+            "comps": comps, "notes": route, "rec": rec}
+
+
+def phase_machine2(v1: dict) -> dict:
+    """The fib guest at n = FIB_N through `machine2_prove` (cold, then
+    warm and profiled; ``fills/f:machine2`` is the families' host fill):
+    the resident route in one pass, K8 once a proof, the launches of the
+    two proofs against MACHINE2_KERNELS, rows/s beside machine v1's
+    (``v1``: phase `machine`'s record).  Then one more proof with its
+    calls of K3, K4 and K6-K9 recorded (`record_calls`): its bytes equal
+    the profiled proof's, and every call again through the kernel and
+    its plain version (`check_recorded`: uint32-equal; the largest
+    timed); and K1-K4 at that proof's shapes (`check_prover_kernels`,
+    untimed).  Returns the launch counts of the two proofs and the
+    proof's digest."""
+    import torch
+    from nexus_zkvm_tpu_torch.machine2 import prove_machine2
+    from nexus_zkvm_tpu_torch.sdk import proof_to_bytes
+    run = machine2_prove(FIB_N, MACHINE2_SHAPES, "machine2")
+    rec, route = run["rec"], run["notes"]
+    launches = rec["launches"]
     if route["streamed"] or max(route["composition_passes"]) != 1:
         raise RuntimeError(f"the machine2 proof left the resident route: "
                            f"{route}")
     check_path("machine2", launches, MACHINE2_KERNELS)
-    if launches["oods_dot"] != 3:
+    if launches["oods_dot"] != 2:
         raise RuntimeError(f"K8 launched {launches['oods_dot']} times in "
-                           f"3 proofs, not once a proof")
-    blob = proof_to_bytes(proof)
-    family_rows = sum(1 << logs[f.name] for f in EXEC_FAMILIES)
-    emit({"phase": "machine2", "guest": "examples/guests/fib.s", "n": FIB_N,
-          "steps": steps, "log_sizes": proof.stark.log_sizes,
-          "families": {f.name: [widths[f.name], logs[f.name]]
-                       for f in EXEC_FAMILIES},
-          "proof_bytes": len(blob), "proof_blake2s": proof_digest(blob),
-          "verified": True, "rejected": ["tampered_opening", "other_claim",
-                                         "exit_code_flipped", "machine_v1"],
-          "streamed": route["streamed"],
-          "composition_passes": max(route["composition_passes"]),
-          "emulate_s": emulate_s, "prove_s": prove_s, "prove_cold_s": cold_s,
-          "prove_profiled_s": profiled_s, "verify_s": verify_s,
-          "host_fill_s": prof.times.get("fills/f:machine2"),
-          "rows_per_s": (1 << FULL_LOG) / prove_s,
-          "family_rows_per_s": family_rows / prove_s,
-          "steps_per_s": steps / prove_s, "peak_bytes": peak,
-          "machine_v1": {k: v1[k] for k in ("prove_s", "rows_per_s",
-                                            "steps_per_s", "peak_bytes")},
-          "phase_s": prof.times, "launches": launches})
-    del proof
+                           f"2 proofs, not once a proof")
+    emit({**rec, "machine_v1": {k: v1[k] for k in (
+        "prove_s", "rows_per_s", "steps_per_s", "peak_bytes")}})
+    view, trace, config = run["view"], run["trace"], run["config"]
+    comps = run["comps"]
+    blob = proof_to_bytes(run.pop("proof"))
     torch.cuda.empty_cache()
     proof2, calls = record_calls(
         lambda: prove_machine2(view, trace, config))
-    del trace
+    del trace, run
     if proof_to_bytes(proof2) != blob:
         raise RuntimeError("two machine2 proofs of one trace differ")
     log_sizes = proof2.stark.log_sizes
@@ -2374,7 +2566,7 @@ def phase_machine2(v1: dict) -> dict:
     torch.cuda.empty_cache()
     check_prover_kernels(comps, log_sizes, timed=False)
     torch.cuda.empty_cache()
-    return launches, proof_digest(blob)
+    return launches, rec["proof_blake2s"]
 
 
 def phase_machine2_parity() -> None:
@@ -2431,6 +2623,191 @@ def phase_machine2_parity() -> None:
                       "launches": {k: ran[k] for k in (
                           "air_eval_operands", "logup_columns")}}
     emit(rec)
+
+
+def machine2_forced(view, log: int) -> dict:
+    """MemoryConfig fields that stream the main and interaction trees of
+    machine2's fib proof whose largest family, ex_alu, has 2^log rows
+    (the threshold half the smaller of the two at 2^(log + 1) leaves),
+    in 16-column chunks of 2^(log + 1) rows, and compose ex_alu in 4
+    passes."""
+    from nexus_zkvm_tpu_torch.air.component import component_info
+    from nexus_zkvm_tpu_torch.machine2 import build_components2
+    from nexus_zkvm_tpu_torch.prover.stark import _natural_rows
+    alu = next(c for c in build_components2(view)[0] if c.name == "ex_alu")
+    info = component_info(alu)
+    cols = min(info.n_main, 4 * info.n_logup_cols)
+    return {"stream_commit_bytes": cols * (4 << (log + 1)) // 2,
+            "stream_chunk_bytes": 16 * (4 << (log + 1)),
+            "comp_nat_budget": _natural_rows(info) * (4 << (log + 2)) // 4}
+
+
+def phase_selftest() -> dict:
+    """The prover's self-test on the card: the fib guest at n =
+    FIB_PARITY_N through ``machine.prove_machine(..., selftest=True)``
+    (default PcsConfig): its bytes equal the proof without it; the
+    returned report (``prof.notes["selftest"]``) reads no OODS sample
+    mismatch, every component OK and ``match``.  Then once more with the
+    CPU component's domain accumulator moved by one (`perturbed`): it
+    alone reads BAD, and the per-constraint check (the plain tape
+    interpreter on the card's tensors) finds every constraint equal, as
+    it must when the accumulator is at fault.  Returns the launches of
+    the self-test's proof."""
+    import torch
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.machine import prove_machine
+    from nexus_zkvm_tpu_torch.prover import stark
+    from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
+                                          proof_to_bytes)
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    view, trace = LocalProver(fib_guest()).trace(
+        public_input=encode_u32s(FIB_PARITY_N))
+    t0 = time.perf_counter()
+    plain = proof_to_bytes(prove_machine(view, trace))
+    plain_s = time.perf_counter() - t0
+    before = kernels.launch_counts()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        blob = proof_to_bytes(prove_machine(view, trace, selftest=True))
+        selftest_s = time.perf_counter() - t0
+    ran = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    rep = prof.notes["selftest"]
+    if blob != plain:
+        raise RuntimeError("the self-test changed the proof")
+    bad = [c["name"] for c in rep["components"] if not c["ok"]]
+    if rep["sampling_mismatches"] or bad or not rep["match"]:
+        raise RuntimeError(f"the self-test failed: {rep['lines']}")
+    orig = stark._domain_accumulator
+
+    def perturbed(component, *args):
+        acc = orig(component, *args)
+        if component.name == "cpu":
+            acc = acc.clone()
+            acc[0, 0] = (acc[0, 0] + 1) % P31
+        return acc
+    stark._domain_accumulator = perturbed
+    try:
+        with profiled() as prof:
+            prove_machine(view, trace, selftest=True)
+    finally:
+        stark._domain_accumulator = orig
+    perturbed_rep = prof.notes["selftest"]
+    flagged = [c for c in perturbed_rep["components"] if not c["ok"]]
+    if [c["name"] for c in flagged] != ["cpu"] or flagged[0][
+            "constraints"] != [] or not perturbed_rep["match"]:
+        raise RuntimeError(f"the perturbed self-test read "
+                           f"{perturbed_rep['lines']}")
+    torch.cuda.empty_cache()
+    emit({"phase": "selftest", "n": FIB_PARITY_N,
+          "proof_blake2s": proof_digest(blob), "equal_bytes": True,
+          "sampling_mismatches": rep["sampling_mismatches"],
+          "components": len(rep["components"]), "all_ok": True,
+          "match": rep["match"], "lines": rep["lines"],
+          "first_prove_s": plain_s, "selftest_prove_s": selftest_s,
+          "selftest_s": prof.times.get("oods/selftest"),
+          "perturbed": {"bad": ["cpu"], "constraints_differing": 0,
+                        "lines": [ln for ln in perturbed_rep["lines"]
+                                  if " BAD " in ln
+                                  or ln.startswith("[selftest]   ")]},
+          "launches": ran})
+    return ran
+
+
+def phase_machine2_large() -> dict:
+    """machine2 above 2^20 rows: the fib guest at FIB_STREAM_N (4,194,300
+    steps; ex_alu at (51, 2^22)) through `machine2_prove` (the card's
+    default route, ``MemoryConfig.for_device``: cold, then warm and
+    profiled, verify, the four forgeries rejected), its reserved peak
+    within FIT_SHARE of the card and the process's resident host memory
+    (the families' numpy fills) within FIT_SHARE of the host's.  Then
+    one more proof by that route and one by a route forced to stream the
+    main and interaction trees and compose ex_alu in 4 passes
+    (`machine2_forced`), each with its calls held to their plain
+    versions as it makes them (`check_inline` with INLINE_M2: the first
+    call of each shape, over both proofs, of K1-K4 and K6-K12): the same
+    bytes, every kernel either proof launched held at least once.  The
+    launches of the two routes together must be MACHINE2_LARGE_KERNELS.
+    Returns {"default": the launches of the two default proofs,
+    "forced": of the forced one}."""
+    import dataclasses
+    import resource
+    import torch
+    from nexus_zkvm_tpu_torch import kernels
+    from nexus_zkvm_tpu_torch.machine2 import prove_machine2
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig
+    from nexus_zkvm_tpu_torch.sdk import proof_to_bytes
+    from nexus_zkvm_tpu_torch.utils.profile import profiled
+    host_total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    run = machine2_prove(FIB_STREAM_N, [("ex_alu", 51, STREAM_LOG)],
+                         "machine2_large")
+    rec, route = run["rec"], run["notes"]
+    view, trace, config = run["view"], run["trace"], run["config"]
+    default = rec["launches"]
+    if route["memory"] != dataclasses.asdict(MemoryConfig.for_device(
+            "cuda")):
+        raise RuntimeError(f"the prover took {route['memory']}, not the "
+                           f"card's default")
+    if rec["reserved_share"] > FIT_SHARE:
+        raise RuntimeError(f"the default route reserved "
+                           f"{rec['peak_reserved_bytes']} bytes, over "
+                           f"{FIT_SHARE} of the card's {rec['total_memory']}")
+    digest = rec["proof_blake2s"]
+    del run
+
+    # each route once more, every call of a new shape held to its plain
+    # version
+    seen, routes = set(), {}
+    fields = machine2_forced(view, STREAM_LOG)
+    for name, memory in (("default", None),
+                         ("forced", MemoryConfig(**fields))):
+        torch.cuda.empty_cache()
+        before = kernels.launch_counts()
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            proof, checked = check_inline(
+                lambda: prove_machine2(view, trace, config, memory=memory),
+                INLINE_M2, seen)
+            checked_s = time.perf_counter() - t0
+        ran = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        if proof_digest(proof_to_bytes(proof)) != digest:
+            raise RuntimeError(f"the {name} route's checked machine2 2^22 "
+                               f"proof differs from the default's")
+        del proof
+        routes[name] = {"launches": ran, "notes": prof.notes,
+                        "checked_proof_s": checked_s, "checked": checked}
+    held = {c["kernel"] for r in routes.values() for c in r["checked"]}
+    unheld = {k for r in routes.values() for k, v in r["launches"].items()
+              if v} - held
+    if unheld:
+        raise RuntimeError(f"machine2_large launched {sorted(unheld)} with "
+                           f"no call held to its plain version")
+    froute = routes["forced"]["notes"]
+    s = STREAM_LOG + config.fri.log_blowup
+    if not {("main", s), ("inter", s)} <= set(froute["streamed"]) or \
+            max(froute["composition_passes"]) < 2:
+        raise RuntimeError(f"the forced machine2 route streamed "
+                           f"{froute['streamed']} in "
+                           f"{froute['composition_passes']} passes")
+    forced = routes["forced"]["launches"]
+    both = {k: default[k] + forced[k] for k in default}
+    check_path("machine2_large", both, MACHINE2_LARGE_KERNELS)
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    if host_peak > FIT_SHARE * host_total:
+        raise RuntimeError(f"the process held {host_peak} bytes of host "
+                           f"memory, over {FIT_SHARE} of {host_total}")
+    del trace
+    torch.cuda.empty_cache()
+    emit({**rec, "host_peak_rss_bytes": host_peak, "host_memory": host_total,
+          "held_kernels": sorted(held),
+          "checked_default": {
+              k: routes["default"][k] for k in (
+                  "checked_proof_s", "checked", "launches")},
+          "forced": {"memory": fields, "streamed": froute["streamed"],
+                     "composition_passes": froute["composition_passes"],
+                     "equal_bytes": True,
+                     **{k: routes["forced"][k] for k in (
+                         "checked_proof_s", "checked", "launches")}}})
+    return {"default": default, "forced": forced}
 
 
 def phase_cli() -> None:
@@ -3067,16 +3444,21 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
     (`route_segments`) proves it in 2^k-step segments, each its own CPU
     component, through ``machine.prove_machine(..., segment_log=k)``
     after ``LocalProver.trace`` (emulation timed in each proof, as
-    ``prove_with_input`` has it): a cold proof, ``warm`` warm ones and a
-    profiled one (with each phase's allocated and reserved peaks),
-    verify; seconds, phase times, the route the prover noted, the
-    allocated and reserved peaks of all of them, and whether the card
-    ran out of memory (then the proof is not tried again)."""
+    ``prove_with_input`` has it); a name starting ``m2_`` proves the
+    fib guest at the same n through ``machine2.prove_machine2`` after
+    ``LocalProver.trace`` (its largest family, ex_alu, at 2^log rows;
+    ``m2_default`` the card's default route, ``m2_stream_forced``
+    `machine2_forced`'s; 3 warm proofs): a cold proof, ``warm`` warm
+    ones and a profiled one (with each phase's allocated and reserved
+    peaks), verify; seconds, phase times, the route the prover noted,
+    the allocated and reserved peaks of all of them, and whether the
+    card ran out of memory (then the proof is not tried again)."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.air.component import component_info
     from nexus_zkvm_tpu_torch.machine import prove_machine
     from nexus_zkvm_tpu_torch.machine.driver import build_components
+    from nexus_zkvm_tpu_torch.machine2 import prove_machine2, verify_machine2
     from nexus_zkvm_tpu_torch.prover import MemoryConfig
     from nexus_zkvm_tpu_torch.sdk import (LocalProver, encode_u32s,
                                           proof_to_bytes)
@@ -3085,22 +3467,36 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
     total = torch.cuda.get_device_properties(0).total_memory
     view, _t = LocalProver(fib_guest(), device="cpu").trace(
         public_input=encode_u32s(FIB_PARITY_N))
-    info = component_info(build_components(view, 1)[0][0])
-    route, seg = route_segments(name)
-    fields = memory_route(route, info, min(log, seg or log), total)
+    machine2 = name.startswith("m2_")
+    if machine2:
+        route, seg, warm = name[3:], None, 3
+        fields = None if route == "default" else machine2_forced(view, log)
+    else:
+        info = component_info(build_components(view, 1)[0][0])
+        route, seg = route_segments(name)
+        fields = memory_route(route, info, min(log, seg or log), total)
     prover = LocalProver(fib_guest(),
                          memory=fields and MemoryConfig(**fields))
     public = encode_u32s(FIB_MEMORY_N[log])
 
     def prove_once():
-        if seg is None:
+        if seg is None and not machine2:
             return prover.prove_with_input(public_input=public)
         with scope("emulate"):
             view, trace = prover.trace(public_input=public)
         rec["steps"] = trace.n_steps
+        if machine2:
+            return view, prove_machine2(view, trace, prover.config,
+                                        memory=prover.memory)
         return view, prove_machine(view, trace, prover.config,
                                    segment_log=seg, memory=prover.memory)
+
+    def verify(view, proof):
+        if machine2:
+            return verify_machine2(view, proof, prover.config)
+        return prover.verify(view, proof)
     rec = {"phase": "time_memory", "log_rows": log, "n": FIB_MEMORY_N[log],
+           "machine": "machine2" if machine2 else "v1",
            "route": name, "segment_log": seg, "fields": fields,
            "total_memory": total}
     secs, stage, peaks = [], "cold", [0, 0]
@@ -3130,7 +3526,7 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
             composition_passes=max(notes["composition_passes"]),
             cache_released=notes.get("cache_released"),
             log_sizes=proof.stark.log_sizes,
-            cpu_components=len(proof.stark.log_sizes)
+            cpu_components=None if machine2 else len(proof.stark.log_sizes)
             - len(build_components(view, 1)[0]) + 1,
             proof_blake2s=proof_digest(proof_to_bytes(proof)),
             phase_s=prof.times)
@@ -3147,7 +3543,10 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
     if not rec["oom"]:
         torch.cuda.empty_cache()
         view, proof = prove_once()
-        rec["verified"] = bool(prover.verify(view, proof))
+        rec["verified"] = bool(verify(view, proof))
+    import resource
+    rec["host_peak_rss_bytes"] = \
+        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     emit(rec)
 
 
@@ -3157,6 +3556,13 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
 SEGMENTED_ROUTES = tuple((24, f"{r}_s{k}") for k in (21, 22, 23)
                          for r in ("default", "stream_forced")) + (
                              (25, "default_s22"),)
+# `--time-memory`'s machine2 runs: the fib guest with its largest family,
+# ex_alu, at 2^21-2^23 rows by the card's default route and
+# `machine2_forced`'s, and at 16,777,200 steps (ex_alu at 2^24) in one
+# proof by the default route
+MACHINE2_ROUTES = tuple((log, f"m2_{r}") for log in (21, 22, 23)
+                        for r in ("default", "stream_forced")) + (
+                            (24, "m2_default"),)
 
 
 def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
@@ -3169,8 +3575,9 @@ def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
     must be byte-equal.  Then the fastest route at each size whose
     reserved peak stays within FIT_SHARE of the card's memory, the
     largest size proved as one component and the largest proved in
-    segments (``time_memory_fit``).  ``runs``: only these (log, route)
-    pairs, in order."""
+    segments (``time_memory_fit``); then machine2's runs of
+    MACHINE2_ROUTES (kept apart: their own digests, fits and largest
+    size).  ``runs``: only these (log, route) pairs, in order."""
     from nexus_zkvm_tpu_torch import kernels
     kernels.build()
     build_k7()
@@ -3194,23 +3601,28 @@ def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
             return None
         print(json.dumps(recs[-1]), flush=True)
         return recs[-1]
+    m2_proved = set()
     for log, name in runs or [(log, name) for log in logs
                               for name in MEMORY_ROUTES] + [
                                   (largest, "default"),
-                                  *SEGMENTED_ROUTES]:
+                                  *SEGMENTED_ROUTES, *MACHINE2_ROUTES]:
         rec = run(log, name)
         if rec is None or rec["oom"]:
             continue
-        seg = route_segments(name)[1]
-        digests.setdefault((log, seg), set()).add(rec["proof_blake2s"])
+        m2 = name.startswith("m2_")
+        seg = None if m2 else route_segments(name)[1]
+        digests.setdefault((m2, log, seg), set()).add(rec["proof_blake2s"])
         if not rec["verified"]:
             raise RuntimeError(f"2^{log} {name}: the proof does not "
                                f"verify")
-        if seg is None:
+        if m2:
+            m2_proved.add(log)
+        elif seg is None:
             proved.add(log)
         else:
             by_segments.add(rec["steps"])
-        key = log if seg is None else f"{log}_s{seg}"
+        key = f"m2_{log}" if m2 else log if seg is None else \
+            f"{log}_s{seg}"
         if rec["reserved_share"] <= FIT_SHARE and (
                 key not in fits or rec["prove_s"] < fits[key][1]):
             fits[key] = (name, rec["prove_s"], rec["reserved_share"])
@@ -3218,11 +3630,13 @@ def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
           "fastest_fitting": {str(k): v for k, v in fits.items()},
           "largest_log_rows_proved": max(proved) if proved else None,
           "largest_steps_proved_by_segments":
-          max(by_segments) if by_segments else None})
+          max(by_segments) if by_segments else None,
+          "largest_machine2_log_rows_proved":
+          max(m2_proved) if m2_proved else None})
     bad = [k for k, d in digests.items() if len(d) > 1]
     if bad:
-        raise RuntimeError(f"routes gave different proofs at (2^log, "
-                           f"segment log) {bad}")
+        raise RuntimeError(f"routes gave different proofs at (machine2, "
+                           f"2^log, segment log) {bad}")
 
 
 def time_stream_kernels(comps, log_sizes, reps: int = 20) -> None:
@@ -3621,11 +4035,16 @@ def main() -> int:
     wall("machine")
     phase_machine_parity()
     phase_keccak_parity()
+    phase_selftest()
+    wall("selftest")
     m2_launches, m2_digest = phase_machine2(machine_rec)
     m2_expected = {k for k, v in m2_launches.items() if v} - \
         set(MEMORY_MODE)
     wall("machine2")
     phase_machine2_parity()
+    wall("machine2_parity")
+    m2_large = phase_machine2_large()
+    wall("machine2_large")
     phase_cli()
     wall("cli")
     stream_launches, stream_comps, stream_logs, stream_digest = \
@@ -3653,6 +4072,8 @@ def main() -> int:
                      else launches)[name],
         "path": "machine_stream" if name in MEMORY_MODE else "machine",
         "machine2_launches": m2_launches[name],
+        "machine2_large_launches": m2_large["default"][name],
+        "machine2_forced_launches": m2_large["forced"][name],
         "segments_launches": seg_launches[name],
         "max_abs_err": timed[name]["max_abs_err"], "ms": timed[name]["ms"],
         "plain_ms": timed[name]["plain_ms"],

@@ -82,7 +82,8 @@ __all__ = ["ID", "Tape", "TapeBackend", "TapeDomainContext",
            "air_eval_operands", "air_eval_operands_plain",
            "interaction_operands", "interaction_columns",
            "generate_interaction",
-           "accumulate_composition", "build_kernels",
+           "accumulate_composition", "composition_constraints",
+           "build_kernels",
            "tape_stats"]
 
 P = F.P
@@ -791,7 +792,7 @@ def constraint_weights(alpha, K: int) -> np.ndarray:
 
 def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
                    alpha=None, out: torch.Tensor = None,
-                   hneg: int = 0) -> torch.Tensor:
+                   hneg: int = 0, each: tuple = None) -> torch.Tensor:
     """Interpret ``tape`` over N rows with torch int64.
 
     mats: role -> (cols, W) int32 matrix (is_first as a (1, W) one), a
@@ -799,9 +800,10 @@ def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
     own columns (W = N, hneg 0: the wrap is the reference's roll), or a
     window's halo-extended blocks (every load inside them).  uniforms:
     the table of :meth:`Tape.uniforms`.  A domain tape returns the (N, 4)
-    int64 canonical accumulator sum_j alpha^(K-1-j) c_j; a gen tape
-    writes the packed operand buffer of N rows (:meth:`Tape.layout`)
-    ``out`` (int32) and returns it."""
+    int64 canonical accumulator sum_j alpha^(K-1-j) c_j (with ``each`` =
+    (lo, hi) the (hi - lo, N, 4) constraints c_lo..c_hi-1 themselves, one
+    accumulator each); a gen tape writes the packed operand buffer of N
+    rows (:meth:`Tape.layout`) ``out`` (int32) and returns it."""
     dev = _first(mats).device
     W = int(_first(mats).shape[1])
     U = len(uniforms)
@@ -812,11 +814,13 @@ def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
                                    .bit_length() - 1)))
     loads = torch.as_tensor(tape.loads, device=dev)
     if tape.kind == "domain":
-        K = len(tape.emits)
-        w = torch.as_tensor(constraint_weights(alpha, K).astype(np.int64),
-                            device=dev)
-        emits = torch.as_tensor(tape.emits, device=dev)
-        acc = torch.empty((N, 4), dtype=torch.int64, device=dev)
+        emits = tape.emits if each is None else tape.emits[slice(*each)]
+        K = len(emits)
+        w = None if each else torch.as_tensor(
+            constraint_weights(alpha, K).astype(np.int64), device=dev)
+        emits = torch.as_tensor(emits, device=dev)
+        acc = torch.empty((K, N, 4) if each else (N, 4), dtype=torch.int64,
+                          device=dev)
     else:
         st = torch.as_tensor(tape.layout(N)[0], device=dev)
         col = st[:, 2] != 0
@@ -838,7 +842,9 @@ def air_eval_plain(tape: Tape, mats: dict, uniforms: np.ndarray, N: int,
                 V[lo:hi] = F.m31_neg(V[a])
             else:
                 V[lo:hi] = _OPS[op](V[a], V[torch.as_tensor(b, device=dev)])
-        if tape.kind == "domain":
+        if each:
+            acc[:, r0:r0 + len(rows)] = V[emits].permute(0, 2, 1)
+        elif tape.kind == "domain":
             part = torch.zeros((len(rows), 4), dtype=torch.int64, device=dev)
             for j0 in range(0, K, 256):
                 c = V[emits[j0:j0 + 256]].permute(0, 2, 1)   # (k, R, 4)
@@ -1082,6 +1088,19 @@ def accumulate_composition(component, log_size: int, mats, relations,
     air_eval_composition(tape, mats, tape.uniforms(relations, claimed), lo,
                          hi - lo, hneg, alpha, shift, invv, bucket)
     return tape.n_constraints
+
+
+def composition_constraints(component, log_size: int, mats, relations,
+                            claimed, N: int, hneg: int, lo: int, hi: int):
+    """(hi - lo, N, 4) int64: a component's composition constraints lo
+    to hi - 1 (in the tape's emit order, the verifier's) on its N-row 4x
+    domain, from halo-extended blocks of the whole domain (``mats`` as
+    `accumulate_composition` takes them, position q natural row q -
+    hneg); the plain tape interpreter with one accumulator a
+    constraint."""
+    tape = domain_tape(component, log_size, relations)
+    return air_eval_plain(tape, mats, tape.uniforms(relations, claimed), N,
+                          hneg=hneg, each=(lo, hi))
 
 
 def build_kernels(components, log_sizes, relations) -> dict:

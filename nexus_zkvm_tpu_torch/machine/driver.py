@@ -377,10 +377,12 @@ def build_machine_traces(view, trace, segment_log: int | None = None,
 
 def prove_machine(view, trace, config: PcsConfig = PcsConfig(),
                   segment_log: int | None = None, device="cuda",
-                  memory: MemoryConfig | None = None) -> MachineProof:
+                  memory: MemoryConfig | None = None,
+                  selftest: bool = False) -> MachineProof:
     """``memory``: where the prover keeps its data (the large-trace
     memory mode is chosen by size; None: `MemoryConfig.for_device`);
-    the proof is the same under any."""
+    the proof is the same under any.  ``selftest``: the prover's
+    self-test (`prover.stark.prove`)."""
     with scope("fills"):
         comps, log_sizes, traces = build_machine_traces(
             view, trace, segment_log, device=device)
@@ -388,7 +390,8 @@ def prove_machine(view, trace, config: PcsConfig = PcsConfig(),
     _mix_view(channel, view)
     # the traces were made here: prove frees each once it is committed
     proof = prove(comps, log_sizes, traces, channel, config, device=device,
-                  memory=memory, release_traces=True)
+                  memory=memory, release_traces=True,
+                  selftest=selftest)
     return MachineProof(stark=proof)
 
 

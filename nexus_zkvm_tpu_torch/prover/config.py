@@ -40,7 +40,9 @@ class MemoryConfig:
     * ``comp_nat_budget``: a component whose natural-order 4x-domain
       columns (main, preprocessed, interaction, is_first) exceed it is
       composed in row passes, each holding at most this many bytes (on
-      a mesh rank: of its window's rows).
+      a mesh rank: of its window's rows).  In one pass a role's LDE is
+      evaluated at once only while it fits beside them within this
+      budget (:meth:`lde_whole`), else in column chunks.
 
     Under a mesh nothing streams, as in the JAX package.
 
@@ -87,6 +89,14 @@ class MemoryConfig:
     def chunk_cols(self, s: int) -> int:
         """Columns per streamed chunk of a 2^s domain."""
         return max(16, min(64, (self.stream_chunk_bytes // (4 << s)) & ~15))
+
+    def lde_whole(self, n_cols: int, widest: int, ev_log: int) -> bool:
+        """Whether a composition in one pass over n_cols natural columns
+        of 2^ev_log rows evaluates each role's LDE at once: those columns
+        and the whole-domain evaluations of its widest role (``widest``
+        columns) within the budget together; else in
+        :meth:`chunk_cols` chunks."""
+        return (n_cols + widest) * (4 << ev_log) <= self.comp_nat_budget
 
     def comp_passes(self, n_cols: int, ev_log: int) -> int:
         """Row passes of a composition over n_cols natural columns of

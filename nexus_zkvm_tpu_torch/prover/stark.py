@@ -70,7 +70,7 @@ from ..air.component import (
 )
 from ..air.tape import (gen_halo, generate_interaction, interaction_operands,
                         interaction_columns, accumulate_composition,
-                        build_kernels)
+                        composition_constraints, build_kernels)
 from ..air.lookups import draw_relations
 from ..parallel import commit as pcommit
 from ..parallel.context import active_mesh
@@ -85,6 +85,10 @@ __all__ = ["prove", "verify", "Proof", "oods_dot", "oods_dot_plain",
 ROLE_ORDER = ("pre", "main", "inter", "comp")
 # columns a mesh rank's composition LDE evaluates at once
 MESH_LDE_COLS = 16
+# coefficient rows the self-test samples in one K8 launch
+SELFTEST_ROWS = 64
+# constraints its per-constraint check evaluates over the domain at once
+SELFTEST_CONSTRAINTS = 16
 _QM31_BASIS = [np_qm31(*(np.uint64(1) if t == i else np.uint64(0)
                          for t in range(4))) for i in range(4)]
 
@@ -376,6 +380,25 @@ def _qm31_reconstruct(vals):
     return acc
 
 
+def _mask_values(plan: Plan, info, c: int, n: int, sampled) -> dict:
+    """Component c's sampled mask values, as `PointEvalContext` reads
+    them: {(role, index, offset) -> (4,)}, an interaction batch's QM31
+    value made from its four coordinate columns."""
+    vals = {}
+    for role, count in (("pre", info.n_pre), ("main", info.n_main)):
+        for j in range(count):
+            i = plan.index[(role, c, (j,))]
+            for oi, o in enumerate(plan.metas[i].offsets):
+                vals[(role, j, o)] = sampled[i][oi]
+    for b in range(info.n_logup_cols):
+        idxs = [plan.index[("inter", c, (b, t))] for t in range(4)]
+        for oi, o in enumerate(plan.metas[idxs[0]].offsets):
+            vals[("inter", b, o)] = _qm31_reconstruct(
+                [sampled[i][oi] for i in idxs])
+    vals[("is_first", 0, 0)] = sampled[plan.is_first_index(n)][0]
+    return vals
+
+
 def _relation_widths(infos):
     widths = {}
     for info in infos:
@@ -506,6 +529,12 @@ def _natural_rows(info) -> int:
     return info.n_main + info.n_pre + 4 * info.n_logup_cols + 1
 
 
+def _widest_role(info) -> int:
+    """Columns of the role of a component's composition with the most:
+    main, preprocessed or interaction."""
+    return max(info.n_main, info.n_pre, 4 * info.n_logup_cols)
+
+
 def _composition_cols(c: int, n: int, info, plan: Plan) -> dict:
     """Load role -> (role, the columns of it) that component c's
     composition reads (None for a role it lacks)."""
@@ -529,6 +558,41 @@ def _streams(memory: MemoryConfig, infos, log_sizes, blowup: int) -> bool:
                for n, roles in cols.items() for c in roles)
 
 
+def _composition_sources(c: int, n: int, info, plan: Plan, rcs,
+                         chunk) -> dict:
+    """Load role -> (fetch, ranges, columns) of the coefficient rows
+    component c's composition reads (`RoleCommitment.coeff_source`,
+    ``chunk`` rows a fetch, None: all at once), None for a role it
+    lacks."""
+    return {role: None if x is None else
+            (*rcs[x[0]].coeff_source(x[1], chunk or len(x[1])), len(x[1]))
+            for role, x in _composition_cols(c, n, info, plan).items()}
+
+
+def _lde_mats(sources, ev: int, start: int, width: int, device) -> dict:
+    """Load role -> the (C, width) evaluations of its coefficient rows at
+    natural rows start.. of the 2^ev domain, with its wrap
+    (`pcs.lde_window`)."""
+    return {role: None if src is None else
+            pcs.lde_window(*src, ev, start, width, device)
+            for role, src in sources.items()}
+
+
+def _domain_accumulator(component, n: int, mats, relations, claimed, alpha,
+                        window: tuple):
+    """The self-test's domain accumulator of a component: its (N, 4)
+    int32 sum_j alpha^(K-1-j) c_j over the rows ``window`` = (lo, hi,
+    hneg) of its 4x domain, before ÷ v_n and × alpha^shift (K7 with both
+    taken as 1, into a zero bucket); None without constraints."""
+    N = 1 << (n + 2)
+    dev = next(m for m in mats.values() if m is not None).device
+    acc = torch.zeros((N, 4), dtype=torch.int32, device=dev)
+    ones = torch.ones(N, dtype=torch.int32, device=dev)
+    k = accumulate_composition(component, n, mats, relations, claimed, alpha,
+                               _QM31_BASIS[0], ones, acc, window)
+    return acc if k else None
+
+
 def _comp_passes(memory: MemoryConfig, info, n: int, mesh) -> int:
     """Row passes of component (info, 2^n rows)'s composition: its 4x
     domain, or this rank's window of it, by the memory budget."""
@@ -538,22 +602,28 @@ def _comp_passes(memory: MemoryConfig, info, n: int, mesh) -> int:
 
 def _composition(components, infos, plan, log_sizes, relations,
                  claimed_sums, alpha, rcs, device,
-                 memory: MemoryConfig, mesh=None) -> torch.Tensor:
+                 memory: MemoryConfig, mesh=None,
+                 accs: dict = None) -> torch.Tensor:
     """(4, 2^comp_log) int32 composition coefficients.  Each component's
     columns are evaluated on its 4x domain in natural order, as blocks of
     rows [lo - hneg, hi + hpos) with the domain's wrap
     (`pcs.lde_window`), and its tape adds acc / v_n · alpha^shift over
     rows [lo, hi) into the bucket of that size (K7).  A component within
-    the memory budget is one window [0, N), its LDE one batch; a larger
-    one runs in row passes, its LDE in column chunks, so at most
-    1/passes of its natural columns exist at once.  Under ``mesh`` a
+    the memory budget is one window [0, N), its LDE one batch a role
+    while the natural columns and its widest role's whole-domain
+    evaluations fit the budget together (`MemoryConfig.lde_whole`), else
+    in column chunks; a larger one runs in row passes, its LDE in column
+    chunks, so at most 1/passes of its natural columns and one chunk's
+    evaluations exist at once.  Under ``mesh`` a
     rank composes its window of each 4x domain that splits
     (``parallel.commit.window``), in passes by the window's bytes, its
     LDE in chunks of MESH_LDE_COLS columns whose coefficients come from
     their owners
     (`RoleCommitment.coeff_source`); the buckets' windows are gathered
     before they are combined.  The pass counts are noted on the active
-    profile as ``composition_passes``."""
+    profile as ``composition_passes``.  ``accs`` (the self-test's: one
+    pass, no mesh) gets each component's domain accumulator
+    (`_domain_accumulator`) from the same blocks."""
     shifts = _alpha_shifts(infos)
     buckets, all_passes = {}, []
     for c, comp in enumerate(components):
@@ -570,24 +640,26 @@ def _composition(components, infos, plan, log_sizes, relations,
         # a mesh rank evaluates each chunk on the whole 4x domain and
         # keeps only its window of it: the least chunk a streamed tree
         # takes
+        whole = passes == 1 and mesh is None and memory.lde_whole(
+            _natural_rows(info), _widest_role(info), ev)
         chunk = (MESH_LDE_COLS if mesh is not None and w1 - w0 < N else
-                 memory.chunk_cols(ev) if passes > 1 or mesh else None)
-        sources = {role: None if x is None else
-                   (*rcs[x[0]].coeff_source(x[1], chunk or len(x[1])),
-                    len(x[1]))
-                   for role, x in _composition_cols(c, n, info, plan).items()}
+                 None if whole else memory.chunk_cols(ev))
+        sources = _composition_sources(c, n, info, plan, rcs, chunk)
         invv = inv_vanishing_natural(n, ev, device)
         L = (w1 - w0) // passes
         for lo in range(w0, w1, L):
             with scope("c:lde"):
-                mats = {role: None if src is None else pcs.lde_window(
-                            *src, ev, lo - hneg, L + hneg + hpos, device)
-                        for role, src in sources.items()}
+                mats = _lde_mats(sources, ev, lo - hneg, L + hneg + hpos,
+                                 device)
             with scope("c:eval"):
                 k = accumulate_composition(
                     comp, n, mats, relations, claimed_sums[c], alpha,
                     np_qm31_pow(alpha, shifts[c]), invv, buckets[ev],
                     (lo, lo + L, hneg))
+                if accs is not None:
+                    accs[c] = _domain_accumulator(
+                        comp, n, mats, relations, claimed_sums[c], alpha,
+                        (lo, lo + L, hneg))
             del mats
         assert k == info.n_constraints
     note("composition_passes", all_passes)
@@ -635,7 +707,7 @@ def _quotients_streamed(role_rcs, s: int, xs, ys, consts, gcs,
 def prove(components, log_sizes, main_traces, channel,
           config: PcsConfig = PcsConfig(), device="cuda",
           memory: MemoryConfig | None = None,
-          release_traces: bool = False) -> Proof:
+          release_traces: bool = False, selftest: bool = False) -> Proof:
     """components: list of Component; main_traces: per component either
     a list of natural-order uint32 numpy columns of size 2^log_sizes[c]
     or one (n_main, 2^log_sizes[c]) int32 tensor (committed as it is,
@@ -661,7 +733,18 @@ def prove(components, log_sizes, main_traces, channel,
     (role, n, (row lo, rows, hneg), shape)).  Under an active mesh
     (``parallel.use_mesh``)
     every rank calls ``prove`` with the same arguments and gets the same
-    proof."""
+    proof.
+
+    ``selftest``: the prover's self-test (`_oods_selftest`).  The
+    composition also keeps each component's domain accumulator; after
+    the OODS phase every sample is recomputed column by column, and each
+    component's verifier-side value at the OODS point is held to its
+    accumulator interpolated and evaluated there (a component that
+    differs gets its constraints compared one by one).  It prints
+    ``[selftest]`` lines and notes its findings as ``selftest``; the
+    proof is the same.  It runs on the resident, one-pass route only: a
+    streamed tree, a composition in passes or a mesh raises
+    ``ValueError`` before the first commit."""
     dev = resolve_device(device)
     mesh = active_mesh()
     if mesh is not None and mesh.size == 1:
@@ -672,6 +755,14 @@ def prove(components, log_sizes, main_traces, channel,
     infos = [component_info(c) for c in components]
     plan = build_plan(log_sizes, infos, config)
     blowup = config.fri.log_blowup
+    if selftest and (mesh is not None or any(
+            _comp_passes(memory, info, n, None) > 1
+            for info, n in zip(infos, log_sizes))
+            or _streams(memory, infos, log_sizes, blowup)
+            or memory.streams(4 * (4 << (plan.n_comp_trace_log + blowup)))):
+        raise ValueError("the self-test runs on the resident, one-pass "
+                         "route only: no streamed tree, no composition "
+                         "passes, no mesh")
     # a composition in row passes or a streamed tree: the trace crowds
     # the card, so the caching allocator's free blocks (the last
     # proof's, then those of the phases before the interaction's commit
@@ -764,9 +855,10 @@ def prove(components, log_sizes, main_traces, channel,
             torch.cuda.empty_cache()
         alpha = np.asarray(channel.draw_felt(), np.uint64)
         rcs = {"pre": rc_pre, "main": rc_main, "inter": rc_inter}
+        accs = {} if selftest else None
         comp_coeffs = _composition(components, infos, plan, log_sizes,
                                    relations, claimed_sums, alpha, rcs, dev,
-                                   memory, mesh)
+                                   memory, mesh, accs)
         rcs["comp"] = pcs.commit_from_coeffs("comp", comp_coeffs,
                                              plan.n_comp_trace_log, blowup,
                                              memory, mesh)
@@ -813,6 +905,12 @@ def prove(components, log_sizes, main_traces, channel,
                 k += 1
         channel.mix_felts(np.concatenate([s.reshape(-1, 4) for s in sampled])
                           .astype(np.uint32))
+        if selftest:
+            with scope("selftest"):
+                note("selftest", _oods_selftest(
+                    components, infos, plan, log_sizes, relations,
+                    claimed_sums, alpha, z, sampled, rcs, accs, dev))
+            accs = None
         # quotients, FRI and openings read committed evals and trees;
         # a role with a streamed size recomputes its evals from its
         # coefficients, so it keeps them
@@ -892,6 +990,162 @@ def prove(components, log_sizes, main_traces, channel,
 
 
 # ---------------------------------------------------------------------------
+# The self-test
+# ---------------------------------------------------------------------------
+
+def _at_point(values: torch.Tensor, ev: int, z) -> np.ndarray:
+    """(4,) uint64 QM31 value at the point z of a natural-order (2^ev, 4)
+    int32 column of QM31 values on the 2^ev domain: its coordinates
+    interpolated (K1) and each evaluated at z (K8)."""
+    layout = values[dev_layout_to_natural(ev, values.device)]
+    cf = cfft.interpolate(layout.t().contiguous())
+    coords = oods_dot(cf, _oods_basis_factors(ev, z))
+    return _qm31_reconstruct(coords.cpu().numpy().astype(np.uint64))
+
+
+class _ConstraintRecorder(PointEvalContext):
+    """The verifier's point evaluation, each constraint's value kept
+    (``rec``) as it is accumulated."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.rec = []
+
+    def _accumulate(self, f):
+        self.rec.append(np.asarray(f.as_qm31().v, np.uint64))
+        super()._accumulate(f)
+
+
+def _oods_selftest(components, infos, plan, log_sizes, relations,
+                   claimed_sums, alpha, z, sampled, rcs, accs,
+                   device) -> dict:
+    """The prover's self-test (``prove(..., selftest=True)``): every OODS
+    sample recomputed column by column (K8 on each coefficient row), and
+    each component's verifier-side point evaluation at z held to the
+    prover's domain accumulator (`_domain_accumulator`) interpolated and
+    evaluated at z; a component that differs has its constraints
+    compared one by one (`_selftest_per_constraint`).  Prints the
+    ``[selftest]`` lines and returns them with the values: {"lines",
+    "sampling_mismatches", "components": [{"index", "name", "ok",
+    "point", "domain", "constraints"}], "total", "comp_at_z",
+    "match"}."""
+    lines = []
+
+    def say(text):
+        line = f"[selftest] {text}"
+        print(line, flush=True)
+        lines.append(line)
+    # each column's coefficient row fetched on its own and sampled at its
+    # points (K8), SELFTEST_ROWS rows of one point a launch
+    at = {}                  # (trace log, offset) -> [(plan idx, off idx)]
+    for i, m in enumerate(plan.metas):
+        for oi, o in enumerate(m.offsets):
+            at.setdefault((m.trace_log, o), []).append((i, oi))
+    got = {}
+    for (tlog, o), members in at.items():
+        factors = _oods_basis_factors(tlog, _point_for(z, tlog, o))
+        for k in range(0, len(members), SELFTEST_ROWS):
+            part = members[k:k + SELFTEST_ROWS]
+            rows = torch.cat([rcs[plan.metas[i].role].coeff_rows(
+                [plan.metas[i].ridx])[0] for i, _oi in part])
+            vals = oods_dot(rows, factors).cpu().numpy().astype(np.uint64)
+            got.update(zip(part, vals))
+    bad = 0
+    for i, m in enumerate(plan.metas):
+        for oi, o in enumerate(m.offsets):
+            v = got[(i, oi)]
+            if not np.array_equal(v, sampled[i][oi]):
+                bad += 1
+                say(f"OODS sample mismatch meta={i} "
+                    f"{m.role}/{m.comp}/{m.key} off={o}: "
+                    f"{v} != {sampled[i][oi]}")
+    say(f"sampling: {bad} mismatches")
+
+    shifts = _alpha_shifts(infos)
+    total = np.zeros(4, np.uint64)
+    found = []
+    for c, comp in enumerate(components):
+        n = log_sizes[c]
+        mask_vals = _mask_values(plan, infos[c], c, n, sampled)
+        acc_pt, _k = run_constraints(comp, PointEvalContext(
+            mask_vals, relations, claimed_sums[c], alpha,
+            params=comp.params()))
+        pt_val = (np.zeros(4, np.uint64) if acc_pt is None
+                  else np.asarray(acc_pt.as_qm31().v, np.uint64))
+        dom_val = (np.zeros(4, np.uint64) if accs.get(c) is None
+                   else _at_point(accs[c], n + 2, z))
+        ok = np.array_equal(pt_val, dom_val)
+        say(f"comp {c} ({comp.name}): {'OK ' if ok else 'BAD'} "
+            f"point={pt_val} domain@z={dom_val}")
+        found.append({"index": c, "name": comp.name, "ok": ok,
+                      "point": pt_val.tolist(), "domain": dom_val.tolist(),
+                      "constraints": None if ok else
+                      _selftest_per_constraint(
+                          comp, infos[c], c, n, plan, rcs, relations,
+                          claimed_sums[c], alpha, z, mask_vals, say,
+                          device)})
+        term = np_qm31_mul(pt_val, np_qm31_inv(vanish_at_qm31(n, z[0])))
+        total = np_qm31_add(total, np_qm31_mul(np_qm31_pow(alpha, shifts[c]),
+                                               term))
+    comp_at_z = _qm31_reconstruct(
+        [sampled[plan.index[("comp", -1, (t,))]][0] for t in range(4)])
+    match = bool(np.array_equal(total, comp_at_z))
+    say(f"total={total} comp_at_z={comp_at_z} match={match}")
+    return {"lines": lines, "sampling_mismatches": bad, "components": found,
+            "total": total.tolist(), "comp_at_z": comp_at_z.tolist(),
+            "match": match}
+
+
+def _selftest_per_constraint(comp, info, c, n, plan, rcs, relations,
+                             claimed, alpha, z, mask_vals, say,
+                             device) -> list:
+    """Each constraint of component c on its 4x domain (the plain tape
+    interpreter, `tape.composition_constraints`, on the LDE of its
+    committed columns, SELFTEST_CONSTRAINTS at a time), interpolated and
+    evaluated at z, against its value in the verifier's point
+    evaluation; the first 8 that differ are reported ([{"index",
+    "domain", "point"}]).
+
+    Caveat: a constraint whose domain values reach the full degree
+    capacity of the 4x domain can report a false mismatch here (the
+    re-interpolation is exact only below capacity); the total against
+    the composition's sampled value is the check that counts."""
+    ev = n + 2
+    N = 1 << ev
+    hneg, hpos = domain_halo(info)
+    mats = _lde_mats(_composition_sources(c, n, info, plan, rcs, None), ev,
+                     -hneg, N + hneg + hpos, device)
+    rec = _ConstraintRecorder(mask_vals, relations, claimed, alpha,
+                              params=comp.params())
+    run_constraints(comp, rec)
+    K = len(rec.rec)
+    assert K == info.n_constraints, (K, info.n_constraints)
+    out = []
+    for lo in range(0, K, SELFTEST_CONSTRAINTS):
+        hi = min(K, lo + SELFTEST_CONSTRAINTS)
+        dom = composition_constraints(comp, n, mats, relations, claimed, N,
+                                      hneg, lo, hi)
+        for j in range(lo, hi):
+            at_z = _at_point(dom[j - lo].to(torch.int32), ev, z)
+            pv = rec.rec[j].reshape(-1)[-4:]
+            if not np.array_equal(at_z, pv):
+                say(f"  constraint {j}: domain@z={at_z} point={pv}")
+                out.append({"index": j, "domain": at_z.tolist(),
+                            "point": pv.tolist()})
+                if len(out) >= 8:
+                    break
+        del dom
+        if len(out) >= 8:
+            say("  ... (more)")
+            break
+    del mats
+    if not out:
+        say("  all constraints match individually "
+            "(combination-order bug?)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Verify
 # ---------------------------------------------------------------------------
 
@@ -959,19 +1213,7 @@ def _verify(components, proof, channel, config, dev):
     total = np.zeros(4, np.uint64)
     for c, comp in enumerate(components):
         n = log_sizes[c]
-        mask_vals = {}
-        for role, count in (("pre", infos[c].n_pre),
-                            ("main", infos[c].n_main)):
-            for j in range(count):
-                i = plan.index[(role, c, (j,))]
-                for oi, o in enumerate(plan.metas[i].offsets):
-                    mask_vals[(role, j, o)] = sampled[i][oi]
-        for b in range(infos[c].n_logup_cols):
-            idxs = [plan.index[("inter", c, (b, t))] for t in range(4)]
-            for oi, o in enumerate(plan.metas[idxs[0]].offsets):
-                mask_vals[("inter", b, o)] = _qm31_reconstruct(
-                    [sampled[i][oi] for i in idxs])
-        mask_vals[("is_first", 0, 0)] = sampled[plan.is_first_index(n)][0]
+        mask_vals = _mask_values(plan, infos[c], c, n, sampled)
         ctx = PointEvalContext(mask_vals, relations, claimed_sums[c], alpha,
                                params=comp.params())
         acc, k = run_constraints(comp, ctx)

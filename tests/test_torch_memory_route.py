@@ -110,6 +110,53 @@ def test_routes_never_stream_more_as_memory_grows(fib_info):
             last = (streamed, passes)
 
 
+@pytest.fixture(scope="module")
+def ex_alu_info():
+    """machine2's largest family, ex_alu: 51 main columns, 21 LogUp
+    batches (84 interaction columns), 136 natural columns."""
+    from nexus_zkvm_tpu_torch.machine2 import build_components2
+    view, _t = tk_trace(tasm.assemble(tmach.FIB10_SRC), backend="python")
+    return component_info(next(c for c in build_components2(view)[0]
+                               if c.name == "ex_alu"))
+
+
+# whether an 80 GB card's one-pass composition evaluates each role's LDE
+# at once (`MemoryConfig.lde_whole`): fib's CPU component to 2^20 rows
+# (at 2^21 whole it reserved 0.680 of the card, in chunks 0.508), and
+# machine2's ex_alu to 2^22 (at 2^23 whole 0.962, in chunks 0.749)
+@pytest.mark.parametrize("family,log,whole", [
+    ("cpu", 20, True), ("cpu", 21, False),
+    ("ex_alu", 22, True), ("ex_alu", 23, False)])
+def test_one_pass_lde_at_once_by_size(fib_info, ex_alu_info, family, log,
+                                      whole):
+    info = {"cpu": fib_info, "ex_alu": ex_alu_info}[family]
+    m = T.MemoryConfig.for_bytes(H100_80GB)
+    nat = stark._natural_rows(info)
+    assert m.comp_passes(nat, log + 2) == 1
+    assert m.lde_whole(nat, stark._widest_role(info), log + 2) is whole
+
+
+def test_one_pass_lde_in_chunks_keeps_the_proof():
+    """A budget that holds every fib n = 10 component in one pass but
+    not the keccak component's natural columns beside its widest role's
+    whole LDE: keccak's LDE runs in column chunks, the proof is the
+    reference's."""
+    view, trace = tk_trace(tasm.assemble(tmach.FIB10_SRC), backend="python")
+    memory = T.MemoryConfig(comp_nat_budget=2_300_000)
+    comps, logs, _tr = tdriver.build_machine_traces(view, trace,
+                                                    device="cpu")
+    chunked = [c.name for c, n in zip(comps, logs) if not memory.lde_whole(
+        stark._natural_rows(component_info(c)),
+        stark._widest_role(component_info(c)), n + 2)]
+    assert chunked == ["keccak"]
+    with profiled() as prof:
+        proof = tdriver.prove_machine(view, trace, tmach.TCFG, device="cpu",
+                                      memory=memory)
+    assert set(prof.notes["composition_passes"]) == {1}
+    assert hashlib.blake2s(proof_to_bytes(proof)).hexdigest() == \
+        tmach.FIB10_PROOF_BLAKE2S
+
+
 def test_for_device_divides_the_card_among_its_ranks(monkeypatch):
     """On a card: total_memory over the mesh's ranks on that card."""
     props = type("Props", (), {"total_memory": H100_80GB})()
