@@ -2642,6 +2642,25 @@ def machine2_forced(view, log: int) -> dict:
             "comp_nat_budget": _natural_rows(info) * (4 << (log + 2)) // 4}
 
 
+def machine2_passes(view, log: int, total: int, passes: int) -> dict:
+    """MemoryConfig fields of a card of ``total`` bytes
+    (`MemoryConfig.for_bytes`, not fitted to the proof) but for a budget
+    that composes machine2's ex_alu at 2^log rows in ``passes`` row
+    passes."""
+    import dataclasses
+    from nexus_zkvm_tpu_torch.air.component import component_info
+    from nexus_zkvm_tpu_torch.machine2 import build_components2
+    from nexus_zkvm_tpu_torch.prover import MemoryConfig
+    from nexus_zkvm_tpu_torch.prover.stark import _natural_rows
+    alu = next(c for c in build_components2(view)[0] if c.name == "ex_alu")
+    fields = dataclasses.asdict(MemoryConfig.for_bytes(total))
+    fields["comp_nat_budget"] = _natural_rows(
+        component_info(alu)) * (4 << (log + 2)) // passes
+    if "fit_bytes" in fields:
+        fields["fit_bytes"] = None
+    return fields
+
+
 def phase_selftest() -> dict:
     """The prover's self-test on the card: the fib guest at n =
     FIB_PARITY_N through ``machine.prove_machine(..., selftest=True)``
@@ -3448,11 +3467,14 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
     fib guest at the same n through ``machine2.prove_machine2`` after
     ``LocalProver.trace`` (its largest family, ex_alu, at 2^log rows;
     ``m2_default`` the card's default route, ``m2_stream_forced``
-    `machine2_forced`'s; 3 warm proofs): a cold proof, ``warm`` warm
-    ones and a profiled one (with each phase's allocated and reserved
-    peaks), verify; seconds, phase times, the route the prover noted,
-    the allocated and reserved peaks of all of them, and whether the
-    card ran out of memory (then the proof is not tried again)."""
+    `machine2_forced`'s, ``m2_p<k>`` `machine2_passes`'; at most 3 warm
+    proofs): a cold proof, ``warm``
+    warm ones and a profiled one (with each phase's allocated and
+    reserved peaks, and the timeline of both at every scope's entry and
+    exit), which is then verified; seconds, phase times, the route the
+    prover noted, the allocated and reserved peaks of all of them, and
+    whether the card ran out of memory (then the proof is not tried
+    again)."""
     import torch
     from nexus_zkvm_tpu_torch import kernels
     from nexus_zkvm_tpu_torch.air.component import component_info
@@ -3469,8 +3491,10 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
         public_input=encode_u32s(FIB_PARITY_N))
     machine2 = name.startswith("m2_")
     if machine2:
-        route, seg, warm = name[3:], None, 3
-        fields = None if route == "default" else machine2_forced(view, log)
+        route, seg, warm = name[3:], None, min(warm, 3)
+        fields = (None if route == "default" else
+                  machine2_passes(view, log, total, int(route[1:]))
+                  if route.startswith("p") else machine2_forced(view, log))
     else:
         info = component_info(build_components(view, 1)[0][0])
         route, seg = route_segments(name)
@@ -3525,12 +3549,12 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
             memory=notes["memory"], streamed=notes["streamed"],
             composition_passes=max(notes["composition_passes"]),
             cache_released=notes.get("cache_released"),
+            unsplit_blocks=notes.get("unsplit_blocks"),
             log_sizes=proof.stark.log_sizes,
             cpu_components=None if machine2 else len(proof.stark.log_sizes)
             - len(build_components(view, 1)[0]) + 1,
             proof_blake2s=proof_digest(proof_to_bytes(proof)),
             phase_s=prof.times)
-        del view, proof
     # the profiled proof resets the peaks at each phase
     rec.update(
         peak_bytes=max(peaks[0], torch.cuda.max_memory_allocated(),
@@ -3538,11 +3562,14 @@ def time_memory_route(log: int, name: str, warm: int = 5) -> None:
         peak_reserved_bytes=max(peaks[1], torch.cuda.max_memory_reserved(),
                                 *(prof.reserved.values() if prof else [])),
         phase_peak_bytes=prof and prof.peaks,
-        phase_reserved_bytes=prof and prof.reserved)
+        phase_reserved_bytes=prof and prof.reserved,
+        # the profiled proof's scope boundaries: (scope, edge, GB
+        # allocated and reserved then, the most of each since the last)
+        memory_events_gb=prof and [
+            (path, edge, *(round(b / 1e9, 3) for b in v))
+            for path, edge, *v in getattr(prof, "events", ())])
     rec["reserved_share"] = rec["peak_reserved_bytes"] / total
     if not rec["oom"]:
-        torch.cuda.empty_cache()
-        view, proof = prove_once()
         rec["verified"] = bool(verify(view, proof))
     import resource
     rec["host_peak_rss_bytes"] = \
@@ -3565,7 +3592,13 @@ MACHINE2_ROUTES = tuple((log, f"m2_{r}") for log in (21, 22, 23)
                             (24, "m2_default"),)
 
 
-def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
+def _default_route(name: str) -> bool:
+    """Whether a `--time-memory` route is the card's default one."""
+    return route_segments(name)[0] in ("default", "m2_default")
+
+
+def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24,
+                opts: dict = None) -> int:
     """The memory mode's routes measured on this card: for each 2^log-row
     CPU component of the fib guest, every route of MEMORY_ROUTES, each in
     a fresh process (`time_memory_route`: cold and warm seconds, c:lde,
@@ -3577,17 +3610,23 @@ def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
     largest size proved as one component and the largest proved in
     segments (``time_memory_fit``); then machine2's runs of
     MACHINE2_ROUTES (kept apart: their own digests, fits and largest
-    size).  ``runs``: only these (log, route) pairs, in order."""
+    size).  ``runs``: only these (log, route) pairs, in order; ``opts``:
+    ``package``, another checkout's package measured in this one's
+    place, and ``warm``, the warm proofs a route.  Returns 1 when a
+    default route proved but reserved more than FIT_SHARE of the card
+    (``time_memory_over_fit``), else 0."""
     from nexus_zkvm_tpu_torch import kernels
     kernels.build()
     build_k7()
     fits, digests, proved, by_segments = {}, {}, set(), set()
+    over = []
+    extra = [a for k, v in (opts or {}).items() for a in (f"--{k}", v)]
 
     def run(log, name):
         try:
             r = subprocess.run(
                 [sys.executable, str(ROOT / "chip_smoke.py"),
-                 "--time-memory-route", str(log), name],
+                 "--time-memory-route", *extra, str(log), name],
                 capture_output=True, text=True, timeout=900, cwd=ROOT)
         except subprocess.TimeoutExpired:
             emit({"phase": "time_memory", "log_rows": log, "route": name,
@@ -3626,6 +3665,8 @@ def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
         if rec["reserved_share"] <= FIT_SHARE and (
                 key not in fits or rec["prove_s"] < fits[key][1]):
             fits[key] = (name, rec["prove_s"], rec["reserved_share"])
+        if rec["reserved_share"] > FIT_SHARE and _default_route(name):
+            over.append((log, name, rec["reserved_share"]))
     emit({"phase": "time_memory_fit", "fit_share": FIT_SHARE,
           "fastest_fitting": {str(k): v for k, v in fits.items()},
           "largest_log_rows_proved": max(proved) if proved else None,
@@ -3637,6 +3678,12 @@ def time_memory(runs=None, logs=(21, 22, 23), largest: int = 24) -> None:
     if bad:
         raise RuntimeError(f"routes gave different proofs at (machine2, "
                            f"2^log, segment log) {bad}")
+    if over:
+        # a default route must hold its reserved peak within the fit
+        emit({"phase": "time_memory_over_fit", "fit_share": FIT_SHARE,
+              "routes": over})
+        return 1
+    return 0
 
 
 def time_stream_kernels(comps, log_sizes, reps: int = 20) -> None:
@@ -3964,6 +4011,17 @@ def main() -> int:
     if timing and len(sys.argv) > 2:
         # another checkout's package, imported in its place
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+    memory_opts = {}
+    if sys.argv[1:2] in (["--time-memory"], ["--time-memory-route"]):
+        # --package DIR: that checkout's package in this one's place;
+        # --warm K: K warm proofs a route
+        args = sys.argv[2:]
+        while args[:1] in (["--package"], ["--warm"]):
+            memory_opts[args[0][2:]] = args[1]
+            args = args[2:]
+        sys.argv[2:] = args
+        if "package" in memory_opts:
+            sys.path.insert(0, str(Path(memory_opts["package"]).resolve()))
     try:
         from nexus_zkvm_tpu_torch import kernels
     except ImportError as e:
@@ -3976,13 +4034,14 @@ def main() -> int:
         segments_cpu(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--time-memory-route"]:
-        time_memory_route(int(sys.argv[2]), sys.argv[3])
+        time_memory_route(int(sys.argv[2]), sys.argv[3],
+                          int(memory_opts.get("warm", 5)))
         return 0
     if sys.argv[1:2] == ["--time-memory"]:
         # optional LOG:ROUTE arguments: only those runs
-        time_memory([(int(a.split(":")[0]), a.split(":")[1])
-                     for a in sys.argv[2:]] or None)
-        return 0
+        return time_memory([(int(a.split(":")[0]), a.split(":")[1])
+                            for a in sys.argv[2:]] or None,
+                           opts=memory_opts)
     if sys.argv[1:] == ["--mesh-nccl"]:
         mesh_nccl()
         return 0

@@ -76,42 +76,62 @@ def _ror(x, n: int):
     return ((x >> n) | (x << (32 - n))) & _M32
 
 
+# (10, 4, 4): each round's message rows of its four column G mixes' first
+# and second operands, then of its four diagonal mixes' (G g takes words
+# s[2g] and s[2g + 1] of the round's permutation s)
+_MSG_ROWS = torch.as_tensor(np.stack([[_SIGMA[r][o:o + 8:2]
+                                       for o in (0, 1, 8, 9)]
+                                      for r in range(10)]))
+
+
+def _g4(a, b, c, d, x, y):
+    """Four G mixes at once, on (4, R) rows of the state."""
+    a = (a + b + x) & _M32
+    d = _ror(d ^ a, 16)
+    c = (c + d) & _M32
+    b = _ror(b ^ c, 12)
+    a = (a + b + y) & _M32
+    d = _ror(d ^ a, 8)
+    c = (c + d) & _M32
+    b = _ror(b ^ c, 7)
+    return a, b, c, d
+
+
 def _compress_plain(h, m, t: int, last: bool):
-    """h: list of 8 (R,) int64 words; m: list of 16 (R,) int64 words."""
-    v = list(h) + [int(w) for w in _IV]
-    v[12] = v[12] ^ (t & _M32)
-    v[13] = v[13] ^ ((t >> 32) & _M32)
+    """h: (8, R) int64 words; m: (16, R) int64 words; the (8, R) state
+    after this block.  The state is four (4, R) rows a, b, c, d: a
+    round's column mixes are one batch of row operations on them, its
+    diagonal mixes one more on b, c, d rotated by 1, 2 and 3."""
+    iv = _IV.astype(np.int64)
+    iv[4] ^= t & _M32
+    iv[5] ^= (t >> 32) & _M32
     if last:
-        v[14] = v[14] ^ _M32
+        iv[6] ^= _M32
+    iv = torch.as_tensor(iv, device=h.device)[:, None]
+    a, b, c, d = h[:4], h[4:], iv[:4], iv[4:]
+    msg = m[_MSG_ROWS.to(m.device)]
     for r in range(10):
-        s = _SIGMA[r]
-        for g, (a, b, c, d) in enumerate(_G_IDX):
-            x, y = m[s[2 * g]], m[s[2 * g + 1]]
-            v[a] = (v[a] + v[b] + x) & _M32
-            v[d] = _ror(v[d] ^ v[a], 16)
-            v[c] = (v[c] + v[d]) & _M32
-            v[b] = _ror(v[b] ^ v[c], 12)
-            v[a] = (v[a] + v[b] + y) & _M32
-            v[d] = _ror(v[d] ^ v[a], 8)
-            v[c] = (v[c] + v[d]) & _M32
-            v[b] = _ror(v[b] ^ v[c], 7)
-    return [h[i] ^ v[i] ^ v[i + 8] for i in range(8)]
+        a, b, c, d = _g4(a, b, c, d, msg[r, 0], msg[r, 1])
+        a, b, c, d = _g4(a, b.roll(-1, 0), c.roll(-2, 0), d.roll(-3, 0),
+                         msg[r, 2], msg[r, 3])
+        b, c, d = b.roll(1, 0), c.roll(2, 0), d.roll(3, 0)
+    return torch.cat([h[:4] ^ a ^ c, h[4:] ^ b ^ d])
 
 
 def hash_rows_plain(msgs: torch.Tensor) -> torch.Tensor:
     """(R, W) int32 words -> (R, 8) int32 digests."""
     R, W = msgs.shape
-    words = msgs.to(torch.int64) & _M32
-    zero = torch.zeros(R, dtype=torch.int64, device=msgs.device)
     nblocks = max(1, -(-W // 16))
-    h = [torch.full((R,), int(w), dtype=torch.int64, device=msgs.device)
-         for w in initial_state()]
+    words = torch.zeros((16 * nblocks, R), dtype=torch.int64,
+                        device=msgs.device)
+    words[:W] = msgs.t().to(torch.int64) & _M32
+    h = torch.as_tensor(initial_state().astype(np.int64),
+                        device=msgs.device)[:, None].expand(8, R)
     for i in range(nblocks):
-        m = [words[:, 16 * i + j] if 16 * i + j < W else zero
-             for j in range(16)]
         last = i == nblocks - 1
-        h = _compress_plain(h, m, 4 * W if last else 64 * (i + 1), last)
-    return _to_int32(torch.stack(h, dim=1))
+        h = _compress_plain(h, words[16 * i:16 * (i + 1)],
+                            4 * W if last else 64 * (i + 1), last)
+    return _to_int32(h.t()).contiguous()
 
 
 def _to_int32(words: torch.Tensor) -> torch.Tensor:
@@ -138,20 +158,22 @@ def leaves_stream_plain(state, chunk: torch.Tensor, done: int, total: int,
     words = chunk[:, dev_bit_reverse(log_m, chunk.device)].t() \
         .to(torch.int64) & _M32
     if state is None:
-        h = [torch.full((M,), int(w), dtype=torch.int64, device=chunk.device)
-             for w in initial_state()]
+        h = torch.as_tensor(initial_state().astype(np.int64),
+                            device=chunk.device)[:, None].expand(8, M)
     else:
-        st = state.to(torch.int64) & _M32
-        h = [st[:, i] for i in range(8)]
-    zero = torch.zeros(M, dtype=torch.int64, device=chunk.device)
+        h = state.t().to(torch.int64) & _M32
     nb = _stream_blocks(c, last)
+    if nb * 16 > c:
+        words = torch.cat([words, torch.zeros((M, nb * 16 - c),
+                                              dtype=torch.int64,
+                                              device=chunk.device)], 1)
+    words = words.t()
     for b in range(nb):
-        m = [words[:, 16 * b + j] if 16 * b + j < c else zero
-             for j in range(16)]
         fin = last and b == nb - 1
-        h = _compress_plain(h, m, 4 * total if fin else
-                            4 * (done + 16 * (b + 1)), fin)
-    return _to_int32(torch.stack(h, dim=1))
+        h = _compress_plain(h, words[16 * b:16 * (b + 1)],
+                            4 * total if fin else 4 * (done + 16 * (b + 1)),
+                            fin)
+    return _to_int32(h.t()).contiguous()
 
 
 # ---------------------------------------------------------------------------

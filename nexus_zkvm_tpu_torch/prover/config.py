@@ -8,7 +8,7 @@ what it proves: the proof bytes are the same under any setting.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import torch
 
@@ -43,28 +43,36 @@ class MemoryConfig:
       a mesh rank: of its window's rows).  In one pass a role's LDE is
       evaluated at once only while it fits beside them within this
       budget (:meth:`lde_whole`), else in column chunks.
+    * ``fit_bytes``: what a proof may hold at once while it composes
+      (None: no such bound).  Where what it holds would exceed it, more
+      of its trees stream than ``stream_commit_bytes`` alone streams
+      (:meth:`fitted`).
 
     Under a mesh nothing streams, as in the JAX package.
 
     The entry points take ``memory=None``, which is :meth:`for_device`.
-    On the CPU that is the class defaults (2 GiB, 256 MiB, 8 GiB), the
-    thresholds the CPU tests compare with the JAX package's routes.  On
-    a CUDA card it is ``CARD_FRACTIONS`` of the card's memory M
-    (``total_memory``, divided among the mesh ranks on the card): trees
-    above M/8 stream, in chunks of M/64, and a composition runs in
-    passes of at most M/4.  The fractions are the fastest routes that
+    On the CPU that is the class defaults (2 GiB, 256 MiB, 8 GiB, no
+    fit bound), the thresholds the CPU tests compare with the JAX
+    package's routes.  On a CUDA card it is ``CARD_FRACTIONS`` of the
+    card's memory M (``total_memory``, divided among the mesh ranks on
+    the card): trees above M/8 stream, in chunks of M/64, a composition
+    runs in passes of at most M/4, and a proof holds at most 0.6 M
+    while it composes.  The fractions are the fastest routes that
     ``chip_smoke.py --time-memory`` measured within 0.85 M of reserved
     memory on an NVIDIA H100 80GB HBM3 at 700.00 W (M = 85,017,493,504
     bytes), for the fib guest's CPU component: resident in one pass at
     2^20 and 2^21 rows, resident in two passes at 2^22 (one pass runs
     out of memory), both trees streamed in four passes at 2^23 (the
-    largest trace that card proves).  The route is a function of the
+    largest trace that card proves); the fit bound streams machine2's
+    main tree too where ex_alu has 2^24 rows (held beside a pass, that
+    proof reserved 0.886 of the card).  The route is a function of the
     shapes and M alone: no fallback after an out-of-memory error, no
     reading of what else the card holds.
     """
     stream_commit_bytes: int = 2 << 30
     stream_chunk_bytes: int = 1 << 28
     comp_nat_budget: int = 8 << 30
+    fit_bytes: int | None = None
 
     @classmethod
     def for_bytes(cls, total: int) -> "MemoryConfig":
@@ -85,6 +93,28 @@ class MemoryConfig:
 
     def streams(self, nbytes: int) -> bool:
         return nbytes > self.stream_commit_bytes
+
+    def fitted(self, evals, fixed: int, pass_bytes: int) -> "MemoryConfig":
+        """This config for one proof: ``stream_commit_bytes`` lowered
+        where ``fit_bytes`` bounds the proof, so that what the proof
+        holds while it composes fits within it.  It holds ``fixed``
+        bytes (its trees' coefficients and Merkle layers, the
+        composition's buckets), the evaluations of the trees that do not
+        stream (``evals``: each committed tree's) and its largest
+        composition pass with an LDE chunk (``pass_bytes``).  The kept
+        trees of more than half ``stream_commit_bytes`` stream from the
+        largest down until that fits or none is left (a smaller one
+        frees too little for what its recomputation costs)."""
+        if self.fit_bytes is None:
+            return self
+        kept = sorted((e for e in evals if not self.streams(e)),
+                      reverse=True)
+        threshold = self.stream_commit_bytes
+        while kept and kept[0] > self.stream_commit_bytes // 2 and \
+                fixed + sum(kept) + pass_bytes > self.fit_bytes:
+            threshold = kept[0] - 1
+            kept = [e for e in kept if e <= threshold]
+        return replace(self, stream_commit_bytes=threshold)
 
     def chunk_cols(self, s: int) -> int:
         """Columns per streamed chunk of a 2^s domain."""
@@ -111,4 +141,4 @@ class MemoryConfig:
 # A card's thresholds, each field of MemoryConfig as a fraction of the
 # card's memory (see MemoryConfig)
 CARD_FRACTIONS = {"stream_commit_bytes": 1 / 8, "stream_chunk_bytes": 1 / 64,
-                  "comp_nat_budget": 1 / 4}
+                  "comp_nat_budget": 1 / 4, "fit_bytes": 0.6}

@@ -49,6 +49,7 @@ from ..ops.circle import (bit_reverse_indices, dev_bit_reverse,
                           dev_layout_to_natural, dev_natural_to_layout)
 from ..parallel import commit as pcommit
 from ..utils.device import from_u32, upload_i64
+from ..utils.profile import scope
 from .config import MemoryConfig
 
 __all__ = ["RoleCommitment", "commit_columns", "commit_blocks",
@@ -340,7 +341,8 @@ def _commit_group(mats: list, n: int, s: int, device, memory: MemoryConfig,
             (sh,)
     host = all(isinstance(m, np.ndarray) for m in mats)
     given = {m.data_ptr() for m in mats if isinstance(m, torch.Tensor)}
-    mat = _stack(mats, 1 << n, device)
+    with scope("g:stack"):
+        mat = _stack(mats, 1 << n, device)
     C = int(mat.shape[0])
     sh = pcommit.share(mesh, C, 1 << s)
     # nothing streams under a mesh, as in the JAX package
@@ -357,10 +359,12 @@ def _commit_group(mats: list, n: int, s: int, device, memory: MemoryConfig,
     if sh.size > 1:
         return (nat, span) + pcommit.commit_group(mesh, mat, n, s, natural) \
             + (sh,)
-    if natural and big and memory.streams(C * (4 << n)):
-        mat = _interpolate_big(mat, n, in_place=mine)
-    elif natural:
-        mat = cfft.interpolate(mat[:, dev_layout_to_natural(n, mat.device)])
+    with scope("g:interp"):
+        if natural and big and memory.streams(C * (4 << n)):
+            mat = _interpolate_big(mat, n, in_place=mine)
+        elif natural:
+            mat = cfft.interpolate(
+                mat[:, dev_layout_to_natural(n, mat.device)])
     if big:
         return (nat, span, mat, None,
                 _stream_commit(mat, s, memory.chunk_cols(s)), sh)

@@ -74,7 +74,8 @@ from ..air.tape import (gen_halo, generate_interaction, interaction_operands,
 from ..air.lookups import draw_relations
 from ..parallel import commit as pcommit
 from ..parallel.context import active_mesh
-from ..utils.device import resolve_device, dev_const, from_u32, to_u32
+from ..utils.device import (resolve_device, dev_const, from_u32, split_limit,
+                            to_u32)
 from ..utils.profile import note, scope
 from .config import MemoryConfig, PcsConfig
 from . import pcs
@@ -593,6 +594,43 @@ def _domain_accumulator(component, n: int, mats, relations, claimed, alpha,
     return acc if k else None
 
 
+def _tree_bytes(plan: Plan, log_sizes, blowup: int) -> tuple:
+    """({(role, eval size): bytes} of each committed trace tree's
+    evaluations, pre, main and inter; the bytes a proof holds besides
+    them while it composes: the trees' coefficients and Merkle layers,
+    the composition's buckets), from the plan's shapes."""
+    evals, fixed = {}, sum(16 << (n + 2) for n in set(log_sizes))
+    for role in ("pre", "main", "inter"):
+        cols = {}
+        for i in plan.by_role[role]:
+            n = plan.metas[i].trace_log
+            cols[n] = cols.get(n, 0) + 1
+        for n, C in cols.items():
+            evals[(role, n + blowup)] = C * (4 << (n + blowup))
+            fixed += C * (4 << n) + (32 << (n + blowup + 1))
+    return evals, fixed
+
+
+def _pass_bytes(memory: MemoryConfig, infos, log_sizes, passes) -> int:
+    """The largest composition pass of a proof (``passes[c]`` a
+    component) with the LDE chunk beside it."""
+    return max(_natural_rows(info) * (4 << (n + 2)) // p
+               + memory.chunk_cols(n + 2) * (4 << (n + 2))
+               for info, n, p in zip(infos, log_sizes, passes))
+
+
+def _fitted(memory: MemoryConfig, plan: Plan, infos, log_sizes,
+            blowup: int, mesh, passes) -> MemoryConfig:
+    """``memory`` fitted to this proof (`MemoryConfig.fitted` of
+    `_tree_bytes` and `_pass_bytes`); under a mesh, where nothing
+    streams, as it is."""
+    if mesh is not None:
+        return memory
+    evals, fixed = _tree_bytes(plan, log_sizes, blowup)
+    return memory.fitted(evals.values(), fixed,
+                         _pass_bytes(memory, infos, log_sizes, passes))
+
+
 def _comp_passes(memory: MemoryConfig, info, n: int, mesh) -> int:
     """Row passes of component (info, 2^n rows)'s composition: its 4x
     domain, or this rank's window of it, by the memory budget."""
@@ -602,7 +640,7 @@ def _comp_passes(memory: MemoryConfig, info, n: int, mesh) -> int:
 
 def _composition(components, infos, plan, log_sizes, relations,
                  claimed_sums, alpha, rcs, device,
-                 memory: MemoryConfig, mesh=None,
+                 memory: MemoryConfig, passes: list, mesh=None,
                  accs: dict = None) -> torch.Tensor:
     """(4, 2^comp_log) int32 composition coefficients.  Each component's
     columns are evaluated on its 4x domain in natural order, as blocks of
@@ -612,10 +650,10 @@ def _composition(components, infos, plan, log_sizes, relations,
     the memory budget is one window [0, N), its LDE one batch a role
     while the natural columns and its widest role's whole-domain
     evaluations fit the budget together (`MemoryConfig.lde_whole`), else
-    in column chunks; a larger one runs in row passes, its LDE in column
-    chunks, so at most 1/passes of its natural columns and one chunk's
-    evaluations exist at once.  Under ``mesh`` a
-    rank composes its window of each 4x domain that splits
+    in column chunks; a larger one runs in ``passes[c]`` row passes
+    (`_comp_passes`), its LDE in column chunks, so at most 1/passes of
+    its natural columns and one chunk's evaluations exist at once.
+    Under ``mesh`` a rank composes its window of each 4x domain that splits
     (``parallel.commit.window``), in passes by the window's bytes, its
     LDE in chunks of MESH_LDE_COLS columns whose coefficients come from
     their owners
@@ -625,7 +663,7 @@ def _composition(components, infos, plan, log_sizes, relations,
     pass, no mesh) gets each component's domain accumulator
     (`_domain_accumulator`) from the same blocks."""
     shifts = _alpha_shifts(infos)
-    buckets, all_passes = {}, []
+    buckets = {}
     for c, comp in enumerate(components):
         info, n = infos[c], log_sizes[c]
         ev = n + 2
@@ -634,19 +672,17 @@ def _composition(components, infos, plan, log_sizes, relations,
             buckets[ev] = torch.zeros((N, 4), dtype=torch.int32,
                                       device=device)
         w0, w1 = pcommit.window(mesh, N)
-        passes = _comp_passes(memory, info, n, mesh)
-        all_passes.append(passes)
         hneg, hpos = domain_halo(info)
         # a mesh rank evaluates each chunk on the whole 4x domain and
         # keeps only its window of it: the least chunk a streamed tree
         # takes
-        whole = passes == 1 and mesh is None and memory.lde_whole(
+        whole = passes[c] == 1 and mesh is None and memory.lde_whole(
             _natural_rows(info), _widest_role(info), ev)
         chunk = (MESH_LDE_COLS if mesh is not None and w1 - w0 < N else
                  None if whole else memory.chunk_cols(ev))
         sources = _composition_sources(c, n, info, plan, rcs, chunk)
         invv = inv_vanishing_natural(n, ev, device)
-        L = (w1 - w0) // passes
+        L = (w1 - w0) // passes[c]
         for lo in range(w0, w1, L):
             with scope("c:lde"):
                 mats = _lde_mats(sources, ev, lo - hneg, L + hneg + hpos,
@@ -662,7 +698,7 @@ def _composition(components, infos, plan, log_sizes, relations,
                         (lo, lo + L, hneg))
             del mats
         assert k == info.n_constraints
-    note("composition_passes", all_passes)
+    note("composition_passes", list(passes))
     comp_log = plan.n_comp_trace_log
     out = torch.zeros((4, 1 << comp_log), dtype=torch.int32, device=device)
     with scope("c:combine"):
@@ -704,80 +740,13 @@ def _quotients_streamed(role_rcs, s: int, xs, ys, consts, gcs,
     return quotients.colsum_finalize(acc, xs, ys, consts)
 
 
-def prove(components, log_sizes, main_traces, channel,
-          config: PcsConfig = PcsConfig(), device="cuda",
-          memory: MemoryConfig | None = None,
-          release_traces: bool = False, selftest: bool = False) -> Proof:
-    """components: list of Component; main_traces: per component either
-    a list of natural-order uint32 numpy columns of size 2^log_sizes[c]
-    or one (n_main, 2^log_sizes[c]) int32 tensor (committed as it is,
-    without a host round trip when it already lies on ``device``).  The
-    traces are read, never modified; with ``release_traces`` the list's
-    entries are set to None once committed, so a device trace is freed
-    after the interaction.  ``memory`` decides where the data is kept,
-    never the proof (None: `MemoryConfig.for_device` of ``device`` and
-    the active mesh); the thresholds and the route taken are noted on
-    the active profile (``memory``: the MemoryConfig's fields;
-    ``cache_released``: whether a proof on a card whose composition
-    runs in passes or one of whose trace trees streams had the
-    caching allocator emptied at its start, before the interaction's
-    commit, before the composition and at its end;
-    ``streamed``: the (role, eval size) trees committed column-streamed;
-    ``composition_passes``: each component's row passes; ``sharded``:
-    the (role, eval size) trees, and ("fri", size) layer trees, committed
-    in row windows over the active mesh; ``mesh_windows``: what this rank
-    holds of each (role, eval size) group, (role, s, (row lo, hi),
-    (column lo, hi)); ``interaction_windows``: the natural rows
-    (component, row lo, row hi) of each component's interaction this
-    rank made; ``natural_windows``: the natural values it kept for them,
-    (role, n, (row lo, rows, hneg), shape)).  Under an active mesh
-    (``parallel.use_mesh``)
-    every rank calls ``prove`` with the same arguments and gets the same
-    proof.
-
-    ``selftest``: the prover's self-test (`_oods_selftest`).  The
-    composition also keeps each component's domain accumulator; after
-    the OODS phase every sample is recomputed column by column, and each
-    component's verifier-side value at the OODS point is held to its
-    accumulator interpolated and evaluated there (a component that
-    differs gets its constraints compared one by one).  It prints
-    ``[selftest]`` lines and notes its findings as ``selftest``; the
-    proof is the same.  It runs on the resident, one-pass route only: a
-    streamed tree, a composition in passes or a mesh raises
-    ``ValueError`` before the first commit."""
-    dev = resolve_device(device)
-    mesh = active_mesh()
-    if mesh is not None and mesh.size == 1:
-        mesh = None
-    if memory is None:
-        memory = MemoryConfig.for_device(dev, mesh)
-    note("memory", dataclasses.asdict(memory))
-    infos = [component_info(c) for c in components]
-    plan = build_plan(log_sizes, infos, config)
-    blowup = config.fri.log_blowup
-    if selftest and (mesh is not None or any(
-            _comp_passes(memory, info, n, None) > 1
-            for info, n in zip(infos, log_sizes))
-            or _streams(memory, infos, log_sizes, blowup)
-            or memory.streams(4 * (4 << (plan.n_comp_trace_log + blowup)))):
-        raise ValueError("the self-test runs on the resident, one-pass "
-                         "route only: no streamed tree, no composition "
-                         "passes, no mesh")
-    # a composition in row passes or a streamed tree: the trace crowds
-    # the card, so the caching allocator's free blocks (the last
-    # proof's, then those of the phases before the interaction's commit
-    # and the composition) go back to the card, where blocks of the next
-    # phase's sizes can be carved
-    tight = dev.type == "cuda" and (any(
-        _comp_passes(memory, info, n, mesh) > 1
-        for info, n in zip(infos, log_sizes))
-        or (mesh is None and _streams(memory, infos, log_sizes, blowup)))
-    note("cache_released", tight)
-    if tight:
-        torch.cuda.empty_cache()
-    s0 = plan.n_comp_trace_log + blowup
-    channel.mix_u32s(np.asarray(log_sizes, np.uint32))
-
+def _commit_traces(components, infos, plan, log_sizes, main_traces,
+                   channel, dev, memory, mesh, blowup: int, tight: bool,
+                   release_traces: bool) -> tuple:
+    """`prove`'s commits of the preprocessed and main traces, the
+    interaction and its commit, each mixed into ``channel``: (pre, main
+    and interaction commitments, the drawn relations, the claimed
+    sums)."""
     # under a mesh the natural values are kept as row windows with the
     # halo the interaction's operands read
     halo = _gen_halos(components, infos, log_sizes) if mesh else None
@@ -817,6 +786,8 @@ def prove(components, log_sizes, main_traces, channel,
         with scope("k7:build"):
             build_kernels(components, log_sizes, relations)
     with scope("interaction"):
+        if tight:
+            torch.cuda.empty_cache()
         inter_cols, claimed = _interactions(components, infos, plan,
                                             log_sizes, relations, rc_pre,
                                             rc_main, dev, mesh)
@@ -850,6 +821,99 @@ def prove(components, log_sizes, main_traces, channel,
         if rc_inter is not None:
             rc_inter.mix_roots(channel)
 
+    return rc_pre, rc_main, rc_inter, relations, claimed_sums
+
+
+def prove(components, log_sizes, main_traces, channel,
+          config: PcsConfig = PcsConfig(), device="cuda",
+          memory: MemoryConfig | None = None,
+          release_traces: bool = False, selftest: bool = False) -> Proof:
+    """components: list of Component; main_traces: per component either
+    a list of natural-order uint32 numpy columns of size 2^log_sizes[c]
+    or one (n_main, 2^log_sizes[c]) int32 tensor (committed as it is,
+    without a host round trip when it already lies on ``device``).  The
+    traces are read, never modified; with ``release_traces`` the list's
+    entries are set to None once committed, so a device trace is freed
+    after the interaction.  ``memory`` decides where the data is kept,
+    never the proof (None: `MemoryConfig.for_device` of ``device`` and
+    the active mesh), fitted to this proof's shapes (`_fitted`); the
+    thresholds and the route taken are noted on the active profile
+    (``memory``: the fitted MemoryConfig's fields;
+    ``cache_released``: whether a proof on a card whose composition
+    runs in passes or one of whose trace trees streams had the
+    caching allocator emptied at its start, before the interaction,
+    before its commit, before the composition and at its end;
+    ``unsplit_blocks``: the bytes above which such a proof alone on its
+    card had the allocator split no cached block, from its first commit
+    through the interaction's commit (`utils.device.split_limit`), or
+    None;
+    ``streamed``: the (role, eval size) trees committed column-streamed;
+    ``composition_passes``: each component's row passes; ``sharded``:
+    the (role, eval size) trees, and ("fri", size) layer trees, committed
+    in row windows over the active mesh; ``mesh_windows``: what this rank
+    holds of each (role, eval size) group, (role, s, (row lo, hi),
+    (column lo, hi)); ``interaction_windows``: the natural rows
+    (component, row lo, row hi) of each component's interaction this
+    rank made; ``natural_windows``: the natural values it kept for them,
+    (role, n, (row lo, rows, hneg), shape)).  Under an active mesh
+    (``parallel.use_mesh``)
+    every rank calls ``prove`` with the same arguments and gets the same
+    proof.
+
+    ``selftest``: the prover's self-test (`_oods_selftest`).  The
+    composition also keeps each component's domain accumulator; after
+    the OODS phase every sample is recomputed column by column, and each
+    component's verifier-side value at the OODS point is held to its
+    accumulator interpolated and evaluated there (a component that
+    differs gets its constraints compared one by one).  It prints
+    ``[selftest]`` lines and notes its findings as ``selftest``; the
+    proof is the same.  It runs on the resident, one-pass route only: a
+    streamed tree, a composition in passes or a mesh raises
+    ``ValueError`` before the first commit."""
+    dev = resolve_device(device)
+    mesh = active_mesh()
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    if memory is None:
+        memory = MemoryConfig.for_device(dev, mesh)
+    infos = [component_info(c) for c in components]
+    plan = build_plan(log_sizes, infos, config)
+    blowup = config.fri.log_blowup
+    passes = [_comp_passes(memory, info, n, mesh)
+              for info, n in zip(infos, log_sizes)]
+    memory = _fitted(memory, plan, infos, log_sizes, blowup, mesh, passes)
+    note("memory", dataclasses.asdict(memory))
+    if selftest and (mesh is not None or max(passes) > 1
+            or _streams(memory, infos, log_sizes, blowup)
+            or memory.streams(4 * (4 << (plan.n_comp_trace_log + blowup)))):
+        raise ValueError("the self-test runs on the resident, one-pass "
+                         "route only: no streamed tree, no composition "
+                         "passes, no mesh")
+    # a composition in row passes or a streamed tree: the trace crowds
+    # the card, so the caching allocator's free blocks (the last
+    # proof's, then those of the phases before the interaction, its
+    # commit and the composition) go back to the card, where blocks of
+    # the next phase's sizes can be carved
+    tight = dev.type == "cuda" and (max(passes) > 1 or (
+        mesh is None and _streams(memory, infos, log_sizes, blowup)))
+    note("cache_released", tight)
+    # and, alone on its card, while the traces are committed and their
+    # interaction made, the allocator splits no cached block above a
+    # streamed chunk for a smaller request: no long-lived buffer of those
+    # phases pins a freed block of a trace's size, which the release
+    # before the next phase gives back whole (the composition, whose
+    # passes and chunks take blocks of many sizes, splits them again)
+    unsplit = memory.stream_chunk_bytes if tight and mesh is None else None
+    note("unsplit_blocks", unsplit)
+    if tight:
+        torch.cuda.empty_cache()
+    s0 = plan.n_comp_trace_log + blowup
+    channel.mix_u32s(np.asarray(log_sizes, np.uint32))
+    with split_limit(unsplit):
+        rc_pre, rc_main, rc_inter, relations, claimed_sums = _commit_traces(
+            components, infos, plan, log_sizes, main_traces, channel, dev,
+            memory, mesh, blowup, tight, release_traces)
+
     with scope("composition"):
         if tight:
             torch.cuda.empty_cache()
@@ -858,7 +922,7 @@ def prove(components, log_sizes, main_traces, channel,
         accs = {} if selftest else None
         comp_coeffs = _composition(components, infos, plan, log_sizes,
                                    relations, claimed_sums, alpha, rcs, dev,
-                                   memory, mesh, accs)
+                                   memory, passes, mesh, accs)
         rcs["comp"] = pcs.commit_from_coeffs("comp", comp_coeffs,
                                              plan.n_comp_trace_log, blowup,
                                              memory, mesh)

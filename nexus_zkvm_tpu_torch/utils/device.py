@@ -12,13 +12,15 @@ bit pattern of the ``uint32`` word; numpy sees them as ``uint32`` through
 
 from __future__ import annotations
 
+import os
 import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 __all__ = ["resolve_device", "from_u32", "to_u32", "dev_const",
-           "upload_i64"]
+           "upload_i64", "split_limit"]
 
 
 def resolve_device(device) -> torch.device:
@@ -52,16 +54,22 @@ def dev_const(name: str, log_size: int, device, build) -> torch.Tensor:
     """Device copy of ``build()`` cached under ``(name, log_size, device)``.
 
     ``build`` returns a numpy array: uint32 arrays become int32 tensors
-    (same bits), integer index arrays become int64 tensors."""
+    (same bits), integer index arrays become int64 tensors.  On a card
+    the copy, kept for the process's life, takes a block of about its
+    own size (`split_limit`): carved out of a freed block of a trace's
+    size, it would keep the rest of that block from the card for good."""
     key = (name, int(log_size), str(torch.device(device)))
     with _LOCK:
         v = _CACHE.get(key)
     if v is None:
         arr = np.asarray(build())
-        if arr.dtype == np.uint32:
-            v = from_u32(arr, device)
-        else:
-            v = torch.from_numpy(np.ascontiguousarray(arr, np.int64)).to(device)
+        cuda = torch.device(device).type == "cuda"
+        with split_limit(arr.nbytes * 2 if cuda else None):
+            if arr.dtype == np.uint32:
+                v = from_u32(arr, device)
+            else:
+                v = torch.from_numpy(np.ascontiguousarray(
+                    arr, np.int64)).to(device)
         with _LOCK:
             _CACHE[key] = v
     return v
@@ -78,3 +86,50 @@ def upload_i64(arr, device) -> torch.Tensor:
     if dev.type != "cuda":
         return t.to(dev)
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _allocator_setting(setting: str) -> None:
+    put = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (put or torch.cuda.memory._set_allocator_settings)(setting)
+
+
+def _own_split_mb() -> int:
+    """The process's own ``max_split_size_mb`` (its
+    ``PYTORCH_CUDA_ALLOC_CONF``), else one that splits any block (the
+    most an int32 holds)."""
+    for opt in os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "").split(","):
+        key, _sep, val = opt.partition(":")
+        if key.strip() == "max_split_size_mb":
+            return int(val)
+    return (1 << 31) - 1
+
+
+# the max_split_size_mb the innermost split_limit set (None: the
+# process's own)
+_SPLIT_MB = None
+
+
+@contextmanager
+def split_limit(nbytes):
+    """The CUDA caching allocator's ``max_split_size`` for the enclosed
+    block: a cached free block above ``nbytes`` (at least 21 MiB; within
+    another such block, the smaller of the two) is never split to serve
+    a smaller request, only one of about its size, so no long-lived
+    small buffer pins it and an emptied cache gives it back to the card
+    whole.  None: the allocator as it is.  The setting before comes back
+    after."""
+    global _SPLIT_MB
+    if nbytes is None:
+        yield
+        return
+    before = _SPLIT_MB
+    _SPLIT_MB = max(21, nbytes >> 20)
+    if before is not None:
+        _SPLIT_MB = min(_SPLIT_MB, before)
+    _allocator_setting(f"max_split_size_mb:{_SPLIT_MB}")
+    try:
+        yield
+    finally:
+        _SPLIT_MB = before
+        _allocator_setting("max_split_size_mb:%d" % (
+            _own_split_mb() if before is None else before))

@@ -9,8 +9,10 @@ issued.  ``note(key, value)`` records what a run decided
 (``prof.notes``), also a no-op without one.  ``profiled(memory=True)``
 also keeps each top-level phase's peak device memory (``prof.peaks``,
 bytes allocated; ``prof.reserved``, bytes the caching allocator held;
-the card's peak counters are reset as each top-level scope starts and
-ends, so ``"(between)"`` holds the most reached outside them).
+the card's peak counters are reset at every scope's start and end, and
+what they reached since the last reset is folded into the top-level
+phase around it, so ``"(between)"`` holds the most reached outside
+them) and the timeline of those resets (``prof.events``).
 
 Usage::
 
@@ -42,6 +44,10 @@ class Profiler:
         self.notes: dict[str, object] = {}
         self.peaks: dict[str, int] = {}     # top-level scope -> bytes
         self.reserved: dict[str, int] = {}  # top-level scope -> bytes
+        # with memory: at each scope's entry and exit (any depth),
+        # (scope path, "enter" or "exit", bytes allocated and reserved
+        # then, the most of each since the previous event)
+        self.events: list[tuple] = []
         self.memory = False
         self._stack: list[str] = []
         self._t0 = time.perf_counter()
@@ -106,31 +112,34 @@ def scope(name: str):
             progress.phase_exit(name, shown)
         return
     _sync()
-    top = prof.memory and not prof._stack
-    if top:
-        _peak(prof, "(between)")
-        torch.cuda.reset_peak_memory_stats()
+    if prof.memory:
+        _mark(prof, "/".join(prof._stack + [name]), "enter")
     prof._stack.append(name)
     t0 = time.perf_counter()
     try:
         yield
     finally:
         _sync()
-        if top:
-            _peak(prof, name)
-            torch.cuda.reset_peak_memory_stats()
         key = "/".join(prof._stack)
+        if prof.memory:
+            _mark(prof, key, "exit")
         prof.times[key] = prof.times.get(key, 0.0) + time.perf_counter() - t0
         prof.counts[key] = prof.counts.get(key, 0) + 1
         prof._stack.pop()
         progress.phase_exit(name, shown)
 
 
-def _peak(prof: Profiler, key: str) -> None:
-    prof.peaks[key] = max(prof.peaks.get(key, 0),
-                          torch.cuda.max_memory_allocated())
-    prof.reserved[key] = max(prof.reserved.get(key, 0),
-                             torch.cuda.max_memory_reserved())
+def _mark(prof: Profiler, path: str, edge: str) -> None:
+    """Fold the card's peaks since the last mark into the top-level
+    phase around them, note the event and reset the peaks."""
+    key = prof._stack[0] if prof._stack else "(between)"
+    peak, held = (torch.cuda.max_memory_allocated(),
+                  torch.cuda.max_memory_reserved())
+    prof.peaks[key] = max(prof.peaks.get(key, 0), peak)
+    prof.reserved[key] = max(prof.reserved.get(key, 0), held)
+    prof.events.append((path, edge, torch.cuda.memory_allocated(),
+                        torch.cuda.memory_reserved(), peak, held))
+    torch.cuda.reset_peak_memory_stats()
 
 
 def note(key: str, value) -> None:

@@ -21,6 +21,7 @@ from nexus_zkvm_tpu_torch.ops import blake2s, quotients
 from nexus_zkvm_tpu_torch.ops.circle import (TILE_LOG, bit_reverse_indices,
                                              brev_tile_plan)
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 THREADS = 1 << 2 * TILE_LOG        # NZT_TILE_THREADS: a thread a point

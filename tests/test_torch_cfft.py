@@ -13,6 +13,7 @@ import pytest
 from nexus_zkvm_tpu.ops import cfft as RC
 from nexus_zkvm_tpu_torch.ops import cfft as TC
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 

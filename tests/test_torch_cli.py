@@ -20,6 +20,7 @@ import torch
 
 from nexus_zkvm_tpu_torch.cli import main
 from nexus_zkvm_tpu_torch.sdk import Guest
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parent.parent
 FIB = str(ROOT / "examples" / "guests" / "fib.s")
@@ -32,7 +33,7 @@ FIB10_BUNDLE_BLAKE2S = \
 
 
 def cli(*args, cwd=None):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     env.pop("NZT_PROGRESS", None)
     return subprocess.run([sys.executable, "-m", "nexus_zkvm_tpu_torch.cli",
                            *args], cwd=cwd or ROOT, env=env,

@@ -36,6 +36,7 @@ from nexus_zkvm_tpu_torch.ops.circle import committed_points
 from nexus_zkvm_tpu_torch.ops.field import (
     np_m31_pow, np_qm31_mul, np_qm31_sub)
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 U = np.uint64

@@ -3,11 +3,13 @@ proves and verifies the fib guest through `sdk.LocalProver`, on the CPU
 with ``--cpu``; without it, on a machine with no card, it raises rather
 than fall back to the CPU."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLE = ROOT / "examples" / "prove_fib_torch.py"
@@ -15,6 +17,7 @@ EXAMPLE = ROOT / "examples" / "prove_fib_torch.py"
 
 def _run(*args):
     return subprocess.run([sys.executable, str(EXAMPLE), *args], cwd=ROOT,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"),
                           capture_output=True, text=True, timeout=600)
 
 

@@ -10,6 +10,7 @@ import torch
 
 from nexus_zkvm_tpu.ops import field as RF
 from nexus_zkvm_tpu_torch.ops import field as TF
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = RF.P
 RNG = np.random.default_rng(1234)

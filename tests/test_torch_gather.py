@@ -34,6 +34,7 @@ from nexus_zkvm_tpu_torch.ops.merkle import (GATHER_FIELDS, GATHER_UNIT,
                                              gather_openings_plain,
                                              gather_plan)
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 THREADS = 256                    # kThreads of csrc/gather.cu
 D = {name: i for i, name in enumerate(GATHER_FIELDS)}

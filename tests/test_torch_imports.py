@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -49,6 +49,7 @@ from nexus_zkvm_tpu_torch.air.tape import (
 from nexus_zkvm_tpu_torch.machine import driver as tdriver
 from nexus_zkvm_tpu_torch.prover.stark import _relation_widths
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 SHIFTED_LOG = 6

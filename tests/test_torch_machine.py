@@ -48,6 +48,7 @@ from nexus_zkvm_tpu_torch.sdk.serialize import (proof_to_bytes,
                                                 proof_from_bytes)
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
 from nexus_zkvm_tpu_torch.vm import asm as tasm, k_trace as tk_trace
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 EXIT = chip_smoke.EXIT_ASM
 FIB10_SRC = """

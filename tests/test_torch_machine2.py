@@ -31,6 +31,7 @@ from nexus_zkvm_tpu_torch.machine2 import (EXEC_FAMILIES,
 from nexus_zkvm_tpu_torch.sdk import LocalProver, encode_u32s
 from nexus_zkvm_tpu_torch.utils.device import to_u32
 from nexus_zkvm_tpu_torch.vm import asm, k_trace
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 EXIT = """
     addi a0, zero, 0

@@ -26,6 +26,7 @@ from nexus_zkvm_tpu_torch.machine2 import (EXEC_FAMILIES,
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
 from nexus_zkvm_tpu_torch.vm import asm, k_trace
 from test_torch_machine2 import EXIT, PROGRAMS
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 # the JAX harness's messages on each case, recorded from the JAX package

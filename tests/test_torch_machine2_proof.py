@@ -28,6 +28,7 @@ from nexus_zkvm_tpu_torch.sdk.serialize import proof_to_bytes
 from nexus_zkvm_tpu_torch.utils.profile import profiled
 from nexus_zkvm_tpu_torch.vm import asm, k_trace
 from test_torch_machine2 import EXIT, PROGRAMS
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 FIB_SRC = PROGRAMS["fib"] + EXIT
 TCFG = T.PcsConfig(pow_bits=2, fri=T.FriConfig(log_blowup=1,

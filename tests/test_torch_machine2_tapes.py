@@ -28,6 +28,7 @@ from test_torch_machine2 import EXIT, PROGRAMS
 from test_torch_tape_cuda import (_composition_inputs, _host_build,
                                   _host_composition, _plain_composition,
                                   _ptr, _u32)
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 LOG = 5
 NAMES = [f.name for f in EXEC_FAMILIES]

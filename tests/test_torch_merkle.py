@@ -10,6 +10,7 @@ import pytest
 from nexus_zkvm_tpu.ops import blake2s as RB, merkle as RM
 from nexus_zkvm_tpu_torch.ops import blake2s as TB, merkle as TM
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 RNG = np.random.default_rng(5)
 

@@ -39,6 +39,7 @@ from nexus_zkvm_tpu_torch.sdk import Guest, LocalProver, proof_to_bytes
 import test_torch_machine as tmach
 import test_torch_segments as tseg
 import torch_mesh as tm
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 MIXED_SEG_LOG = 7
 MIXED_SEGMENTS = 4

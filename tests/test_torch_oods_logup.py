@@ -47,6 +47,7 @@ from nexus_zkvm_tpu_torch.prover.stark import (
     _relation_widths, oods_dot_groups, oods_dot_groups_plain,
     oods_dot_plain, oods_plan)
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 THREADS = 256                    # kThreads of csrc/oods.cu

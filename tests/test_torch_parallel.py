@@ -58,6 +58,7 @@ import test_torch_machine as tmach
 import test_torch_machine2_proof as tm2
 import test_torch_stark as tstark
 import torch_mesh as tm
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 LOG, BLOWUP = 8, 1
 S = LOG + BLOWUP

@@ -17,6 +17,7 @@ from nexus_zkvm_tpu.ops.circle import (
 from nexus_zkvm_tpu_torch.channel import Blake2sChannel as TChannel
 from nexus_zkvm_tpu_torch.ops import fri as TF, quotients as TQ
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 

@@ -44,6 +44,7 @@ from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
 
 import test_torch_machine as tmach
 from test_torch_memory_route import H100_80GB
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 # blake2s of the JAX package's `prove_machine(view, trace, RCFG,
 # segment_log=5)` proof of FIB10_SRC (58 steps: two CPU components of

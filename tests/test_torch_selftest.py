@@ -33,6 +33,7 @@ from nexus_zkvm_tpu_torch.utils.profile import profiled
 from nexus_zkvm_tpu_torch.vm import asm as tasm, k_trace as tk_trace
 import test_torch_stark as ts
 from test_torch_machine import FIB10_PROOF_BLAKE2S, FIB10_SRC, TCFG
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 # the JAX package's `[selftest]` lines for `machine.driver.prove_machine`
 # of FIB10_SRC at TCFG under NZT_PROVE_SELFTEST=1 (XLA:CPU); the slow

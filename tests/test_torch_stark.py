@@ -18,6 +18,7 @@ from nexus_zkvm_tpu.ops.fri import FriConfig as RFriConfig
 from nexus_zkvm_tpu.prover import PcsConfig as RPcsConfig, prove as rprove
 import nexus_zkvm_tpu_torch as T
 from nexus_zkvm_tpu_torch.ops import fri as TF, merkle as TM
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 RCFG = RPcsConfig(pow_bits=4, fri=RFriConfig(log_blowup=1, log_last_layer=0,

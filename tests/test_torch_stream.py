@@ -38,6 +38,7 @@ from nexus_zkvm_tpu_torch.utils.profile import profiled
 from nexus_zkvm_tpu_torch.vm import asm as tasm, k_trace as tk_trace
 import test_torch_machine as tmach
 import test_torch_stark as tstark
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 

@@ -48,6 +48,7 @@ from nexus_zkvm_tpu_torch.prover.stark import (
     _relation_widths, oods_dot, oods_dot_plain)
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
 from nexus_zkvm_tpu_torch.vm import asm as tasm, k_trace as tk_trace
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 LOG = 3                      # trace rows 2^3, evaluation rows 2^5

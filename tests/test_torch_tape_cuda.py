@@ -54,6 +54,7 @@ from nexus_zkvm_tpu_torch.ops.field import np_qm31_add, np_qm31_mul
 from nexus_zkvm_tpu_torch.prover.stark import _relation_widths
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
 from nexus_zkvm_tpu_torch.vm import asm as tasm, k_trace as tk_trace
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 P = (1 << 31) - 1
 SYNTHETIC = ("wide_squares", "vals_table", "traps")

@@ -27,6 +27,7 @@ from nexus_zkvm_tpu_torch.machine.cpu import CPU_SCHEMA
 from nexus_zkvm_tpu_torch.machine.driver import build_machine_traces
 from nexus_zkvm_tpu_torch.utils.device import from_u32, to_u32
 from nexus_zkvm_tpu_torch.vm import asm, k_trace
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 EXIT = """
     addi a0, zero, 0

@@ -13,6 +13,7 @@ from nexus_zkvm_tpu_torch.utils import (Profiler, active_profiler,
                                         enable_progress, disable_progress,
                                         profiled, scope)
 from nexus_zkvm_tpu_torch.utils import progress as prog_mod
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 
 def test_profiler_records_nested_scopes():
@@ -148,3 +149,50 @@ def test_host_profile_decorator(tmp_path):
     assert len(after - before) == 1
     assert any(p.startswith("outer") for p in after)
     assert "profile:unit" in open(outer.last_report_path).read()
+
+
+def test_memory_timeline_folds_into_top_level_peaks(monkeypatch):
+    """``profiled(memory=True)``: at every scope's entry and exit the
+    card's peaks since the last one are noted (``prof.events``) and
+    folded into the top-level phase around them, so a nested scope's
+    reset loses nothing of its phase's peak (the card's counters
+    faked)."""
+    import torch
+    card = {"now": 0, "peak": 0, "held": 0, "held_peak": 0}
+
+    def alloc(n):
+        card["now"] += n
+        card["peak"] = max(card["peak"], card["now"])
+        card["held"] = max(card["held"], card["now"])
+        card["held_peak"] = max(card["held_peak"], card["held"])
+
+    def reset():
+        card["peak"], card["held_peak"] = card["now"], card["held"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", reset)
+    for name, key in (("memory_allocated", "now"),
+                      ("max_memory_allocated", "peak"),
+                      ("memory_reserved", "held"),
+                      ("max_memory_reserved", "held_peak")):
+        monkeypatch.setattr(torch.cuda, name, lambda key=key: card[key])
+    with profiled(memory=True) as prof:
+        alloc(5)
+        with scope("commit"):
+            with scope("stack"):
+                alloc(10)
+                alloc(-10)
+            alloc(3)
+        with scope("compose"):
+            alloc(1)
+    # between the phases: 5 before the first, 8 after it
+    assert prof.peaks == {"(between)": 8, "commit": 15, "compose": 9}
+    assert prof.reserved == {"(between)": 15, "commit": 15, "compose": 15}
+    assert [e[:2] for e in prof.events] == [
+        ("commit", "enter"), ("commit/stack", "enter"),
+        ("commit/stack", "exit"), ("commit", "exit"),
+        ("compose", "enter"), ("compose", "exit")]
+    # (allocated, reserved, the most of each since the last event)
+    assert [e[2:] for e in prof.events] == [
+        (5, 5, 5, 5), (5, 5, 5, 5), (5, 15, 15, 15), (8, 15, 8, 15),
+        (8, 15, 8, 15), (9, 15, 9, 15)]

@@ -18,6 +18,7 @@ from nexus_zkvm_tpu.vm import asm as rasm, k_trace as rk_trace
 from nexus_zkvm_tpu_torch.sdk import Guest as TGuest
 from nexus_zkvm_tpu_torch.vm import asm as tasm, k_trace as tk_trace
 from nexus_zkvm_tpu_torch.vm.native import native_available
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 GUESTS = Path(__file__).resolve().parent.parent / "examples" / "guests"
 
